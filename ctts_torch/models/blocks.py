@@ -52,6 +52,38 @@ class SinusoidalPositionalEmbedding(nn.Module):
         return self.table[pos]
 
 
+class Dropout(nn.Module):
+    """Inverted dropout whose mask is drawn from an explicit
+    ``torch.Generator`` on the tensor's device (``nn.Dropout`` takes none).
+    The identity in eval mode. ``set_dropout_generator`` hands every Dropout
+    of a model the train state's generator; with none set, the device's
+    default generator is used."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = float(p)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
+
+
+def set_dropout_generator(module, generator):
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+def grad_scale(x, scale):
+    """x in the forward pass, scale·dx in the backward pass."""
+    sg = x.detach()
+    return sg + scale * (x - sg)
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm with eps 1e-12, normalizing in float32 and returning
     ``dtype``."""

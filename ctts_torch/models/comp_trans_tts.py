@@ -1,5 +1,7 @@
 """CompTransTTS: encoder → variance adaptor → decoder → mel + postnet
-(ctts_tpu/models/comp_trans_tts.py), inference mode."""
+(ctts_tpu/models/comp_trans_tts.py), in the ``infer`` and ``train_unsup``
+modes. Dropout and the postnet's batch statistics follow the module's
+``training`` flag (``model.train()`` is the JAX ``deterministic=False``)."""
 
 import json
 import os
@@ -54,24 +56,31 @@ class CompTransTTS(nn.Module):
             dec_h, preprocess_config["preprocessing"]["mel"]["n_mel_channels"])
         self.postnet = PostNet()
 
-    def forward(self, speakers, texts, src_lens, mode, max_mel_len=None,
-                p_control=1.0, e_control=1.0, d_control=1.0):
-        """mode must be "infer"; max_mel_len is the frame budget.
+    def forward(self, speakers, texts, src_lens, mode, mels=None,
+                mel_lens=None, pitch_targets=None, energy_targets=None,
+                attn_priors=None, p_control=1.0, e_control=1.0,
+                d_control=1.0, step=None, max_mel_len=None):
+        """mode: "infer" | "train_unsup".
 
-        texts [B, T_s] int, src_lens [B]. Returns a dict whose keys follow
-        the JAX model's (the training-only entries are absent).
+        texts [B, T_s] int, src_lens [B]; in training mels [B, T_m, n_mel],
+        mel_lens [B], the targets, the prior and the host int ``step``; at
+        inference max_mel_len is the frame budget. Returns the JAX model's
+        output dict (without the entries of unported options).
         """
-        if mode != "infer":
-            raise NotImplementedError(
-                f"mode {mode!r}: training is ported in slice B "
-                "(ROADMAP.md §1 items 7-9)")
-        if max_mel_len is None:
-            raise ValueError("max_mel_len (the frame budget) must be given")
         src_masks = get_mask_from_lengths(src_lens, texts.shape[1])
-        output, _ = self.encoder(texts, src_masks)
-        va = self.variance_adaptor(output, src_masks, mode, max_mel_len,
-                                   p_control=p_control, e_control=e_control,
-                                   d_control=d_control)
+        mel_masks = None
+        if mels is not None:
+            max_mel_len = mels.shape[1]
+            mel_masks = get_mask_from_lengths(mel_lens, max_mel_len)
+        elif max_mel_len is None:
+            raise ValueError("max_mel_len (the frame budget) must be given")
+        output, text_embeds = self.encoder(texts, src_masks)
+        va = self.variance_adaptor(
+            output, src_masks, mode, max_mel_len, p_control=p_control,
+            e_control=e_control, d_control=d_control,
+            text_embedding=text_embeds, src_len=src_lens, mel=mels,
+            mel_len=mel_lens, mel_mask=mel_masks, pitch_target=pitch_targets,
+            energy_target=energy_targets, attn_prior=attn_priors, step=step)
         dec_out, mel_masks = self.decoder(va["x"], va["mel_mask"])
         mel_pred = self.mel_linear(dec_out)
         postnet_out = self.postnet(mel_pred) + mel_pred
@@ -86,5 +95,8 @@ class CompTransTTS(nn.Module):
             "mel_masks": mel_masks,
             "src_lens": src_lens,
             "mel_lens": va["mel_len"],
+            "attn_outs": va["attn_out"],
+            "pitch_targets": va["pitch_target"],
+            "energy_targets": va["energy_target"],
             "mel2ph": va["mel2ph"],
         }

@@ -1,27 +1,27 @@
-"""Variance predictors (ctts_tpu/models/predictors.py), inference heads.
+"""Variance predictors (ctts_tpu/models/predictors.py).
 
-Conv → ReLU → LayerNorm (→ dropout) stacks with a final linear head; the
+Conv → ReLU → LayerNorm → dropout stacks with a final linear head; the
 pitch/energy predictors add learned-alpha sinusoidal positions. Each conv
 layer is an ``nn.Sequential`` laid out like upstream's
 ``(pad, conv, relu, layer_norm, dropout)``, so its parameters sit at
-``conv.{i}.1`` and ``conv.{i}.3``. Dropout is an identity here: the port
-serves inference only.
+``conv.{i}.1`` and ``conv.{i}.3``. The caller scales the gradient into a
+predictor with :func:`ctts_torch.models.blocks.grad_scale`.
 """
 
 import torch
 from torch import nn
 
-from ctts_torch.models.blocks import (Conv1d, LayerNorm, Linear,
+from ctts_torch.models.blocks import (Conv1d, Dropout, LayerNorm, Linear,
                                       SinusoidalPositionalEmbedding)
 
 
 class ConvStack(nn.ModuleList):
-    def __init__(self, n_layers, in_chans, n_chans, kernel_size):
+    def __init__(self, n_layers, in_chans, n_chans, kernel_size, dropout):
         super().__init__(
             nn.Sequential(nn.Identity(),
                           Conv1d(in_chans if i == 0 else n_chans, n_chans,
                                  kernel_size),
-                          nn.ReLU(), LayerNorm(n_chans), nn.Identity())
+                          nn.ReLU(), LayerNorm(n_chans), Dropout(dropout))
             for i in range(n_layers))
 
     def forward(self, x, padding_mask=None):
@@ -42,14 +42,15 @@ class DurationPredictor(nn.Module):
     """Log-domain duration head with the mse/huber head (width 1)."""
 
     def __init__(self, in_chans, n_layers=2, n_chans=256, kernel_size=3,
-                 padding="SAME", dur_loss="mse"):
+                 dropout=0.5, padding="SAME", dur_loss="mse"):
         super().__init__()
         _check_padding(padding)
         if dur_loss not in ("mse", "huber"):
             raise NotImplementedError(
                 f"dur_loss {dur_loss!r} (mog/crf duration heads) is not "
                 "ported yet (ROADMAP.md §1 item 10)")
-        self.conv = ConvStack(n_layers, in_chans, n_chans, kernel_size)
+        self.conv = ConvStack(n_layers, in_chans, n_chans, kernel_size,
+                              dropout)
         self.linear = Linear(n_chans, 1)
 
     def forward(self, x, padding_mask):
@@ -62,13 +63,15 @@ class PitchPredictor(nn.Module):
     """Pitch/CWT/energy head with learned-alpha positions → [B, T, odim]."""
 
     def __init__(self, in_chans, odim=2, n_layers=2, n_chans=256,
-                 kernel_size=5, padding="SAME", max_positions=4096):
+                 kernel_size=5, dropout=0.5, padding="SAME",
+                 max_positions=4096):
         super().__init__()
         _check_padding(padding)
         self.pos_embed_alpha = nn.Parameter(torch.ones(1))
         self.embed_positions = SinusoidalPositionalEmbedding(
             in_chans, max_positions)
-        self.conv = ConvStack(n_layers, in_chans, n_chans, kernel_size)
+        self.conv = ConvStack(n_layers, in_chans, n_chans, kernel_size,
+                              dropout)
         self.linear = Linear(n_chans, odim)
 
     def forward(self, x, padding_mask):

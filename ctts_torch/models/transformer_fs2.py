@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ctts_torch.models.blocks import (Conv1d, LayerNorm, Linear,
+from ctts_torch.models.blocks import (Conv1d, Dropout, LayerNorm, Linear,
                                       MultiHeadAttention,
                                       SinusoidalPositionalEmbedding)
 from ctts_torch.text.symbols import symbols
@@ -24,9 +24,9 @@ def dtype_of(model_config):
 
 
 class FFNLayer(nn.Module):
-    """Conv(k) → ×k^-0.5 → gelu → Linear."""
+    """Conv(k) → ×k^-0.5 → gelu → dropout → Linear."""
 
-    def __init__(self, hidden, filter_size, kernel_size, act="gelu",
+    def __init__(self, hidden, filter_size, kernel_size, dropout, act="gelu",
                  dtype=torch.float32):
         super().__init__()
         if act not in ("gelu", "relu", "swish"):
@@ -34,6 +34,7 @@ class FFNLayer(nn.Module):
         self.kernel_size = kernel_size
         self.act = act
         self.ffn_1 = Conv1d(hidden, filter_size, kernel_size, dtype=dtype)
+        self.dropout = Dropout(dropout)
         self.ffn_2 = Linear(filter_size, hidden, dtype=dtype)
 
     def forward(self, x):
@@ -44,28 +45,30 @@ class FFNLayer(nn.Module):
             x = F.relu(x)
         else:
             x = F.silu(x)
-        return self.ffn_2(x)
+        return self.ffn_2(self.dropout(x))
 
 
 class EncSALayer(nn.Module):
-    """Pre-LN self-attention + FFN with residuals and non-pad masking."""
+    """Pre-LN self-attention + FFN with residuals, dropout on both
+    branches and non-pad masking."""
 
-    def __init__(self, hidden, num_heads, kernel_size, act="gelu",
+    def __init__(self, hidden, num_heads, dropout, kernel_size, act="gelu",
                  dtype=torch.float32):
         super().__init__()
         self.layer_norm1 = LayerNorm(hidden, dtype=dtype)
         self.self_attn = MultiHeadAttention(hidden, num_heads, dtype=dtype)
         self.layer_norm2 = LayerNorm(hidden, dtype=dtype)
-        self.ffn = FFNLayer(hidden, 4 * hidden, kernel_size, act=act,
+        self.ffn = FFNLayer(hidden, 4 * hidden, kernel_size, dropout, act=act,
                             dtype=dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x, padding_mask):
         nonpad = (~padding_mask)[..., None].to(x.dtype)
         residual = x
-        x = self.self_attn(self.layer_norm1(x), padding_mask)
+        x = self.dropout(self.self_attn(self.layer_norm1(x), padding_mask))
         x = (residual + x) * nonpad
         residual = x
-        x = self.ffn(self.layer_norm2(x))
+        x = self.dropout(self.ffn(self.layer_norm2(x)))
         return (residual + x) * nonpad
 
 
@@ -85,17 +88,18 @@ class FFTBlocks(nn.Module):
     final LayerNorm."""
 
     def __init__(self, hidden, num_layers, num_heads=2, ffn_kernel_size=9,
-                 use_pos_embed=True, max_seq_len=2000, act="gelu",
-                 dtype=torch.float32):
+                 dropout=0.1, use_pos_embed=True, max_seq_len=2000,
+                 act="gelu", dtype=torch.float32):
         super().__init__()
         self.use_pos_embed = use_pos_embed
+        self.dropout = Dropout(dropout)
         if use_pos_embed:
             self.pos_embed_alpha = nn.Parameter(torch.ones(1))
             self.embed_positions = SinusoidalPositionalEmbedding(
                 hidden, max_seq_len, dtype)
         self.layers = nn.ModuleList(
-            _Layer(EncSALayer(hidden, num_heads, ffn_kernel_size, act=act,
-                              dtype=dtype))
+            _Layer(EncSALayer(hidden, num_heads, dropout, ffn_kernel_size,
+                              act=act, dtype=dtype))
             for _ in range(num_layers))
         self.layer_norm = LayerNorm(hidden, dtype=dtype)
 
@@ -105,6 +109,7 @@ class FFTBlocks(nn.Module):
             # float32 alpha × compute-dtype table promotes to float32, as
             # in the JAX package
             x = x + self.pos_embed_alpha * self.embed_positions(padding_mask)
+            x = self.dropout(x)
         x = x * nonpad
         for layer in self.layers:
             x = layer(x, padding_mask) * nonpad
@@ -122,7 +127,7 @@ class TextEncoder(FFTBlocks):
         super().__init__(hidden, cfg["encoder_layer"],
                          num_heads=cfg["encoder_head"],
                          ffn_kernel_size=cfg["ffn_kernel_size"],
-                         use_pos_embed=False,
+                         dropout=cfg["encoder_dropout"], use_pos_embed=False,
                          act=model_config["variance_predictor"]["ffn_act"],
                          dtype=dtype)
         if model_config["variance_predictor"]["ffn_padding"] != "SAME":
@@ -136,8 +141,11 @@ class TextEncoder(FFTBlocks):
             hidden, model_config["max_seq_len"], dtype)
 
     def forward(self, txt_tokens, padding_mask):
-        txt_embs = self.embed_tokens(txt_tokens) * (self.hidden ** 0.5)
-        x = txt_embs + self.embed_positions(padding_mask)
+        # a plain lookup: the padding row starts at zero (padding_idx) but
+        # takes its gradient, as the JAX package's embedding does
+        txt_embs = F.embedding(txt_tokens, self.embed_tokens.weight) \
+            * (self.hidden ** 0.5)
+        x = self.dropout(txt_embs + self.embed_positions(padding_mask))
         x = self.run_layers(x.to(self.dtype), padding_mask)
         return x.float(), txt_embs
 
@@ -155,7 +163,7 @@ class Decoder(FFTBlocks):
         super().__init__(cfg["decoder_hidden"], cfg["decoder_layer"],
                          num_heads=cfg["decoder_head"],
                          ffn_kernel_size=cfg["ffn_kernel_size"],
-                         use_pos_embed=True,
+                         dropout=cfg["decoder_dropout"], use_pos_embed=True,
                          max_seq_len=model_config["max_seq_len"] * 2,
                          act=model_config["variance_predictor"]["ffn_act"],
                          dtype=dtype)

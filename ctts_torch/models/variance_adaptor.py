@@ -1,25 +1,37 @@
-"""Variance adaptor, inference branch (ctts_tpu/models/variance_adaptor.py
-:199-202, :239-255, :273-313, :333-412).
+"""Variance adaptor (ctts_tpu/models/variance_adaptor.py), the ``infer`` and
+``train_unsup`` branches.
 
-Duration prediction → rounded durations → ``mel2ph`` → hidden upsample by
-the row gather; CWT pitch (predicted spectrogram + per-utterance stats →
-f0 → coarse bins → embedding); phoneme-level energy (predicted per token,
-bucketed, embedded, upsampled by the row gather). Training modes, frame or
-phoneme pitch, frame-level energy, mog/crf durations and prosody models are
-not ported yet and raise.
+At inference: duration prediction → rounded durations → ``mel2ph`` → hidden
+upsample by the row gather; CWT pitch (predicted spectrogram +
+per-utterance stats → f0 → coarse bins → embedding); phoneme-level energy
+(predicted per token, bucketed, embedded, upsampled by the row gather).
+
+In ``train_unsup``: the aligner's soft attention is binarized by MAS, its
+column sums are the durations, and the hidden is upsampled softly (attention
+einsum) before ``binarization_start_steps`` and by the row gather from it
+on; the f0 target comes from the target CWT spectrogram, the energy target
+is averaged per phoneme over the MAS durations, and the pitch and energy
+embeddings take their buckets from the targets. Each predictor's input
+passes :func:`grad_scale`.
+
+Supervised training, frame or phoneme pitch, frame-level energy, mog/crf
+durations and prosody models are not ported yet and raise.
 """
 
 import numpy as np
 import torch
 from torch import nn
 
-from ctts_torch.models.blocks import Linear
+from ctts_torch.models.aligner import AlignmentEncoder
+from ctts_torch.models.blocks import Linear, grad_scale
 from ctts_torch.models.predictors import (CwtStatsLayers, DurationPredictor,
                                           EnergyPredictor, PitchPredictor)
 from ctts_torch.ops.cwt import cwt2f0_norm
 from ctts_torch.ops.length_regulator import dur_to_mel2ph, gather_by_mel2ph
+from ctts_torch.ops.mas import b_mas
 from ctts_torch.ops.masks import get_mask_from_lengths
 from ctts_torch.ops.pitch import denorm_f0, f0_to_coarse
+from ctts_torch.ops.segment import phoneme_mean_by_mel2ph
 
 
 def _linspace_f32(start, stop, num):
@@ -43,6 +55,10 @@ class VarianceAdaptor(nn.Module):
         self.use_pitch_embed = mc["variance_embedding"]["use_pitch_embed"]
         self.use_energy_embed = mc["variance_embedding"]["use_energy_embed"]
         self.energy_feature_level = pc["preprocessing"]["energy"]["feature"]
+        self.learn_alignment = mc["duration_modeling"]["learn_alignment"]
+        self.binarization_start_steps = \
+            tc["duration"]["binarization_start_steps"]
+        self.predictor_grad = vp["predictor_grad"]
 
         if mc["prosody_modeling"]["model_type"] != "none":
             raise NotImplementedError(
@@ -60,7 +76,8 @@ class VarianceAdaptor(nn.Module):
         self.duration_predictor = DurationPredictor(
             d_model, n_layers=vp["dur_predictor_layers"],
             n_chans=vp["filter_size"], kernel_size=vp["dur_predictor_kernel"],
-            padding=vp["ffn_padding"], dur_loss=tc["loss"]["dur_loss"])
+            dropout=vp["dropout"], padding=vp["ffn_padding"],
+            dur_loss=tc["loss"]["dur_loss"])
 
         if self.use_pitch_embed:
             h = vp["cwt_hidden_size"]
@@ -72,6 +89,7 @@ class VarianceAdaptor(nn.Module):
                                n_layers=vp["predictor_layers"],
                                n_chans=vp["filter_size"],
                                kernel_size=vp["predictor_kernel"],
+                               dropout=vp["dropout"],
                                padding=vp["ffn_padding"])])
             self.cwt_stats_layers = CwtStatsLayers(d_model, hidden=h)
             self.pitch_embed = nn.Embedding(
@@ -89,73 +107,135 @@ class VarianceAdaptor(nn.Module):
             self.energy_predictor = EnergyPredictor(
                 d_model, odim=1, n_layers=vp["predictor_layers"],
                 n_chans=vp["filter_size"], kernel_size=vp["predictor_kernel"],
-                padding=vp["ffn_padding"])
+                dropout=vp["dropout"], padding=vp["ffn_padding"])
             self.energy_embedding = nn.Embedding(n_bins, d_model)
 
+        if self.learn_alignment:
+            n_mel = pc["preprocessing"]["mel"]["n_mel_channels"]
+            self.aligner = AlignmentEncoder(
+                n_mel_channels=n_mel, n_att_channels=n_mel,
+                n_text_channels=d_model,
+                temperature=mc["duration_modeling"]["aligner_temperature"],
+                multi_speaker=mc["multi_speaker"])
+
     def forward(self, x, src_mask, mode, max_mel_len, p_control=1.0,
-                e_control=1.0, d_control=1.0):
+                e_control=1.0, d_control=1.0, text_embedding=None,
+                src_len=None, mel=None, mel_len=None, mel_mask=None,
+                pitch_target=None, energy_target=None, attn_prior=None,
+                step=None):
         """x: [B, T_s, H] encoder output; src_mask True at padding;
-        max_mel_len: the frame budget. Returns a dict."""
-        if mode != "infer":
+        max_mel_len: the frame budget (the padded mel length in training).
+        mode: "infer" | "train_unsup". ``step`` is a host int. Returns a
+        dict."""
+        if mode == "train_sup":
             raise NotImplementedError(
-                f"mode {mode!r}: training is ported in slice B "
-                "(ROADMAP.md §1 items 7-9)")
-        log_duration_prediction = self.duration_predictor(x, src_mask)
+                "mode 'train_sup' is not ported yet (ROADMAP.md §1 item 10)")
+        if mode not in ("infer", "train_unsup"):
+            raise ValueError(f"unknown mode {mode!r}")
+        training = mode == "train_unsup"
+        pitch_target = dict(pitch_target) if pitch_target else {}
+        log_duration_prediction = self.duration_predictor(
+            grad_scale(x, self.predictor_grad), src_mask)
 
         max_len = max_mel_len
-        duration_rounded = torch.clamp(
-            torch.round(torch.exp(log_duration_prediction) - 1.0) * d_control,
-            min=0.0)
-        duration_rounded = duration_rounded.masked_fill(src_mask, 0.0)
-        mel2ph = dur_to_mel2ph(duration_rounded, src_mask, max_len=max_len)
-        x_up = gather_by_mel2ph(x, mel2ph)
-        mel_len = torch.clamp(duration_rounded.int().sum(dim=1),
-                              max=max_len).int()
-        mel_mask = get_mask_from_lengths(mel_len, max_len)
+        attn_out = (None, None, None, None)
+        if training:
+            if not self.learn_alignment:
+                raise ValueError("train_unsup needs learn_alignment")
+            attn_soft, attn_logprob = self.aligner(mel, text_embedding,
+                                                   src_mask, attn_prior)
+            attn_hard = b_mas(attn_soft, src_len.to(torch.int32),
+                              mel_len.to(torch.int32))
+            attn_hard_dur = attn_hard.sum(dim=1)               # [B, T_s]
+            attn_out = (attn_soft, attn_hard, attn_hard_dur, attn_logprob)
+            mel2ph = dur_to_mel2ph(attn_hard_dur, src_mask, max_len=max_len)
+            if step < self.binarization_start_steps:
+                x_up = torch.einsum("bms,bsc->bmc", attn_soft.to(x.dtype), x)
+            else:
+                x_up = gather_by_mel2ph(x, mel2ph)
+            duration_rounded = attn_hard_dur
+            pitch_target["mel2ph"] = mel2ph
+        else:
+            duration_rounded = torch.clamp(
+                torch.round(torch.exp(log_duration_prediction) - 1.0)
+                * d_control, min=0.0)
+            duration_rounded = duration_rounded.masked_fill(src_mask, 0.0)
+            mel2ph = dur_to_mel2ph(duration_rounded, src_mask,
+                                   max_len=max_len)
+            x_up = gather_by_mel2ph(x, mel2ph)
+            mel_len = torch.clamp(duration_rounded.int().sum(dim=1),
+                                  max=max_len).int()
+            mel_mask = get_mask_from_lengths(mel_len, max_len)
 
         pitch_predictions = None
         pitch_embedding = 0.0
         if self.use_pitch_embed:
+            f0 = uv = None
+            if training:
+                pitch_target["f0"] = cwt2f0_norm(
+                    pitch_target["cwt_spec"], pitch_target["f0_mean"],
+                    pitch_target["f0_std"], max_len, self.pitch_cfg)
+                pitch_target["f0_cwt"] = pitch_target["f0"]
+                f0, uv = pitch_target["f0"], pitch_target.get("uv")
             pitch_predictions, pitch_embedding = self._pitch(
-                x_up, x, p_control, mel_mask)
+                x_up, x, f0, uv, p_control, mel_mask)
 
         energy_prediction = None
         energy_embedding = 0.0
         if self.use_energy_embed:
+            if training:
+                # no pre-extracted phone-level energy: average the frame
+                # energy over the MAS durations
+                energy_target = phoneme_mean_by_mel2ph(
+                    energy_target, mel2ph, x.shape[1])
             energy_prediction, ph_embedding = self._energy(
-                x, e_control, src_mask)
+                x, energy_target if training else None, e_control, src_mask)
             energy_embedding = gather_by_mel2ph(ph_embedding, mel2ph)
 
         return {
             "x": x_up + pitch_embedding + energy_embedding,
+            "pitch_target": pitch_target if pitch_target else None,
             "pitch_predictions": pitch_predictions,
+            "energy_target": energy_target,
             "energy_prediction": energy_prediction,
             "log_duration_prediction": log_duration_prediction,
             "duration_rounded": duration_rounded,
             "mel_len": mel_len,
             "mel_mask": mel_mask,
             "mel2ph": mel2ph,
+            "attn_out": attn_out,
         }
 
-    def _pitch(self, decoder_inp, encoder_out, control, frame_mask):
-        """CWT pitch at inference (variance_adaptor.py:349-364, :384-390)."""
+    def _pitch(self, decoder_inp, encoder_out, f0, uv, control, frame_mask):
+        """CWT pitch (variance_adaptor.py:349-364, :384-390): the embedding
+        comes from the target f0 in training, from the predicted spectrogram
+        and statistics at inference."""
         proj, predictor = self.cwt_predictor
-        cwt = predictor(proj(decoder_inp), frame_mask) * control
+        inp = grad_scale(decoder_inp, self.predictor_grad)
+        cwt = predictor(proj(inp), frame_mask) * control
         stats = self.cwt_stats_layers(encoder_out[:, 0, :]).float()
         f0_mean = stats[:, 0]
         f0_std = stats[:, 1]
-        f0 = cwt2f0_norm(cwt[:, :, :10], f0_mean,
-                         f0_std * self.cwt_std_scale, decoder_inp.shape[1],
-                         self.pitch_cfg)
-        uv = (cwt[:, :, -1] > 0).float() if self.use_uv else None
+        if f0 is None:
+            f0 = cwt2f0_norm(cwt[:, :, :10], f0_mean,
+                             f0_std * self.cwt_std_scale,
+                             decoder_inp.shape[1], self.pitch_cfg)
+            if self.use_uv:
+                uv = (cwt[:, :, -1] > 0).float()
         f0_denorm = denorm_f0(f0, uv, self.pitch_cfg)
         pitch_embed = self.pitch_embed(f0_to_coarse(f0_denorm))
         predictions = {"pitch_pred": None, "f0_denorm": f0_denorm,
                        "cwt": cwt, "f0_mean": f0_mean, "f0_std": f0_std}
         return predictions, pitch_embed
 
-    def _energy(self, x, control, mask):
-        prediction = self.energy_predictor(x, mask)[..., 0] * control
+    def _energy(self, x, target, control, mask):
+        prediction = self.energy_predictor(
+            grad_scale(x, self.predictor_grad), mask)[..., 0]
         # jnp.searchsorted(side="left") == bucketize(right=False)
-        buckets = torch.bucketize(prediction, self.energy_bins, right=False)
+        if target is not None:
+            buckets = torch.bucketize(target, self.energy_bins, right=False)
+        else:
+            prediction = prediction * control
+            buckets = torch.bucketize(prediction, self.energy_bins,
+                                      right=False)
         return prediction, self.energy_embedding(buckets)

@@ -4,6 +4,13 @@
 tensors on the card and runs :func:`attention_plain` (the math of
 ``_reference_attention``) for tensors on the CPU. There is no other path:
 a CUDA tensor the kernel does not take raises.
+
+The JAX package has no backward kernel for it (``_fused_bwd``,
+ctts_tpu/ops/attention.py:85-91, recomputes through the reference with
+``jax.vjp``), and the port does the same: on the card the forward is the
+kernel and the backward recomputes :func:`attention_plain` from the saved
+q, k, v and lengths and back-propagates the cotangent through it. The
+recompute holds one [N, T, T] float32 matrix per call while it runs.
 """
 
 import ctypes
@@ -64,22 +71,28 @@ def _check(q, k, v, lengths):
             raise ValueError("fused_attention takes contiguous tensors")
 
 
-def fused_attention(q, k, v, lengths, scale=None):
-    """Padding-masked softmax attention.
+class _FusedAttention(torch.autograd.Function):
+    """Kernel forward, recomputing backward (``_fused_bwd``)."""
 
-    q/k/v: [N, T, d] (N = batch·heads); lengths: [N] int32 valid key
-    counts. Logits at key index >= lengths[n] are -1e9; the softmax is in
-    float32 and the output has q's dtype.
-    """
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, scale):
+        ctx.save_for_backward(q, k, v, lengths)
+        ctx.scale = scale
+        return _launch(q, k, v, lengths, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, lengths = ctx.saved_tensors
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+            out = attention_plain(q, k, v, lengths, ctx.scale)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
+        return dq, dk, dv, None, None
+
+
+def _launch(q, k, v, lengths, scale):
     global launches
     N, T, d = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, lengths, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
-    _check(q, k, v, lengths)
     lib = _lib()
     out = torch.empty_like(q)
     err = lib.ctts_fused_attention(
@@ -89,3 +102,21 @@ def fused_attention(q, k, v, lengths, scale=None):
     kernels.check(err, lib, "fused_attention")
     launches += 1
     return out
+
+
+def fused_attention(q, k, v, lengths, scale=None):
+    """Padding-masked softmax attention.
+
+    q/k/v: [N, T, d] (N = batch·heads); lengths: [N] int32 valid key
+    counts. Logits at key index >= lengths[n] are -1e9; the softmax is in
+    float32 and the output has q's dtype.
+    """
+    N, T, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, lengths, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
+    _check(q, k, v, lengths)
+    return _FusedAttention.apply(q, k, v, lengths, scale)

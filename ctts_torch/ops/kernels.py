@@ -19,7 +19,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ctts_torch")
-SOURCES = ("attention.cu", "gather_rows.cu")
+SOURCES = ("attention.cu", "gather_rows.cu", "scatter_rows.cu", "mas.cu",
+           "forward_sum.cu", "barrier_chain.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -94,6 +95,30 @@ class KernelLibrary:
 
 
 LIBRARY = KernelLibrary()
+
+
+def barrier_chain_ms(blocks, threads, frames, iters=20):
+    """Device milliseconds of ``csrc/barrier_chain.cu``: ``frames``
+    dependent frames of one block-wide barrier and a shared-memory round
+    trip, on ``blocks`` blocks of ``threads`` threads. The floor that the
+    sequential chain sets for the MAS and CTC kernels at that shape."""
+    import torch
+    lib = LIBRARY.get()
+    fn = lib.ctts_barrier_chain
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(blocks, threads, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(iters + 3):
+        if i == 3:
+            start.record()
+        check(fn(out.data_ptr(), blocks, threads, frames, stream), lib,
+              "barrier_chain")
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def check(err, lib, what):

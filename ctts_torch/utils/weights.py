@@ -1,4 +1,4 @@
-"""The weight bridge: JAX parameter trees → the port's state_dicts.
+"""The weight bridge: JAX parameter trees ↔ the port's state_dicts.
 
 The JAX package keeps ``{"params": ..., "batch_stats": ...}`` trees in flax
 layouts; the port's modules carry the upstream PyTorch parameter names, so
@@ -12,14 +12,15 @@ state_dict straight back. Layout changes:
 - LayerNorm / BatchNorm ``scale`` → ``weight``; BatchNorm ``mean`` /
   ``var`` → ``running_mean`` / ``running_var``;
 - transposed convs (HiFi-GAN): ``[k, out, in]`` → torch ``[in, out, k]``.
+
+:func:`jax_tree_from_state_dict` is the inverse for the acoustic model, so a
+test can compare the port's parameters with the JAX tree after a step.
 """
 
 import numpy as np
 import torch
 
-# subtrees the inference model does not hold: the aligner serves only the
-# train_unsup step (slice B)
-_TRAIN_ONLY = {"aligner"}
+_ALIGNER_CONVS = (("key_proj", (0, 2)), ("query_proj", (0, 2, 4)))
 
 
 def _conv(kernel):
@@ -91,7 +92,7 @@ def state_dict_from_jax(tree):
     """JAX CompTransTTS variables (nested dicts of numpy arrays, e.g. from
     :func:`ctts_torch.utils.checkpoint.load_params_npz`) → the port's
     ``state_dict`` (float32 tensors). Raises on a subtree the port does not
-    hold yet; training-only subtrees are skipped."""
+    hold yet."""
     params = tree["params"]
     stats = tree.get("batch_stats") or {}
     known = {"encoder", "decoder", "mel_linear", "postnet",
@@ -121,7 +122,7 @@ def state_dict_from_jax(tree):
     va = params["variance_adaptor"]
     va_known = {"duration_predictor", "pitch_embed", "cwt_in_proj",
                 "cwt_predictor", "cwt_stats_layers", "energy_predictor",
-                "energy_embedding"} | _TRAIN_ONLY
+                "energy_embedding", "aligner"}
     extra = set(va) - va_known
     if extra:
         raise NotImplementedError(
@@ -141,7 +142,119 @@ def state_dict_from_jax(tree):
         _predictor(sd, f"{p}.energy_predictor", va["energy_predictor"])
         sd[f"{p}.energy_embedding.weight"] = \
             va["energy_embedding"]["embedding"]
+    if "aligner" in va:
+        for name, slots in _ALIGNER_CONVS:
+            for j, slot in enumerate(slots):
+                _conv_params(sd, f"{p}.aligner.{name}.{slot}.conv",
+                             va["aligner"][f"{name}_{j}"]["Conv_0"])
     return _to_tensors(sd)
+
+
+# ---- the inverse: state_dict → JAX tree layout ---------------------------- #
+
+def _inv_ln(sd, prefix):
+    return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+
+def _inv_dense(sd, prefix):
+    node = {"kernel": sd[f"{prefix}.weight"].T}
+    if f"{prefix}.bias" in sd:
+        node["bias"] = sd[f"{prefix}.bias"]
+    return node
+
+
+def _inv_conv(sd, prefix):
+    node = {"kernel": _conv(sd[f"{prefix}.weight"])}   # its own inverse
+    if f"{prefix}.bias" in sd:
+        node["bias"] = sd[f"{prefix}.bias"]
+    return node
+
+
+def _inv_fft_stack(sd, prefix, num_heads):
+    fft = {}
+    i = 0
+    while f"{prefix}.layers.{i}.op.layer_norm1.weight" in sd:
+        p = f"{prefix}.layers.{i}.op"
+        w = sd[f"{p}.self_attn.in_proj_weight"]                # [3C, C]
+        C = w.shape[1]
+        att = {n: {"kernel": w[j * C:(j + 1) * C].T.reshape(C, num_heads, -1)}
+               for j, n in enumerate(("q", "k", "v"))}
+        att["out"] = {"kernel": sd[f"{p}.self_attn.out_proj.weight"].T
+                      .reshape(num_heads, -1, C)}
+        fft[f"layers_{i}"] = {
+            "layer_norm1": {"LayerNorm_0": _inv_ln(sd, f"{p}.layer_norm1")},
+            "layer_norm2": {"LayerNorm_0": _inv_ln(sd, f"{p}.layer_norm2")},
+            "self_attn": att,
+            "ffn": {"ffn_1": {"Conv_0": _inv_conv(sd, f"{p}.ffn.ffn_1")},
+                    "ffn_2": _inv_dense(sd, f"{p}.ffn.ffn_2")}}
+        i += 1
+    fft["layer_norm"] = {"LayerNorm_0": _inv_ln(sd, f"{prefix}.layer_norm")}
+    if f"{prefix}.pos_embed_alpha" in sd:
+        fft["pos_embed_alpha"] = sd[f"{prefix}.pos_embed_alpha"]
+    return fft
+
+
+def _inv_predictor(sd, prefix):
+    conv = {}
+    i = 0
+    while f"{prefix}.conv.{i}.1.weight" in sd:
+        conv[f"conv_{i}"] = {"Conv_0": _inv_conv(sd, f"{prefix}.conv.{i}.1")}
+        conv[f"LayerNorm_{i}"] = {
+            "LayerNorm_0": _inv_ln(sd, f"{prefix}.conv.{i}.3")}
+        i += 1
+    node = {"conv": conv, "linear": _inv_dense(sd, f"{prefix}.linear")}
+    if f"{prefix}.pos_embed_alpha" in sd:
+        node["pos_embed_alpha"] = sd[f"{prefix}.pos_embed_alpha"]
+    return node
+
+
+def jax_tree_from_state_dict(state_dict, model_config):
+    """The port's CompTransTTS ``state_dict`` → ``{"params": ...,
+    "batch_stats": ...}`` of numpy arrays in the JAX package's layout (the
+    inverse of :func:`state_dict_from_jax`)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    cfg = model_config[model_config["block_type"]]
+    params = {
+        "encoder": {
+            "embed_tokens": {"embedding": sd["encoder.embed_tokens.weight"]},
+            "fft": _inv_fft_stack(sd, "encoder", cfg["encoder_head"])},
+        "decoder": {"fft": _inv_fft_stack(sd, "decoder",
+                                          cfg["decoder_head"])},
+        "mel_linear": _inv_dense(sd, "mel_linear"),
+    }
+    pn, pn_stats = {}, {}
+    i = 0
+    while f"postnet.convolutions.{i}.0.conv.weight" in sd:
+        p = f"postnet.convolutions.{i}"
+        pn[f"conv_{i}"] = {"Conv_0": _inv_conv(sd, f"{p}.0.conv")}
+        pn[f"bn_{i}"] = _inv_ln(sd, f"{p}.1")
+        pn_stats[f"bn_{i}"] = {"mean": sd[f"{p}.1.running_mean"],
+                               "var": sd[f"{p}.1.running_var"]}
+        i += 1
+    params["postnet"] = pn
+
+    p = "variance_adaptor"
+    va = {"duration_predictor": _inv_predictor(sd, f"{p}.duration_predictor")}
+    if f"{p}.pitch_embed.weight" in sd:
+        va["pitch_embed"] = {"embedding": sd[f"{p}.pitch_embed.weight"]}
+    if f"{p}.cwt_predictor.0.weight" in sd:
+        va["cwt_in_proj"] = _inv_dense(sd, f"{p}.cwt_predictor.0")
+        va["cwt_predictor"] = _inv_predictor(sd, f"{p}.cwt_predictor.1")
+        va["cwt_stats_layers"] = {
+            f"Dense_{j}": _inv_dense(sd, f"{p}.cwt_stats_layers.{idx}")
+            for j, idx in enumerate((0, 2, 4))}
+    if f"{p}.energy_embedding.weight" in sd:
+        va["energy_predictor"] = _inv_predictor(sd, f"{p}.energy_predictor")
+        va["energy_embedding"] = {
+            "embedding": sd[f"{p}.energy_embedding.weight"]}
+    if f"{p}.aligner.key_proj.0.conv.weight" in sd:
+        va["aligner"] = {
+            f"{name}_{j}": {"Conv_0": _inv_conv(
+                sd, f"{p}.aligner.{name}.{slot}.conv")}
+            for name, slots in _ALIGNER_CONVS
+            for j, slot in enumerate(slots)}
+    params["variance_adaptor"] = va
+    return {"params": params, "batch_stats": {"postnet": pn_stats}}
 
 
 def hifigan_state_dict_from_jax(params):

@@ -155,6 +155,45 @@ def test_cuda_inputs_never_reach_plain_versions(monkeypatch):
         t_sg.gather_rows(vals, _OnCuda(torch.zeros(2, 3, dtype=torch.int64)))
 
 
+def test_cuda_inputs_of_the_training_kernels_never_reach_plain(monkeypatch):
+    from ctts_torch.ops import forward_sum as t_fs
+    from ctts_torch.ops import mas as t_mas
+    for mod, plains in ((t_sg, ("scatter_rows_plain",)),
+                        (t_mas, ("b_mas_plain", "_mas_from_log")),
+                        (t_fs, ("ctc_alpha_plain", "ctc_grad_plain"))):
+        for name in plains:
+            monkeypatch.setattr(mod, name, _no_plain)
+        monkeypatch.setattr(mod, "_lib", _to_kernel)
+    vals = _OnCuda(torch.zeros(2, 3, 8))
+    idx = _OnCuda(torch.zeros(2, 3, dtype=torch.int32))
+    with pytest.raises(_KernelReached):
+        t_sg.scatter_rows(vals, idx, 5)
+    attn = _OnCuda(torch.full((2, 6, 3), 1 / 3))
+    lens = _OnCuda(torch.tensor([3, 2], dtype=torch.int32))
+    with pytest.raises(_KernelReached):
+        t_mas.b_mas(attn, lens, lens)
+    em = _OnCuda(torch.zeros(2, 6, 7))
+    with pytest.raises(_KernelReached):
+        t_fs.ctc_alpha(em, lens)
+    z = _OnCuda(torch.zeros(2))
+    with pytest.raises(_KernelReached):
+        t_fs.ctc_grad(em, em, z, z, lens, lens)
+    # dtypes and shapes the kernels do not take raise before any launch
+    long_lens = _OnCuda(torch.tensor([3, 2]))
+    with pytest.raises(TypeError):
+        t_mas.b_mas(attn, long_lens, lens)
+    with pytest.raises(TypeError):
+        t_fs.ctc_alpha(em, long_lens)
+    with pytest.raises(TypeError):
+        t_fs.ctc_alpha(_OnCuda(torch.zeros(2, 6, 7, dtype=torch.bfloat16)),
+                       lens)
+    with pytest.raises(ValueError):
+        t_fs.ctc_alpha(_OnCuda(torch.zeros(2, 6, 1025)), lens)
+    with pytest.raises(TypeError):
+        t_sg.scatter_rows(_OnCuda(torch.zeros(2, 3, 8, dtype=torch.float16)),
+                          idx, 5)
+
+
 def test_kernel_build_is_lazy_and_named_by_content():
     # importing the ops built nothing; the one library's name hashes every
     # source, and it lands in the gitignored build directory of the checkout
@@ -165,6 +204,8 @@ def test_kernel_build_is_lazy_and_named_by_content():
     assert os.path.dirname(target) == kernels.BUILD_DIR
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert kernels.BUILD_DIR == os.path.join(repo, "build", "ctts_torch")
-    assert kernels.SOURCES == ("attention.cu", "gather_rows.cu")
+    assert kernels.SOURCES == ("attention.cu", "gather_rows.cu",
+                               "scatter_rows.cu", "mas.cu", "forward_sum.cu",
+                               "barrier_chain.cu")
     for src in kernels.SOURCES:
         assert os.path.isfile(os.path.join(repo, "ctts_torch", "csrc", src))

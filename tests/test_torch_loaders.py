@@ -107,12 +107,42 @@ import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "ctts_tpu",
        "yaml", "ml_dtypes", "matplotlib") and sys.modules[m] is not None]
 assert not bad, bad
-print(len(mods))
+print(" ".join(mods), len(mods))
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 25
+    names = res.stdout.split()
+    assert int(names[-1]) >= 35
+    for new in ("ops.mas", "ops.forward_sum", "ops.segment", "ops.attn_prior",
+                "models.aligner", "models.loss", "utils.optimizer",
+                "utils.testing", "parallel.train_step"):
+        assert f"ctts_torch.{new}" in names, new
+
+
+def test_packed_checkpoint_carries_the_aligner():
+    """npz → state_dict brings the aligner's ten tensors under the upstream
+    names, and the whole dict loads strictly into the model."""
+    from ctts_torch.config import get_configs_of
+    from ctts_torch.models.comp_trans_tts import (CompTransTTS,
+                                                  prepare_model_config)
+    from ctts_torch.utils.checkpoint import load_params_npz
+    from ctts_torch.utils.weights import state_dict_from_jax
+    tree, _ = load_params_npz(NPZ)
+    sd = state_dict_from_jax(tree)
+    aligner = {k: v for k, v in sd.items() if ".aligner." in k}
+    assert sorted(aligner) == sorted(
+        f"variance_adaptor.aligner.{name}.{slot}.conv.{leaf}"
+        for name, slots in (("key_proj", (0, 2)), ("query_proj", (0, 2, 4)))
+        for slot in slots for leaf in ("weight", "bias"))
+    assert aligner["variance_adaptor.aligner.key_proj.0.conv.weight"].shape \
+        == (512, 256, 3)
+    assert aligner["variance_adaptor.aligner.query_proj.4.conv.weight"].shape \
+        == (80, 80, 1)
+    assert all(float(v.abs().sum()) > 0 for v in aligner.values())
+    pre, mc, tr = get_configs_of("LJSpeech")
+    model = CompTransTTS(pre, prepare_model_config(pre, mc), tr)
+    model.load_state_dict(sd, strict=True)
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
@@ -140,8 +170,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         get_model(5, configs, device="cpu")
     model = get_model(0, configs, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model(None, None, None, "train_unsup")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model(torch.zeros(1, dtype=torch.long),
+              torch.ones(1, 4, dtype=torch.long), torch.tensor([4]),
+              "train_sup", max_mel_len=8)
 
 
 @pytest.mark.parametrize("B", [1, 3])

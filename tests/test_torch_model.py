@@ -75,12 +75,15 @@ def pair():
     mc = prepare_model_config(pre, mc)
     jmodel = CompTransTTS(pre, mc, tr)
     b = synth_batch(B=B, T_s=T_S, T_m=T_M)
-    # infer-mode init holds every parameter the inference model reads (the
-    # aligner, a train_unsup module, is not created)
+    # a train_unsup init holds every parameter of the model, the aligner
+    # included (an infer-mode init does not create it)
     shapes = jax.eval_shape(lambda rng: jmodel.init(
         {"params": rng}, speakers=b["speakers"], texts=b["texts"],
-        src_lens=b["src_lens"], mode="infer", max_mel_len=BUDGET,
-        deterministic=True), jax.random.PRNGKey(0))
+        src_lens=b["src_lens"], mode="train_unsup", mels=b["mels"],
+        mel_lens=b["mel_lens"], pitch_targets=b["pitch_data"],
+        energy_targets=b["energies"], attn_priors=b["attn_priors"],
+        step=jnp.zeros((), jnp.int32), deterministic=True),
+        jax.random.PRNGKey(0))
     rng = np.random.RandomState(0)
     tree = _perturb(_init_like(dict(shapes), rng), rng)
     # durations around 3-4 frames, so the budget holds whole utterances
@@ -223,18 +226,22 @@ def test_whole_model_infer_parity(pair, controls):
 
 def test_state_dict_round_trip_through_import_reference_checkpoint(pair):
     """The port's parameter names are upstream's: the JAX package's importer
-    of upstream checkpoints maps a port state_dict back to the same tree
-    (with learn_alignment off, as the tree holds no aligner)."""
+    of upstream checkpoints maps a port state_dict back to the same tree,
+    the aligner included, and so does the port's own inverse bridge."""
     from ctts_tpu.utils.torch_import import import_reference_checkpoint
+    from ctts_torch.utils.weights import jax_tree_from_state_dict
     _, tree, tmodel, (pre, mc, _) = pair
-    mc = copy.deepcopy(mc)
-    mc["duration_modeling"]["learn_alignment"] = False
+    assert "aligner" in tree["params"]["variance_adaptor"]
     back = import_reference_checkpoint(tmodel.state_dict(), pre, mc)
+    own = dict(jax.tree_util.tree_flatten_with_path(
+        jax_tree_from_state_dict(tmodel.state_dict(), mc))[0])
     flat_w = dict(jax.tree_util.tree_flatten_with_path(tree)[0])
     flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
     assert flat_w.keys() == flat_b.keys()
+    assert flat_w.keys() == own.keys()
     for k, v in flat_w.items():
         np.testing.assert_array_equal(flat_b[k], v, err_msg=str(k))
+        np.testing.assert_array_equal(own[k], v, err_msg=str(k))
 
 
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
