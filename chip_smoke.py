@@ -30,13 +30,30 @@ suppresses the final line:
    counters zeroed before each and read after it, one step below
    ``binarization_start_steps`` (soft upsample), one above
    ``var_start_steps``, then timed steps and one under ``torch.profiler``;
-7. the ``kernels`` JSON line, the card line, and the result line.
+7. the relative-position attention kernels (the conformer's) against
+   their plain version at the decoder's and the encoder's training shapes,
+   the probe's budget and text lengths (96 padded, 87 unpadded), bf16 and
+   f32, masked and not, dropout off and on, with their times, the plain
+   version's, SDPA's with the shifted positional score as its mask, and the
+   bounds;
+8. the conformer (``block_type: conformer``, full width and depth, seeded
+   weights) on the probe texts at budget 1152: launch counters zeroed just
+   before the forward and read just after, latency, and the same model with
+   the plain relpos on the card (the encoder on the probe texts, the decoder
+   on seeded frames with seeded lengths near the budget, the durations);
+9. ``python -m ctts_torch.train`` on a synthetic LJSpeech-shaped store with
+   the conformer config: 8 steps, and 4 + a resume for 4 more, the loss
+   falling and the resumed losses matching; then steps of the same model in
+   this process with the counters zeroed just before one step and read
+   just after, and one step under ``torch.profiler``;
+10. the ``kernels`` JSON line, the card line, and the result line.
 
 Exits non-zero without a result when no CUDA device is present.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -67,6 +84,18 @@ CTC_ALPHA_TOL = 2e-5
 # |alpha| in the thousands turns float32 rounding of the sums (~1e-4
 # absolute) into that much relative error
 CTC_GRAD_TOL = 5e-3
+# relpos: relative to the largest entry of the plain version on the same
+# (rounded) inputs; bf16 output and gradients are rounded once (2^-8), the
+# sums run in another order
+RELPOS_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+# the conformer's bf16 stacks through the kernels against the same model
+# with the plain relpos (bf16 probabilities and bias there): relative to
+# the largest output entry, after 4 (encoder) and 6 (decoder) layers
+CONFORMER_TOL = 5e-2
+# resumed against straight train steps on the card: the same weights,
+# batches and dropout seeds; cuDNN and embedding backward sums are not
+# bitwise reproducible on the card, so the losses agree to float rounding
+RESUME_TOL = 1e-3
 
 
 def card_line():
@@ -271,7 +300,7 @@ class Smoke:
     # ---- phase 3 ----------------------------------------------------- #
     def probe(self):
         from ctts_torch.config import get_configs_of
-        from ctts_torch.ops import attention, sort_gather
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
         from ctts_torch.synthesize import infer_mels
         from ctts_torch.utils.model import get_model
         configs = get_configs_of("LJSpeech")
@@ -291,13 +320,11 @@ class Smoke:
             return out
 
         forward()                                      # warm-up
-        attention.launches = 0
-        sort_gather.launches = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         out = forward()
         latency = time.perf_counter() - t0
-        counts = {"fused_attention": attention.launches,
-                  "gather_rows": sort_gather.launches}
+        counts = {k: v for k, v in launch_counts().items() if v}
         repeats = []
         for _ in range(20):
             t0 = time.perf_counter()
@@ -713,7 +740,7 @@ class Smoke:
     # ---- phase 6: the train step ----------------------------------------- #
     def train(self):
         from ctts_torch.config import get_configs_of
-        from ctts_torch.ops import attention, forward_sum, mas, sort_gather
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
         from ctts_torch.parallel.train_step import (batch_to_device,
                                                     create_train_state,
                                                     make_train_step)
@@ -743,26 +770,13 @@ class Smoke:
               f"step counter {start}, rate {schedule(start):.3e}; gates: "
               f"binarization {gates[0]}, variance {gates[1]}")
 
-        def reset():
-            attention.launches = sort_gather.launches = 0
-            sort_gather.scatter_launches = mas.launches = 0
-            forward_sum.alpha_launches = forward_sum.grad_launches = 0
-
-        def counts():
-            return {"fused_attention": attention.launches,
-                    "gather_rows": sort_gather.launches,
-                    "scatter_rows": sort_gather.scatter_launches,
-                    "b_mas": mas.launches,
-                    "ctc_alpha": forward_sum.alpha_launches,
-                    "ctc_grad": forward_sum.grad_launches}
-
         def one(what):
-            reset()
+            reset_launch_counts()
             t0 = time.perf_counter()
             metrics = step(state, batch)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            got = counts()
+            got = {k: v for k, v in launch_counts().items() if v}
             metrics = {k: v.item() for k, v in metrics.items()}
             print(f"{what} (step {state.step}, {ms:.1f} ms): "
                   + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
@@ -830,6 +844,451 @@ class Smoke:
               f"GiB")
 
 
+    # ---- phase 7: the relpos kernels ------------------------------------- #
+    def relpos(self):
+        """Forward and backward kernels against the plain version at every
+        shape the main path gives them: the decoder's and the encoder's
+        training shapes (B=16, H=8, Dh=32, T=896 and T=128), the probe's
+        budget (B=4, T=1152) and its padded text length (T=96), and the
+        longest probe text's own length (T=87, as the synthesize CLI's single
+        mode gives it; not a multiple of any tile): bf16 and f32, unmasked
+        and masked, dropout off and on (one seed for both sides). Then times
+        at the decoder's training shape."""
+        from ctts_torch.ops import relpos_attention as ra
+        dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(7)
+        H, Dh = 8, 32
+        scale = 1.0 / 16.0                       # 1/sqrt(d_model = 256)
+        seed = torch.tensor([1234, 5678], dtype=torch.int64, device=dev)
+        man = json.load(open(MANIFEST))["probe"]
+        B_P, T_P = np.asarray(man["texts"]).shape
+        worst = {"fwd": 0.0, "bwd": 0.0, "rel": 0.0}
+        for B, T in ((B_TRAIN, T_M), (B_TRAIN, T_S), (B_P, man["budget"]),
+                     (B_P, T_P), (B_P, max(man["src_lens"]))):
+            q, k, v, cot = (randn(gen, B, T, H, Dh).to(dev) for _ in range(4))
+            pos = randn(gen, H, T, Dh).to(dev)
+            ub, vb = (randn(gen, H, Dh).to(dev) * 0.1 for _ in range(2))
+            mask = torch.arange(T, device=dev)[None, :] >= torch.tensor(
+                np.linspace(T, T // 2, B).astype(np.int64), device=dev)[:, None]
+            for dtype in (torch.bfloat16, torch.float32):
+                tol = RELPOS_TOL[dtype]
+                for masked in (False, True):
+                    for p in (0.0, 0.1):
+                        km = mask if masked else None
+                        xs = [t.to(dtype) for t in (q, k, v, pos)] + [ub, vb]
+                        a = [t.detach().clone().requires_grad_(True)
+                             for t in xs]
+                        out = ra.relpos_attention(*a, scale, p, torch.Generator(
+                            dev).manual_seed(T), km)
+                        out.backward(cot.to(dtype))
+                        b = [t.detach().float().requires_grad_(True)
+                             for t in xs]
+                        ref = ra.relpos_attention_plain(
+                            *b, scale, p, ra.draw_seed(torch.Generator(
+                                dev).manual_seed(T), dev), km)
+                        ref.backward(cot.to(dtype).float())
+                        torch.cuda.synchronize()
+                        pairs = [(out, ref)] + [(s.grad, t.grad)
+                                                for s, t in zip(a, b)]
+                        absd = [(x.float() - y).abs().max().item()
+                                for x, y in pairs]
+                        errs = [d / max(y.abs().max().item(), 1e-30)
+                                for d, (_, y) in zip(absd, pairs)]
+                        ok = max(errs) <= tol and all(
+                            bool(torch.isfinite(s.grad).all()) for s in a)
+                        print(f"relpos B={B} T={T} {str(dtype)[6:]} "
+                              f"{'masked' if masked else 'unmasked'} p={p}: "
+                              f"max|kernel - plain f32| / max|plain| of o, dq, "
+                              f"dk, dv, dpos, du, dv_bias = "
+                              + ", ".join(f"{e:.2e}" for e in errs)
+                              + f" (tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
+                        if not ok:
+                            raise AssertionError(f"relpos B={B} T={T} {dtype} "
+                                                 f"masked={masked} p={p}")
+                        if dtype == torch.bfloat16 and T == T_M:
+                            worst["fwd"] = max(worst["fwd"], absd[0])
+                            worst["bwd"] = max(worst["bwd"], max(absd[1:]))
+                            worst["rel"] = max(worst["rel"], max(errs))
+
+        # times: bf16 at the decoder's training shape, dropout on (the path)
+        B, T, N = B_TRAIN, T_M, B_TRAIN * H
+        q, k, v, cot = (randn(gen, B, T, H, Dh).to(dev, torch.bfloat16)
+                        for _ in range(4))
+        pos = randn(gen, H, T, Dh).to(dev, torch.bfloat16)
+        ub, vb = (randn(gen, H, Dh).to(dev) * 0.1 for _ in range(2))
+        fold = [t.permute(0, 2, 1, 3).reshape(N, T, Dh).contiguous()
+                for t in (q, k, v, cot)]
+        qf, kf, vf, gf = fold
+        o, m, l = ra._launch_fwd(qf, kf, vf, pos, ub, vb, seed, None, scale,
+                                 0.1)
+        ms_f, ev_f = timings(lambda: ra._launch_fwd(
+            qf, kf, vf, pos, ub, vb, seed, None, scale, 0.1),
+            only="relpos_fwd")
+        ms_b, ev_b = timings(lambda: ra._launch_bwd(
+            qf, kf, vf, pos, ub, vb, seed, None, gf, o, m, l, scale, 0.1),
+            only="relpos_bwd")
+        whole_b = device_ms(lambda: ra._launch_bwd(
+            qf, kf, vf, pos, ub, vb, seed, None, gf, o, m, l, scale, 0.1))
+        plain_f, _ = timings(lambda: ra.relpos_attention_plain(
+            q, k, v, pos, ub, vb, scale, 0.1, seed), iters=10)
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (q, k, v, pos, ub, vb)]
+
+        def plain_both():
+            for t in leaves:
+                t.grad = None
+            ra.relpos_attention_plain(*leaves, scale, 0.1, seed).backward(cot)
+
+        plain_fb, _ = timings(plain_both, iters=10)
+        # the nearest library route: SDPA with the shifted positional score
+        # as a float mask (its construction timed apart); no dropout
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))       # [B,H,T,D]
+
+        def rel_mask():
+            return ra.relative_shift(torch.einsum(
+                "bhqd,hkd->bhqk", qh + vb[None, :, None].to(qh.dtype),
+                pos)) * scale
+
+        mask_ms, _ = timings(rel_mask, iters=10)
+        rm = rel_mask()
+        qu = (qh + ub[None, :, None].to(qh.dtype)).contiguous()
+        lib_f, _ = timings(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qu, kh, vh, attn_mask=rm, scale=scale), iters=20)
+        sd = [t.detach().clone().requires_grad_(True) for t in (qu, kh, vh, rm)]
+        cth = cot.transpose(1, 2)
+
+        def lib_both():
+            for t in sd:
+                t.grad = None
+            torch.nn.functional.scaled_dot_product_attention(
+                sd[0], sd[1], sd[2], attn_mask=sd[3], scale=scale).backward(cth)
+
+        lib_fb, _ = timings(lib_both, iters=10)
+        e2 = N * T * Dh * 2                      # one [N, T, Dh] bf16 tensor
+        p2 = H * T * Dh * 2
+        bytes_f = 3 * e2 + p2 + e2 + 2 * N * T * 4
+        bytes_b = 4 * e2 + p2 + 2 * N * T * 4 + 3 * e2 + p2
+        b_f, by_f = bound(6 * N * T * T * Dh, bytes_f, PEAK_BF16_FLOPS)
+        b_b, by_b = bound(16 * N * T * T * Dh, bytes_b, PEAK_BF16_FLOPS)
+        shape = f"bf16 B={B} H={H} T={T} Dh={Dh}, unmasked, dropout 0.1"
+        self.kernels["relpos_fwd"] = {
+            "name": "relpos_fwd", "route": "cuda",
+            "source": "ctts_torch/csrc/relpos_attention.cu",
+            "replaces": "ctts_tpu/ops/relpos_attention.py:161",
+            "launches": None, "max_abs_err": worst["fwd"], "ms": ms_f,
+            "plain_ms": plain_f, "bound_ms": b_f, "bound_by": by_f,
+            "library_ms": lib_f, "shape": shape,
+            "library_mask_build_ms": mask_ms}
+        self.kernels["relpos_bwd"] = {
+            "name": "relpos_bwd", "route": "cuda",
+            "source": "ctts_torch/csrc/relpos_attention.cu",
+            "replaces": "ctts_tpu/ops/relpos_attention.py:217",
+            "launches": None, "max_abs_err": worst["bwd"], "ms": ms_b,
+            "plain_ms": plain_fb, "bound_ms": b_b, "bound_by": by_b,
+            "library_ms": lib_fb, "shape": shape + "; plain and library "
+            "times are forward+backward", "with_wrapper_sums_ms": whole_b}
+        print(f"relpos timing {shape}: device ms forward kernel {ms_f:.4f}, "
+              f"backward kernel {ms_b:.4f} (with the wrapper's sums "
+              f"{whole_b:.4f}); plain forward {plain_f:.4f}, plain "
+              f"forward+backward {plain_fb:.4f}; SDPA with the shifted score "
+              f"as attn_mask forward {lib_f:.4f}, forward+backward "
+              f"{lib_fb:.4f}, the mask's construction {mask_ms:.4f}; event ms "
+              f"forward {ev_f:.4f}, backward {ev_b:.4f}; bound forward "
+              f"{b_f:.5f} ({by_f}), backward {b_b:.5f} ({by_b}); at this "
+              f"shape in bf16 the largest absolute errors: output "
+              f"{worst['fwd']:.2e}, gradients {worst['bwd']:.2e}; relative "
+              f"to the largest entry {worst['rel']:.2e}")
+
+    # ---- phase 8: the conformer forward ------------------------------------ #
+    @staticmethod
+    def conformer_configs():
+        from ctts_torch.config import get_configs_of
+        configs = get_configs_of("LJSpeech")
+        configs[1]["block_type"] = "conformer"
+        return configs
+
+    def conformer_forward(self):
+        """``configs/LJSpeech.yaml`` with ``block_type: conformer`` at full
+        width and depth (seeded weights; the repo has no trained conformer)
+        on the probe texts at budget 1152, bf16: the counted forward, its
+        latency, and the same model with the plain relpos on the card."""
+        import ctts_torch.models.conformer as conformer
+        from ctts_torch.ops import relpos_attention as ra
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        from ctts_torch.synthesize import infer_mels
+        from ctts_torch.utils.model import get_model
+        configs = self.conformer_configs()
+        model = get_model(0, configs, device="cuda")
+        man = json.load(open(MANIFEST))["probe"]
+        batch = {"speakers": np.zeros(len(man["src_lens"]), np.int64),
+                 "texts": np.asarray(man["texts"], np.int64),
+                 "src_lens": np.asarray(man["src_lens"], np.int64)}
+
+        def forward():
+            out = infer_mels(model, batch, configs, max_mel_len=man["budget"])
+            torch.cuda.synchronize()
+            return out
+
+        forward()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = forward()
+        latency = time.perf_counter() - t0
+        counts = {k: v for k, v in launch_counts().items() if v}
+        repeats = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            forward()
+            repeats.append(time.perf_counter() - t0)
+        print(f"conformer: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}"
+              f" M parameters, compute_dtype {configs[1]['compute_dtype']}; "
+              f"launches in the probe forward: {counts}")
+        self.breakdown(forward, "conformer probe forward")
+        print(f"conformer request latency (4 texts, budget {man['budget']}): "
+              f"{latency * 1e3:.2f} ms; 20 more: median "
+              f"{np.median(repeats) * 1e3:.2f} ms, min {min(repeats) * 1e3:.2f}"
+              f", max {max(repeats) * 1e3:.2f}")
+        want = {"relpos_fwd": 10, "gather_rows": 2}
+        if counts != want:
+            raise AssertionError(f"expected launches {want}, got {counts}")
+        self.kernels["relpos_fwd"]["launches_forward"] = counts["relpos_fwd"]
+        mel = out["postnet_mel_predictions"].float()
+        lens = out["mel_lens"].cpu().numpy()
+        if not bool(torch.isfinite(mel).all()) or mel.shape != (
+                4, man["budget"], 80):
+            raise AssertionError(f"conformer mel {tuple(mel.shape)} or "
+                                 "non-finite")
+
+        # the twin: the same model and inputs with the plain relpos
+        texts = torch.as_tensor(batch["texts"], device="cuda")
+        src_lens = torch.as_tensor(batch["src_lens"], device="cuda")
+        smask = torch.arange(texts.shape[1], device="cuda")[None] >= \
+            src_lens[:, None]
+        # the decoder on seeded frames whose lengths fill most of the budget
+        # (the seeded model's own mel lengths are a few frames, which would
+        # leave nearly every compared row zero on both sides)
+        budget = man["budget"]
+        twin_lens = budget - np.random.RandomState(0).randint(0, budget // 8, 4)
+        twin_lens[0] = budget
+        with torch.no_grad():
+            enc_k, _ = model.encoder(texts, smask)
+            dec_in = torch.randn(4, budget, 256, device="cuda",
+                                 generator=torch.Generator("cuda").manual_seed(0))
+            mmask = torch.arange(budget, device="cuda")[None] >= \
+                torch.as_tensor(twin_lens, device="cuda")[:, None]
+            dec_k, _ = model.decoder(dec_in, mmask)
+            kernel_fn = conformer.relpos_attention
+
+            def plain(q, k, v, pos, ub, vb, scale, dropout_p=0.0,
+                      generator=None, key_padding_mask=None):
+                return ra.relpos_attention_plain(q, k, v, pos, ub, vb, scale,
+                                                 dropout_p, None,
+                                                 key_padding_mask)
+
+            conformer.relpos_attention = plain
+            try:
+                enc_p, _ = model.encoder(texts, smask)
+                dec_p, _ = model.decoder(dec_in, mmask)
+                out_p = infer_mels(model, batch, configs,
+                                   max_mel_len=man["budget"])
+            finally:
+                conformer.relpos_attention = kernel_fn
+        torch.cuda.synchronize()
+        # the predicted log-durations on the valid tokens carry the encoder's
+        # output through the duration predictor
+        valid = ~smask
+        rel = [((x - y).abs().max() / y.abs().max()).item()
+               for x, y in ((enc_k, enc_p), (dec_k, dec_p),
+                            (out["log_duration_predictions"][valid],
+                             out_p["log_duration_predictions"][valid]))]
+        lens_p = out_p["mel_lens"].cpu().numpy()
+        print(f"conformer kernel path vs plain-relpos twin (bf16): encoder "
+              f"output max rel err {rel[0]:.3e}, decoder output {rel[1]:.3e} "
+              f"over lengths {twin_lens.tolist()} of {budget}, log-durations "
+              f"{rel[2]:.3e} (tol {CONFORMER_TOL:g}); mel lens "
+              f"{lens.tolist()} vs {lens_p.tolist()}")
+        if max(rel) > CONFORMER_TOL or not np.all(
+                np.abs(lens - lens_p) <= np.maximum(0.05 * lens_p, 3)):
+            raise AssertionError(f"conformer twin: {rel}, {lens} vs {lens_p}")
+
+    # ---- phase 9: the conformer train CLI ---------------------------------- #
+    @staticmethod
+    def write_store(root, n_train=64, n_val=8, seed=0):
+        """A synthetic LJSpeech-shaped ``.npy`` store (75-128 phones,
+        500-896 frames of 80 mel bins, CWT pitch, frame energy), in the
+        layout ``ctts_torch.data.dataset.Dataset`` reads."""
+        rng = np.random.RandomState(seed)
+        phones = ("AA1 AE1 AH0 B D EH1 F G HH IY1 K L M N OW1 P R S T UW1 V "
+                  "W Z").split()
+        for d in ("mel_unsup", "pitch_unsup", "f0_unsup", "energy_unsup_frame",
+                  "cwt_spec_unsup", "f0cwt_mean_std_unsup"):
+            os.makedirs(os.path.join(root, d), exist_ok=True)
+        lines = []
+        for i in range(n_train + n_val):
+            base, spk = f"LJ{i:04d}", "LJSpeech"
+            T_s = int(rng.randint(75, T_S + 1))
+            T_m = int(rng.randint(500, T_M + 1))
+            f0 = (np.abs(rng.randn(T_m)) * 40 + 150).astype(np.float32)
+            f0[rng.rand(T_m) < 0.2] = 0.0
+            arrays = {
+                "mel_unsup/{s}-mel-{b}": (rng.randn(T_m, 80) * 0.5 - 4.0
+                                          ).astype(np.float32),
+                "pitch_unsup/{s}-pitch-{b}": np.clip(f0 / 4, 1, 255).astype(
+                    np.int64),
+                "f0_unsup/{s}-f0-{b}": f0,
+                "energy_unsup_frame/{s}-energy-{b}": (rng.rand(T_m) * 8 - 1
+                                                      ).astype(np.float32),
+                "cwt_spec_unsup/{s}-cwt_spec-{b}": rng.randn(T_m, 10).astype(
+                    np.float32),
+                "f0cwt_mean_std_unsup/{s}-f0cwt_mean_std-{b}": np.array(
+                    [5.3, 0.2], np.float32)}
+            for name, a in arrays.items():
+                np.save(os.path.join(root, name.format(s=spk, b=base) + ".npy"),
+                        a)
+            text = "{" + " ".join(rng.choice(phones, T_s)) + "}"
+            lines.append(f"{base}|{spk}|{text}|synthetic")
+        for split, part in (("train", lines[:n_train]), ("val", lines[n_train:])):
+            with open(os.path.join(root, f"{split}_unsup.txt"), "w") as f:
+                f.write("\n".join(part) + "\n")
+        with open(os.path.join(root, "speakers.json"), "w") as f:
+            json.dump({"LJSpeech": 0}, f)
+        with open(os.path.join(root, "stats.json"), "w") as f:
+            json.dump({"f0_unsup": [214.2, 63.4],
+                       "energy_unsup_frame": [-1.17, 9.09, 37.2, 31.7]}, f)
+
+    def conformer_train(self):
+        """``python -m ctts_torch.train`` on a synthetic store with the
+        conformer config at full width and depth (bf16, batch 16, the
+        device cache, dropout on, the warm-up cut to 50 steps so a few
+        steps move the loss): 8 straight steps, and 4 + a resume from the
+        step-4 checkpoint for 4 more. Then the same model's steps in this
+        process, with the launch counters zeroed just before a step and
+        read just after, and one step under the profiler."""
+        from ctts_torch.config import dump_yaml, load_yaml
+        from ctts_torch.data.dataset import Dataset
+        from ctts_torch.data.device_cache import DeviceCache, gather_batch
+        from ctts_torch.models.comp_trans_tts import (CompTransTTS,
+                                                      prepare_model_config)
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        from ctts_torch.parallel.train_step import (create_train_state,
+                                                    make_train_step)
+        from ctts_torch.utils.model import init_weights
+        from ctts_torch.utils.optimizer import build_optimizer
+        tmp = tempfile.mkdtemp(prefix="ctts_smoke_")
+        try:
+            store = os.path.join(tmp, "store")
+            self.write_store(store)
+            raw = load_yaml(open(os.path.join(REPO, "configs",
+                                              "LJSpeech.yaml")))
+            raw["model"]["block_type"] = "conformer"
+            raw["preprocess"]["path"]["preprocessed_path"] = store
+            raw["train"]["optimizer"]["warm_up_step"] = 50
+            raw["train"]["step"].update(log_step=1, save_step=4,
+                                        val_step=100000)
+
+            def run(name, max_steps, restore=0):
+                cfg_dir = os.path.join(tmp, name)
+                os.makedirs(cfg_dir, exist_ok=True)
+                raw["train"]["path"] = {
+                    k: os.path.join(cfg_dir, k)
+                    for k in ("ckpt_path", "log_path", "result_path")}
+                with open(os.path.join(cfg_dir, "LJSpeech.yaml"), "w") as f:
+                    f.write(dump_yaml(raw))
+                cmd = [sys.executable, "-m", "ctts_torch.train", "--dataset",
+                       "LJSpeech", "--config_dir", cfg_dir, "--max_steps",
+                       str(max_steps), "--restore_step", str(restore)]
+                t0 = time.perf_counter()
+                res = subprocess.run(cmd, cwd=REPO, capture_output=True,
+                                     text=True, timeout=600)
+                print(f"$ python -m ctts_torch.train ... --max_steps "
+                      f"{max_steps} --restore_step {restore} "
+                      f"({time.perf_counter() - t0:.1f} s)")
+                print("\n".join("  " + ln for ln in
+                                res.stdout.strip().splitlines()[-12:]))
+                if res.returncode != 0:
+                    print(res.stderr[-3000:])
+                    raise AssertionError(f"train CLI exited {res.returncode}")
+                path = os.path.join(cfg_dir, "log_path", "train", "log.jsonl")
+                return {r["step"]: r for r in map(json.loads, open(path))}
+
+            straight = run("straight", 8)
+            run("resumed", 4)
+            resumed = run("resumed", 8, restore=4)
+            totals = [straight[s]["total"] for s in range(1, 9)]
+            bad = [(s, k) for s, r in straight.items() for k, v in r.items()
+                   if isinstance(v, float) and not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"non-finite loss terms {bad}")
+            print(f"train CLI total over 8 steps: "
+                  + ", ".join(f"{t:.3f}" for t in totals))
+            if not np.mean(totals[-2:]) < np.mean(totals[:2]):
+                raise AssertionError(f"total did not fall: {totals}")
+            diff = max(abs(straight[s][k] - resumed[s][k]) /
+                       max(1.0, abs(straight[s][k]))
+                       for s in range(5, 9) for k in ("total", "mel"))
+            print(f"resume from step 4: steps 5-8 total/mel max relative "
+                  f"difference to the straight run {diff:.3e} (tol "
+                  f"{RESUME_TOL:g}); launches per step in the log: "
+                  f"{straight[8]['launches_per_step']}")
+            if diff > RESUME_TOL:
+                raise AssertionError(f"resumed losses differ by {diff}")
+
+            # in process: the same loop pieces, counted and profiled
+            pre, mc, tr = (raw["preprocess"], raw["model"], raw["train"])
+            from ctts_torch.config import inject_derived
+            inject_derived(pre, mc, tr)
+            mc = prepare_model_config(pre, mc)
+            ds = Dataset("train_unsup.txt", pre, mc, tr, sort=True,
+                         drop_last=True)
+            cache = DeviceCache(ds, tr["transfer_dtype"])
+            cache.put("cuda")
+            idx, t_s, t_m = next(cache.index_batches(seed=tr["seed"]))
+            batch = gather_batch(cache.arrays, torch.from_numpy(idx).cuda(),
+                                 t_s, t_m, False)
+            model = init_weights(CompTransTTS(pre, mc, tr),
+                                 tr["seed"]).cuda()
+            opt, _ = build_optimizer(model, mc, tr, d_model=256)
+            state = create_train_state(model, opt, seed=tr["seed"])
+            step = make_train_step(pre, mc, tr, "train_unsup")
+            step(state, batch)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            step(state, batch)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            print(f"conformer train step [{len(idx)}, {t_s} tokens, {t_m} "
+                  f"frames], counted in process: launches {counts}")
+            want = {"relpos_fwd": 10, "relpos_bwd": 10, "gather_rows": 1,
+                    "scatter_rows": 1, "b_mas": 1, "ctc_alpha": 1,
+                    "ctc_grad": 1}
+            if counts != want:
+                raise AssertionError(f"expected launches {want}, got {counts}")
+            for name, n in counts.items():
+                self.kernels[name].setdefault("launches_conformer_step", n)
+            self.kernels["relpos_fwd"]["launches"] = counts["relpos_fwd"]
+            self.kernels["relpos_bwd"]["launches"] = counts["relpos_bwd"]
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                step(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.reset_peak_memory_stats()
+
+            def traced():
+                step(state, batch)
+                torch.cuda.synchronize()
+
+            wall, busy, idle = self.breakdown(traced, "conformer train step")
+            print(f"conformer train step, host clock around a synchronised "
+                  f"step: median of 5 {np.median(times):.2f} ms, min "
+                  f"{min(times):.2f}, max {max(times):.2f}; under the profiler "
+                  f"wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+                  f"{idle:.3f}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -857,6 +1316,11 @@ def main():
         smoke.phase("attention backward vs plain", smoke.attention_backward)
     if not smoke.failures:
         smoke.phase("train step", smoke.train)
+    if not smoke.failures:
+        smoke.phase("relpos kernels vs plain", smoke.relpos)
+    if not smoke.failures:
+        smoke.phase("conformer forward", smoke.conformer_forward)
+        smoke.phase("conformer train CLI", smoke.conformer_train)
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", file=sys.stderr)
         return 1

@@ -11,6 +11,7 @@ plain and quoted scalars with YAML 1.1 typing (as ``yaml.safe_load``
 resolves them), and ``#`` comments.
 """
 
+import json
 import os
 import re
 
@@ -137,6 +138,43 @@ def load_yaml(stream_or_text):
         else:
             parent[key] = None
     return root
+
+
+def _dump_scalar(v):
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if v is None:
+        return "null"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        if "." not in text:                    # YAML 1.1 floats need a dot
+            mant, _, exp = text.partition("e")
+            text = f"{mant}.0" + (f"e{exp}" if exp else "")
+        return text
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_scalar(x) for x in v) + "]"
+    return json.dumps(str(v))
+
+
+def dump_yaml(mapping, indent=0):
+    """A nested mapping of scalars and lists as YAML text that
+    :func:`load_yaml` (and ``yaml.safe_load``) read back to the same
+    values: block mappings, flow lists, double-quoted strings."""
+    lines = []
+    for key, value in mapping.items():
+        pad = " " * indent
+        if isinstance(value, dict):
+            lines.append(f"{pad}{key}:")
+            lines.append(dump_yaml(value, indent + 2))
+        else:
+            lines.append(f"{pad}{key}: {_dump_scalar(value)}")
+    return "\n".join(ln for ln in lines if ln)
 
 
 def _default_config_dir():

@@ -29,6 +29,28 @@ def sinusoid_table(num_positions, dim, dtype=torch.float32):
     return emb.to(dtype)
 
 
+def interleaved_sinusoid_table(num_positions, dim):
+    """The classic per-dimension table (ctts_tpu/models/transformer.py
+    ``_sinusoid_encoding``): angle pos / 10000^(2·(i//2)/dim), sin on even
+    dims and cos on odd ones, row 0 included. float32, computed in float64
+    as numpy does there."""
+    pos = torch.arange(num_positions, dtype=torch.float64)[:, None]
+    i = torch.arange(dim, dtype=torch.float64)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * torch.div(i, 2, rounding_mode="floor")
+                            / dim)
+    table = torch.zeros(num_positions, dim, dtype=torch.float32)
+    table[:, 0::2] = torch.sin(angle[:, 0::2]).float()
+    table[:, 1::2] = torch.cos(angle[:, 1::2]).float()
+    return table
+
+
+def dtype_of(model_config):
+    """The stacks' compute dtype: bfloat16 when ``compute_dtype`` says so,
+    else float32 (parameters stay float32 either way)."""
+    return (torch.bfloat16 if model_config.get("compute_dtype") == "bfloat16"
+            else torch.float32)
+
+
 def positions_from_mask(padding_mask):
     """Non-pad tokens numbered 1..len, pads 0."""
     nonpad = (~padding_mask).long()
@@ -113,12 +135,12 @@ class Linear(nn.Linear):
 
 class Conv1d(nn.Conv1d):
     """1-D conv over [B, T, C] with SAME padding ((k-1)//2 left, k//2
-    right) and dilation, computing in ``dtype``."""
+    right), dilation and groups, computing in ``dtype``."""
 
     def __init__(self, in_channels, out_channels, kernel_size, dilation=1,
-                 bias=True, dtype=torch.float32):
+                 bias=True, dtype=torch.float32, groups=1):
         super().__init__(in_channels, out_channels, kernel_size,
-                         dilation=dilation, bias=bias)
+                         dilation=dilation, bias=bias, groups=groups)
         self.compute_dtype = dtype
         total = dilation * (kernel_size - 1)
         self.pad = (total // 2, total - total // 2)
@@ -130,10 +152,10 @@ class Conv1d(nn.Conv1d):
         left, right = self.pad
         if left == right:
             y = F.conv1d(x, self.weight.to(dt), b, padding=left,
-                         dilation=self.dilation)
+                         dilation=self.dilation, groups=self.groups)
         else:
             y = F.conv1d(F.pad(x, (left, right)), self.weight.to(dt), b,
-                         dilation=self.dilation)
+                         dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)
 
 
@@ -142,10 +164,11 @@ class ConvNorm(nn.Module):
     (reference ConvNorm)."""
 
     def __init__(self, in_channels, out_channels, kernel_size=1, dilation=1,
-                 bias=True, dtype=torch.float32):
+                 bias=True, dtype=torch.float32, groups=1):
         super().__init__()
         self.conv = Conv1d(in_channels, out_channels, kernel_size,
-                           dilation=dilation, bias=bias, dtype=dtype)
+                           dilation=dilation, bias=bias, dtype=dtype,
+                           groups=groups)
 
     def forward(self, x):
         return self.conv(x)

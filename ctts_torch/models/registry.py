@@ -1,14 +1,14 @@
 """block_type → (TextEncoder, Decoder) (ctts_tpu/models/registry.py).
 
-Only ``transformer_fs2`` (the shipped default) is ported; the other block
-types raise and name the ROADMAP item that ports them.
+``transformer_fs2`` (the shipped default) and ``conformer`` are ported; the
+other block types raise and name the ROADMAP item that ports them.
 """
 
 import importlib
 
-_BLOCKS = {"transformer_fs2": "ctts_torch.models.transformer_fs2"}
-_NOT_YET = ("transformer", "fastformer", "lstransformer", "conformer",
-            "reformer")
+_BLOCKS = {"transformer_fs2": "ctts_torch.models.transformer_fs2",
+           "conformer": "ctts_torch.models.conformer"}
+_NOT_YET = ("transformer", "fastformer", "lstransformer", "reformer")
 
 
 def get_block(block_type):

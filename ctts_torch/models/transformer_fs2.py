@@ -14,13 +14,8 @@ from torch import nn
 
 from ctts_torch.models.blocks import (Conv1d, Dropout, LayerNorm, Linear,
                                       MultiHeadAttention,
-                                      SinusoidalPositionalEmbedding)
+                                      SinusoidalPositionalEmbedding, dtype_of)
 from ctts_torch.text.symbols import symbols
-
-
-def dtype_of(model_config):
-    return (torch.bfloat16 if model_config.get("compute_dtype") == "bfloat16"
-            else torch.float32)
 
 
 class FFNLayer(nn.Module):

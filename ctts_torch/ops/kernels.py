@@ -20,7 +20,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ctts_torch")
 SOURCES = ("attention.cu", "gather_rows.cu", "scatter_rows.cu", "mas.cu",
-           "forward_sum.cu", "barrier_chain.cu")
+           "forward_sum.cu", "relpos_attention.cu", "barrier_chain.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -126,3 +126,27 @@ def check(err, lib, what):
     if err != 0:
         msg = lib.ctts_strerror(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch_counts():
+    """Kernel launches since the counters were last reset, by kernel name
+    (each wrapper counts its own; the counters are plain module ints)."""
+    from ctts_torch.ops import (attention, forward_sum, mas, relpos_attention,
+                                sort_gather)
+    return {"fused_attention": attention.launches,
+            "gather_rows": sort_gather.launches,
+            "scatter_rows": sort_gather.scatter_launches,
+            "b_mas": mas.launches,
+            "ctc_alpha": forward_sum.alpha_launches,
+            "ctc_grad": forward_sum.grad_launches,
+            "relpos_fwd": relpos_attention.launches,
+            "relpos_bwd": relpos_attention.bwd_launches}
+
+
+def reset_launch_counts():
+    from ctts_torch.ops import (attention, forward_sum, mas, relpos_attention,
+                                sort_gather)
+    attention.launches = sort_gather.launches = 0
+    sort_gather.scatter_launches = mas.launches = 0
+    forward_sum.alpha_launches = forward_sum.grad_launches = 0
+    relpos_attention.launches = relpos_attention.bwd_launches = 0

@@ -7,8 +7,10 @@ Phone IDs go through CompTransTTS (mode "infer") to a mel, and the vocoder
 turns the mel into a wav. The frame budget follows the JAX CLI's two
 passes: a probe at one bucket (128 frames), then the predicted length
 rounded up to a whole bucket, capped at 2·max_seq_len. Writes
-``<id>.wav`` and ``<id>.npy`` (the mel) per utterance. Batch mode,
-``--stream_chunk`` and ``--restore_step`` are not ported yet.
+``<id>.wav`` and ``<id>.npy`` (the mel) per utterance. ``--restore_step N``
+reads the port's checkpoint of step N (written by ``ctts_torch.train``)
+from the config's ``ckpt_path``. Batch mode and ``--stream_chunk`` are not
+ported yet.
 """
 
 import argparse

@@ -31,25 +31,27 @@ def init_weights(module, seed):
 def get_model(restore_step, configs, packed_ckpt=None, device=None):
     """Build CompTransTTS for inference and load its weights.
 
-    packed_ckpt: the bf16 npz the JAX package packs (e.g. the committed
-    assets/ljdemo_ckpt.npz), mapped through the weight bridge. Without it
-    the weights are drawn from seed 0. ``restore_step`` (orbax
-    checkpoint directories) is not ported yet. Returns the model in eval
-    mode on ``device`` (cuda unless the caller asks for another)."""
+    ``restore_step`` reads the port's checkpoint of that step from
+    ``train.path.ckpt_path`` (``ctts_torch.train`` writes them; raises
+    FileNotFoundError when there is none). packed_ckpt: the bf16 npz the
+    JAX package packs (e.g. the committed assets/ljdemo_ckpt.npz), mapped
+    through the weight bridge. With neither, the weights are drawn from
+    seed 0. Returns the model in eval mode on ``device`` (cuda unless the
+    caller asks for another)."""
     from ctts_torch.models.comp_trans_tts import (CompTransTTS,
                                                   prepare_model_config)
-    from ctts_torch.utils.checkpoint import load_params_npz
+    from ctts_torch.utils.checkpoint import load_checkpoint, load_params_npz
     from ctts_torch.utils.weights import state_dict_from_jax
 
-    if restore_step:
-        raise NotImplementedError(
-            "--restore_step reads orbax checkpoint directories, which the "
-            "port does not read yet (ROADMAP.md §1 item 6); pass packed_ckpt")
     dev = resolve_device(device)
     preprocess_config, model_config, train_config = configs
     model_config = prepare_model_config(preprocess_config, model_config)
     model = CompTransTTS(preprocess_config, model_config, train_config)
-    if packed_ckpt:
+    if restore_step:
+        saved = load_checkpoint(train_config["path"]["ckpt_path"],
+                                restore_step)
+        model.load_state_dict(saved["model"], strict=True)
+    elif packed_ckpt:
         tree, step = load_params_npz(packed_ckpt)
         model.load_state_dict(state_dict_from_jax(tree), strict=True)
         print(f"loaded packed weights (step {step}) from {packed_ckpt}")

@@ -10,6 +10,12 @@ gradient clip (ctts_tpu/utils/optimizer.py), with optax's arithmetic:
 
 lr = H^-0.5 · min(count^-0.5, count · warmup^-1.5) · anneal_rate^(number of
 milestones passed).
+
+``weight_decay > 0`` is ``optax.adamw``: ``wd·param`` is added to the Adam
+direction before the rate scales it. ``grad_acc_step = k > 1`` is
+``optax.MultiSteps``: the running mean ``acc + (g - acc)/(i+1)`` of k
+micro-gradients, one clipped update every k calls (none in between), and the
+schedule counting updates.
 """
 
 import torch
@@ -37,22 +43,56 @@ class NoamAdam:
     from before the clip (a 0-d tensor)."""
 
     def __init__(self, params, schedule, betas=(0.9, 0.98), eps=1e-9,
-                 clip=1.0, count=0):
+                 clip=1.0, count=0, weight_decay=0.0, acc_steps=1):
         self.params = list(params)
         self.schedule = schedule
         self.b1, self.b2 = betas
         self.eps = eps
         self.clip = clip
         self.count = count
+        self.weight_decay = weight_decay
+        self.acc_steps = acc_steps
+        self.mini_step = 0                 # micro-gradients accumulated
+        self.acc = None
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def state_dict(self):
+        """Moments, counts and the gradient accumulator (None when empty)."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count,
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    def load_state_dict(self, state):
+        with torch.no_grad():
+            for dst, src in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+                for d, x in zip(dst, src, strict=True):
+                    d.copy_(x)
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        self.acc = (None if state["acc"] is None else
+                    [x.to(p.device) for x, p in zip(state["acc"],
+                                                    self.params)])
 
     @torch.no_grad()
     def update(self, grads):
         norm = global_norm(grads)
+        if self.acc_steps > 1:
+            i = self.mini_step
+            if self.acc is None:
+                self.acc = [torch.zeros_like(g) for g in grads]
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, float(i + 1))
+            torch._foreach_add_(self.acc, delta)
+            self.mini_step = (i + 1) % self.acc_steps
+            if self.mini_step:
+                return norm
+            grads, self.acc = self.acc, None
+            clip_norm = global_norm(grads)
+        else:
+            clip_norm = norm
         # optax.clip_by_global_norm: g if norm < clip else g / norm * clip
-        scale = torch.where(norm < self.clip, torch.ones_like(norm),
-                            self.clip / norm)
+        scale = torch.where(clip_norm < self.clip, torch.ones_like(clip_norm),
+                            self.clip / clip_norm)
         grads = torch._foreach_mul(grads, scale)
         lr = self.schedule(self.count)
         self.count += 1
@@ -65,6 +105,8 @@ class NoamAdam:
         torch._foreach_add_(denom, self.eps)
         updates = torch._foreach_div(self.mu, 1 - self.b1 ** self.count)
         torch._foreach_div_(updates, denom)
+        if self.weight_decay > 0:
+            torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, updates, alpha=-lr)
         return norm
 
@@ -73,18 +115,13 @@ def build_optimizer(model, model_config, train_config, d_model=None, count=0):
     """The shipped optimizer over ``model``'s parameters; ``count`` restores
     the update count of a resumed run. Returns (optimizer, schedule)."""
     opt_cfg = train_config["optimizer"]
-    if (opt_cfg.get("grad_acc_step") or 1) > 1:
-        raise NotImplementedError(
-            "grad_acc_step > 1 is not ported yet (ROADMAP.md §1 item 9b)")
-    if opt_cfg.get("weight_decay", 0.0) > 0:
-        raise NotImplementedError(
-            "weight_decay > 0 (adamw) is not ported yet (ROADMAP.md §1 item "
-            "9b)")
     if d_model is None:
         d_model = model_config["transformer"]["encoder_hidden"]
     schedule = noam_schedule(d_model ** -0.5, opt_cfg["warm_up_step"],
                              opt_cfg["anneal_steps"], opt_cfg["anneal_rate"])
     opt = NoamAdam(model.parameters(), schedule, betas=tuple(opt_cfg["betas"]),
                    eps=opt_cfg["eps"], clip=opt_cfg["grad_clip_thresh"],
-                   count=count)
+                   count=count,
+                   weight_decay=opt_cfg.get("weight_decay", 0.0) or 0.0,
+                   acc_steps=opt_cfg.get("grad_acc_step") or 1)
     return opt, schedule

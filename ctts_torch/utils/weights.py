@@ -11,7 +11,12 @@ state_dict straight back. Layout changes:
   ``in_proj_weight [3C, C]``, out ``[H, Dh, C]`` → ``out_proj [C, C]``;
 - LayerNorm / BatchNorm ``scale`` → ``weight``; BatchNorm ``mean`` /
   ``var`` → ``running_mean`` / ``running_var``;
-- transposed convs (HiFi-GAN): ``[k, out, in]`` → torch ``[in, out, k]``.
+- transposed convs (HiFi-GAN): ``[k, out, in]`` → torch ``[in, out, k]``;
+- conformer stacks: ``DenseGeneral`` q/k/v/pos ``[C, H, Dh]`` and out
+  ``[H, Dh, C]`` → the upstream ``LinearNorm`` weights ``[C, C]``, the
+  pointwise Dense ``[in, out]`` → conv ``[out, in, 1]``, the depthwise conv
+  ``[k, 1, C]`` → ``[C, 1, k]``, and each conv module's BatchNorm statistics
+  from ``batch_stats``.
 
 :func:`jax_tree_from_state_dict` is the inverse for the acoustic model, so a
 test can compare the port's parameters with the JAX tree after a step.
@@ -65,6 +70,54 @@ def _fft_stack(sd, prefix, fft):
         sd[f"{prefix}.pos_embed_alpha"] = fft["pos_embed_alpha"]
 
 
+_HEADED = ("query_proj", "key_proj", "value_proj", "pos_proj")
+
+
+def _pointwise(sd, prefix, node):
+    sd[f"{prefix}.conv.weight"] = np.asarray(node["kernel"]).T[:, :, None]
+    sd[f"{prefix}.conv.bias"] = node["bias"]
+
+
+def _conformer_ff(sd, prefix, node):
+    _ln(sd, f"{prefix}.0", node["LayerNorm_0"])
+    _dense(sd, f"{prefix}.1.linear", node["Dense_0"])
+    _dense(sd, f"{prefix}.4.linear", node["Dense_1"])
+
+
+def _conformer_stack(sd, prefix, stack, stack_stats):
+    """``{prefix}.layer_stack.{i}.sequential.*`` from the JAX ``stack``
+    (the upstream layout ``torch_import.py:_conformer_layer`` reads)."""
+    i = 0
+    while f"layer_stack_{i}" in stack:
+        layer = stack[f"layer_stack_{i}"]
+        p = f"{prefix}.layer_stack.{i}.sequential"
+        _conformer_ff(sd, f"{p}.0.module.sequential", layer["ff1"])
+        a = f"{p}.1.module"
+        _ln(sd, f"{a}.layer_norm", layer["attn_norm"])
+        att = layer["attn"]
+        C = att["query_proj"]["kernel"].shape[0]
+        for name in _HEADED:
+            sd[f"{a}.attention.{name}.linear.weight"] = \
+                att[name]["kernel"].reshape(C, -1).T
+        sd[f"{a}.attention.out_proj.linear.weight"] = \
+            att["out_proj"]["kernel"].reshape(-1, C).T
+        sd[f"{a}.attention.u_bias"] = att["u_bias"]
+        sd[f"{a}.attention.v_bias"] = att["v_bias"]
+        c, conv = f"{p}.2.module.sequential", layer["conv"]
+        _ln(sd, f"{c}.0", conv["LayerNorm_0"])
+        _pointwise(sd, f"{c}.2", conv["pw1"])
+        sd[f"{c}.4.conv.weight"] = _conv(conv["dw"]["kernel"])
+        _ln(sd, f"{c}.5", conv["bn"])
+        bn = stack_stats[f"layer_stack_{i}"]["conv"]["bn"]
+        sd[f"{c}.5.running_mean"] = bn["mean"]
+        sd[f"{c}.5.running_var"] = bn["var"]
+        sd[f"{c}.5.num_batches_tracked"] = np.zeros((), np.int64)
+        _pointwise(sd, f"{c}.7", conv["pw2"])
+        _conformer_ff(sd, f"{p}.3.module.sequential", layer["ff2"])
+        _ln(sd, f"{p}.4", layer["final_norm"])
+        i += 1
+
+
 def _predictor(sd, prefix, node):
     conv = node["conv"]
     i = 0
@@ -103,9 +156,15 @@ def state_dict_from_jax(tree):
             f"parameters for {sorted(extra)} have no module in ctts_torch yet")
     sd = {}
     enc = params["encoder"]
-    sd["encoder.embed_tokens.weight"] = enc["embed_tokens"]["embedding"]
-    _fft_stack(sd, "encoder", enc["fft"])
-    _fft_stack(sd, "decoder", params["decoder"]["fft"])
+    if "stack" in enc:                                      # conformer
+        sd["encoder.src_word_emb.weight"] = enc["src_word_emb"]["embedding"]
+        for side in ("encoder", "decoder"):
+            _conformer_stack(sd, side, params[side]["stack"],
+                             stats[side]["stack"])
+    else:
+        sd["encoder.embed_tokens.weight"] = enc["embed_tokens"]["embedding"]
+        _fft_stack(sd, "encoder", enc["fft"])
+        _fft_stack(sd, "decoder", params["decoder"]["fft"])
     _dense(sd, "mel_linear", params["mel_linear"])
 
     pn, pn_stats = params["postnet"], stats["postnet"]
@@ -194,6 +253,49 @@ def _inv_fft_stack(sd, prefix, num_heads):
     return fft
 
 
+def _inv_conformer_ff(sd, prefix):
+    return {"LayerNorm_0": _inv_ln(sd, f"{prefix}.0"),
+            "Dense_0": _inv_dense(sd, f"{prefix}.1.linear"),
+            "Dense_1": _inv_dense(sd, f"{prefix}.4.linear")}
+
+
+def _inv_pointwise(sd, prefix):
+    return {"kernel": sd[f"{prefix}.conv.weight"][:, :, 0].T,
+            "bias": sd[f"{prefix}.conv.bias"]}
+
+
+def _inv_conformer_stack(sd, prefix, num_heads):
+    """(params, batch_stats) of a JAX conformer ``stack``."""
+    params, stats = {}, {}
+    i = 0
+    while f"{prefix}.layer_stack.{i}.sequential.4.weight" in sd:
+        p = f"{prefix}.layer_stack.{i}.sequential"
+        a, c = f"{p}.1.module", f"{p}.2.module.sequential"
+        C = sd[f"{a}.attention.out_proj.linear.weight"].shape[0]
+        att = {name: {"kernel": sd[f"{a}.attention.{name}.linear.weight"].T
+                      .reshape(C, num_heads, -1)} for name in _HEADED}
+        att["out_proj"] = {"kernel": sd[f"{a}.attention.out_proj.linear."
+                                        "weight"].T.reshape(num_heads, -1, C)}
+        att["u_bias"] = sd[f"{a}.attention.u_bias"]
+        att["v_bias"] = sd[f"{a}.attention.v_bias"]
+        params[f"layer_stack_{i}"] = {
+            "ff1": _inv_conformer_ff(sd, f"{p}.0.module.sequential"),
+            "attn_norm": _inv_ln(sd, f"{a}.layer_norm"),
+            "attn": att,
+            "conv": {"LayerNorm_0": _inv_ln(sd, f"{c}.0"),
+                     "pw1": _inv_pointwise(sd, f"{c}.2"),
+                     "dw": {"kernel": _conv(sd[f"{c}.4.conv.weight"])},
+                     "bn": _inv_ln(sd, f"{c}.5"),
+                     "pw2": _inv_pointwise(sd, f"{c}.7")},
+            "ff2": _inv_conformer_ff(sd, f"{p}.3.module.sequential"),
+            "final_norm": _inv_ln(sd, f"{p}.4")}
+        stats[f"layer_stack_{i}"] = {"conv": {"bn": {
+            "mean": sd[f"{c}.5.running_mean"],
+            "var": sd[f"{c}.5.running_var"]}}}
+        i += 1
+    return params, stats
+
+
 def _inv_predictor(sd, prefix):
     conv = {}
     i = 0
@@ -214,14 +316,24 @@ def jax_tree_from_state_dict(state_dict, model_config):
     inverse of :func:`state_dict_from_jax`)."""
     sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
     cfg = model_config[model_config["block_type"]]
-    params = {
-        "encoder": {
-            "embed_tokens": {"embedding": sd["encoder.embed_tokens.weight"]},
-            "fft": _inv_fft_stack(sd, "encoder", cfg["encoder_head"])},
-        "decoder": {"fft": _inv_fft_stack(sd, "decoder",
-                                          cfg["decoder_head"])},
-        "mel_linear": _inv_dense(sd, "mel_linear"),
-    }
+    batch_stats = {}
+    if model_config["block_type"] == "conformer":
+        params = {}
+        for side in ("encoder", "decoder"):
+            sp, ss = _inv_conformer_stack(sd, side, cfg[f"{side}_head"])
+            params[side] = {"stack": sp}
+            batch_stats[side] = {"stack": ss}
+        params["encoder"]["src_word_emb"] = {
+            "embedding": sd["encoder.src_word_emb.weight"]}
+    else:
+        params = {
+            "encoder": {
+                "embed_tokens": {"embedding":
+                                 sd["encoder.embed_tokens.weight"]},
+                "fft": _inv_fft_stack(sd, "encoder", cfg["encoder_head"])},
+            "decoder": {"fft": _inv_fft_stack(sd, "decoder",
+                                              cfg["decoder_head"])}}
+    params["mel_linear"] = _inv_dense(sd, "mel_linear")
     pn, pn_stats = {}, {}
     i = 0
     while f"postnet.convolutions.{i}.0.conv.weight" in sd:
@@ -254,7 +366,8 @@ def jax_tree_from_state_dict(state_dict, model_config):
             for name, slots in _ALIGNER_CONVS
             for j, slot in enumerate(slots)}
     params["variance_adaptor"] = va
-    return {"params": params, "batch_stats": {"postnet": pn_stats}}
+    batch_stats["postnet"] = pn_stats
+    return {"params": params, "batch_stats": batch_stats}
 
 
 def hifigan_state_dict_from_jax(params):

@@ -300,3 +300,126 @@ def test_train_step_on_the_card_tiny():
     after = (sort_gather.scatter_launches, mas.launches, fs.alpha_launches,
              fs.grad_launches)
     assert [a - b for a, b in zip(after, before)] == [6, 3, 3, 3]
+
+
+# ---- relative-position attention (the conformer) ------------------------------ #
+
+def _relpos_case(dev, B, H, T, d, seed):
+    rng = np.random.RandomState(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    args = (t(B, T, H, d), t(B, T, H, d), t(B, T, H, d), t(H, T, d),
+            t(H, d), t(H, d))
+    cot = t(B, T, H, d)
+    mask = torch.zeros(B, T, dtype=torch.bool, device=dev)
+    mask[-1, T - T // 5:] = True
+    return args, cot, mask
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,H,T,d", [(2, 8, 96, 32), (1, 2, 200, 32),
+                                     (4, 8, 87, 32)])
+def test_relpos_kernels_match_plain(B, H, T, d, dtype, tol, masked, dropout):
+    """Forward and backward kernels against the plain version in float32 on
+    the same (rounded) inputs and the same dropout seed: the output and each
+    of the six gradients within ``tol`` of its largest entry; one launch of
+    each kernel."""
+    dev = _need_card()
+    from ctts_torch.ops import relpos_attention as ra
+    args, cot, mask = _relpos_case(dev, B, H, T, d, T + d)
+    args = [a.to(dtype).float() for a in args[:4]] + list(args[4:])
+    mask = mask if masked else None
+    a = [(x.to(dtype) if i < 4 else x).detach().clone().requires_grad_(True)
+         for i, x in enumerate(args)]
+    before = (ra.launches, ra.bwd_launches)
+    out = ra.relpos_attention(*a, 0.0625, dropout, torch.Generator(
+        dev).manual_seed(5), mask)
+    out.backward(cot.to(dtype))
+    torch.cuda.synchronize()
+    assert (ra.launches, ra.bwd_launches) == (before[0] + 1, before[1] + 1)
+    b = [x.detach().clone().requires_grad_(True) for x in args]
+    seed = ra.draw_seed(torch.Generator(dev).manual_seed(5), dev)
+    ref = ra.relpos_attention_plain(*b, 0.0625, dropout, seed, mask)
+    ref.backward(cot.to(dtype).float())
+    assert out.dtype == dtype and out.shape == ref.shape
+    for got, want in [(out, ref)] + [(x.grad, y.grad) for x, y in zip(a, b)]:
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), err
+
+
+def test_relpos_wrapper_raises_on_untaken_cuda_input():
+    dev = _need_card()
+    from ctts_torch.ops import relpos_attention as ra
+    args, _, _ = _relpos_case(dev, 1, 2, 40, 8, 0)       # d=8: no kernel
+    with pytest.raises(ValueError):
+        ra.relpos_attention(*args, 0.1)
+    args, _, _ = _relpos_case(dev, 1, 2, 40, 32, 0)
+    with pytest.raises(TypeError):
+        ra.relpos_attention(*(a.half() for a in args), 0.1)
+
+
+def _conformer_configs():
+    from ctts_torch.utils.testing import tiny_configs
+    pre, mc, tr = tiny_configs()
+    mc["block_type"] = "conformer"
+    mc["conformer"].update(encoder_layer=2, decoder_layer=2, encoder_hidden=64,
+                           decoder_hidden=64, encoder_head=2, decoder_head=2)
+    return pre, mc, tr
+
+
+def test_conformer_forward_on_the_card():
+    """The conformer model in infer mode on the card (heads of 32) against
+    the same weights on the CPU: mel within 1e-3; one forward launches the
+    relpos kernel once per layer."""
+    dev = _need_card()
+    from ctts_torch.models.comp_trans_tts import CompTransTTS
+    from ctts_torch.ops import relpos_attention as ra
+    from ctts_torch.utils.model import init_weights
+    from ctts_torch.utils.testing import synth_batch
+    pre, mc, tr = _conformer_configs()
+    model = init_weights(CompTransTTS(pre, mc, tr), 1).eval()
+    b = synth_batch()
+    inputs = [torch.from_numpy(b[k]).long() for k in ("speakers", "texts",
+                                                       "src_lens")]
+    with torch.no_grad():
+        want = model(*inputs, "infer", max_mel_len=48)
+        model.to(dev)
+        before = ra.launches
+        got = model(*(x.to(dev) for x in inputs), "infer", max_mel_len=48)
+    torch.cuda.synchronize()
+    assert ra.launches == before + 4
+    np.testing.assert_array_equal(got["mel_lens"].cpu().numpy(),
+                                  want["mel_lens"].numpy())
+    err = (got["postnet_mel_predictions"].cpu()
+           - want["postnet_mel_predictions"]).abs().max().item()
+    assert err <= 1e-3, err
+
+
+def test_conformer_train_step_on_the_card():
+    """Two train steps of the tiny conformer on the card, dropout on:
+    finite losses, relpos forward and backward 4 launches each per step."""
+    dev = _need_card()
+    from ctts_torch.models.comp_trans_tts import CompTransTTS
+    from ctts_torch.ops import relpos_attention as ra
+    from ctts_torch.parallel.train_step import (batch_to_device,
+                                                create_train_state,
+                                                make_train_step)
+    from ctts_torch.utils.model import init_weights
+    from ctts_torch.utils.optimizer import build_optimizer
+    from ctts_torch.utils.testing import synth_batch
+    pre, mc, tr = _conformer_configs()
+    model = init_weights(CompTransTTS(pre, mc, tr), 0).to(dev)
+    opt, _ = build_optimizer(model, mc, tr)
+    state = create_train_state(model, opt, step=7000)
+    step = make_train_step(pre, mc, tr, "train_unsup")
+    batch = batch_to_device(synth_batch(prior=False), dev)
+    for _ in range(2):
+        before = (ra.launches, ra.bwd_launches)
+        metrics = step(state, batch)
+        assert (ra.launches - before[0], ra.bwd_launches - before[1]) == (4, 4)
+    assert all(np.isfinite(v.item()) for v in metrics.values())

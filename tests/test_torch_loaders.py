@@ -91,8 +91,9 @@ def test_text_frontend_matches_jax_package():
 
 
 def test_imports_need_no_jax_yaml_or_ml_dtypes():
-    """Every ctts_torch module and chip_smoke.py import with jax, ctts_tpu,
-    yaml, ml_dtypes and matplotlib blocked."""
+    """Every ctts_torch module (the conformer, the data pipeline and the
+    train CLI included) and chip_smoke.py import with jax, ctts_tpu, yaml,
+    ml_dtypes, matplotlib, flax and orbax blocked."""
     code = r"""
 import importlib, os, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "ctts_tpu", "yaml", "ml_dtypes",
@@ -116,7 +117,10 @@ print(" ".join(mods), len(mods))
     assert int(names[-1]) >= 35
     for new in ("ops.mas", "ops.forward_sum", "ops.segment", "ops.attn_prior",
                 "models.aligner", "models.loss", "utils.optimizer",
-                "utils.testing", "parallel.train_step"):
+                "utils.testing", "parallel.train_step",
+                "ops.relpos_attention", "models.conformer", "data.dataset",
+                "data.device_cache", "utils.checkpoint", "utils.logging",
+                "train"):
         assert f"ctts_torch.{new}" in names, new
 
 
@@ -160,14 +164,15 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     from ctts_torch.models.registry import get_block
     from ctts_torch.config import get_configs_of
     from ctts_torch.utils.model import get_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_block("conformer")
+        get_block("reformer")
     configs = get_configs_of("LJSpeech")
-    with pytest.raises(NotImplementedError):
+    configs[2]["path"]["ckpt_path"] = str(tmp_path)
+    with pytest.raises(FileNotFoundError):     # no checkpoint at step 5
         get_model(5, configs, device="cpu")
     model = get_model(0, configs, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
