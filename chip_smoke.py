@@ -46,9 +46,23 @@ suppresses the final line:
    falling and the resumed losses matching; then steps of the same model in
    this process with the counters zeroed just before one step and read
    just after, and one step under ``torch.profiler``;
-10. the ``kernels`` JSON line, the card line, and the result line.
+10. the reformer's kernels (local window; LSH chunk, fused route) against
+   their plain versions at the shapes its heads give them (d=128, bf16 and
+   f32, ragged validity, the chunk-0 wrap), with their times, the plain
+   versions', SDPA's on the windowed or chunked tensors with a float mask,
+   and the bounds;
+11. the reformer (``block_type: reformer``, full width and depth, seeded
+   weights) on the probe texts at budget 1152 on both LSH routes (default,
+   and ``CTTS_FUSED_LSH=1``): counted forward, latency, profile, and the
+   same model with the plain versions on the card fed the same hash sorts;
+12. ``python -m ctts_torch.train`` with the reformer config: 6 steps, and
+   3 + a resume for 3 more; then counted, timed and profiled steps at
+   [16, 128 tokens, 896 frames] on both routes;
+13. the ``kernels`` JSON line, the card line, and the result line.
 
-Exits non-zero without a result when no CUDA device is present.
+Exits non-zero without a result when no CUDA device is present. With phase
+names as arguments (``python3 chip_smoke.py "reformer forward"``) it builds
+the kernels and runs those phases alone, and prints no result line.
 """
 
 import json
@@ -62,6 +76,7 @@ import traceback
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(REPO, "assets", "ljdemo_ckpt.npz")
@@ -92,6 +107,14 @@ RELPOS_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 # with the plain relpos (bf16 probabilities and bias there): relative to
 # the largest output entry, after 4 (encoder) and 6 (decoder) layers
 CONFORMER_TOL = 5e-2
+# the reformer's kernels: relative to the largest entry of the plain version
+# in float32 on the same (rounded) inputs; bf16 rounds the output and each
+# gradient once (2^-8), the sums run in another order
+WINDOW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# the reformer's bf16 stacks through the kernels against the same model with
+# the plain versions on the card and the kernel run's hash sorts: relative to
+# the largest output entry, after 6 layers
+REFORMER_TOL = 5e-2
 # resumed against straight train steps on the card: the same weights,
 # batches and dropout seeds; cuDNN and embedding backward sums are not
 # bitwise reproducible on the card, so the losses agree to float rounding
@@ -560,7 +583,7 @@ class Smoke:
             if not exact:
                 raise AssertionError(f"MAS {name} differs from plain")
         ms, ev_ms = timings(lambda: mas.b_mas(seeded, il, ol), only="mas_kernel")
-        whole_ms = device_ms(lambda: mas.b_mas(seeded, il, ol))
+        whole_ms, _ = timings(lambda: mas.b_mas(seeded, il, ol))
         plain_ms, _ = timings(lambda: mas.b_mas_plain(seeded, il, ol), iters=2)
         # rows at or past out_len are never read; every output row is written
         nbytes = int(mel_lens.sum()) * T_S * 4 + B_TRAIN * T_M * T_S * 4 \
@@ -927,7 +950,7 @@ class Smoke:
         ms_b, ev_b = timings(lambda: ra._launch_bwd(
             qf, kf, vf, pos, ub, vb, seed, None, gf, o, m, l, scale, 0.1),
             only="relpos_bwd")
-        whole_b = device_ms(lambda: ra._launch_bwd(
+        whole_b, _ = timings(lambda: ra._launch_bwd(
             qf, kf, vf, pos, ub, vb, seed, None, gf, o, m, l, scale, 0.1))
         plain_f, _ = timings(lambda: ra.relpos_attention_plain(
             q, k, v, pos, ub, vb, scale, 0.1, seed), iters=10)
@@ -1164,7 +1187,7 @@ class Smoke:
         step-4 checkpoint for 4 more. Then the same model's steps in this
         process, with the launch counters zeroed just before a step and
         read just after, and one step under the profiler."""
-        from ctts_torch.config import dump_yaml, load_yaml
+        from ctts_torch.config import load_yaml
         from ctts_torch.data.dataset import Dataset
         from ctts_torch.data.device_cache import DeviceCache, gather_batch
         from ctts_torch.models.comp_trans_tts import (CompTransTTS,
@@ -1186,34 +1209,9 @@ class Smoke:
             raw["train"]["step"].update(log_step=1, save_step=4,
                                         val_step=100000)
 
-            def run(name, max_steps, restore=0):
-                cfg_dir = os.path.join(tmp, name)
-                os.makedirs(cfg_dir, exist_ok=True)
-                raw["train"]["path"] = {
-                    k: os.path.join(cfg_dir, k)
-                    for k in ("ckpt_path", "log_path", "result_path")}
-                with open(os.path.join(cfg_dir, "LJSpeech.yaml"), "w") as f:
-                    f.write(dump_yaml(raw))
-                cmd = [sys.executable, "-m", "ctts_torch.train", "--dataset",
-                       "LJSpeech", "--config_dir", cfg_dir, "--max_steps",
-                       str(max_steps), "--restore_step", str(restore)]
-                t0 = time.perf_counter()
-                res = subprocess.run(cmd, cwd=REPO, capture_output=True,
-                                     text=True, timeout=600)
-                print(f"$ python -m ctts_torch.train ... --max_steps "
-                      f"{max_steps} --restore_step {restore} "
-                      f"({time.perf_counter() - t0:.1f} s)")
-                print("\n".join("  " + ln for ln in
-                                res.stdout.strip().splitlines()[-12:]))
-                if res.returncode != 0:
-                    print(res.stderr[-3000:])
-                    raise AssertionError(f"train CLI exited {res.returncode}")
-                path = os.path.join(cfg_dir, "log_path", "train", "log.jsonl")
-                return {r["step"]: r for r in map(json.loads, open(path))}
-
-            straight = run("straight", 8)
-            run("resumed", 4)
-            resumed = run("resumed", 8, restore=4)
+            straight = self.run_train_cli(raw, tmp, "straight", 8)
+            self.run_train_cli(raw, tmp, "resumed", 4)
+            resumed = self.run_train_cli(raw, tmp, "resumed", 8, restore=4)
             totals = [straight[s]["total"] for s in range(1, 9)]
             bad = [(s, k) for s, r in straight.items() for k, v in r.items()
                    if isinstance(v, float) and not np.isfinite(v)]
@@ -1289,6 +1287,628 @@ class Smoke:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- phase 10: the reformer's kernels -------------------------------- #
+    @staticmethod
+    def grad_case(fn, plain, xs, cot, args):
+        """Kernel and plain results on the same (rounded) inputs: the kernel
+        on ``xs`` in their dtype, the plain version on them upcast to
+        float32; both backward from ``cot``. Returns [(kernel, plain)] for
+        the output and each input's gradient."""
+        a = [t.detach().clone().requires_grad_(True) for t in xs]
+        out = fn(*a, *args)
+        out.backward(cot.to(out.dtype))
+        b = [t.detach().float().requires_grad_(True) for t in xs]
+        ref = plain(*b, *args)
+        ref.backward(cot.to(out.dtype).float())
+        torch.cuda.synchronize()
+        return [(out, ref)] + [(s.grad, t.grad) for s, t in zip(a, b)]
+
+    @staticmethod
+    def rel_errs(pairs):
+        return [(x.float() - y.float()).abs().max().item()
+                / max(y.float().abs().max().item(), 1e-30) for x, y in pairs]
+
+    def window_timings(self, what, fwd, bwd, plain, leaves, cot, build, sdpa):
+        """bf16 device ms of the forward and backward kernels (the backward
+        alone and with its wrapper's torch work), the plain version's
+        forward and forward+backward, and SDPA's forward and
+        forward+backward on ``build()``'s tensors (whose build is timed
+        apart)."""
+        ms_f, _ = timings(fwd, only="window_fwd")
+        ms_b, _ = timings(bwd, only="window_bwd")
+        whole_b, _ = timings(bwd)
+        plain_f, _ = timings(lambda: plain(*leaves), iters=10)
+        lv = [t.detach().clone().requires_grad_(True) for t in leaves]
+
+        def plain_both():
+            for t in lv:
+                t.grad = None
+            plain(*lv).backward(cot)
+
+        plain_fb, _ = timings(plain_both, iters=10)
+        mask_ms, _ = timings(build, iters=10)
+        q, k, v, mask = build()
+        lib_f, _ = timings(lambda: sdpa(q, k, v, mask), iters=20)
+        sv = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        gq = torch.ones_like(q)
+
+        def lib_both():
+            for t in sv:
+                t.grad = None
+            sdpa(*sv, mask).backward(gq)
+
+        lib_fb, _ = timings(lib_both, iters=10)
+        print(f"  {what} timing bf16: device ms forward kernel {ms_f:.4f}, "
+              f"backward kernel {ms_b:.4f} (with the wrapper's torch work "
+              f"{whole_b:.4f}); plain forward {plain_f:.4f}, forward+backward "
+              f"{plain_fb:.4f}; SDPA forward {lib_f:.4f}, forward+backward "
+              f"{lib_fb:.4f}, building its inputs and float mask "
+              f"{mask_ms:.4f}")
+        return dict(ms_f=ms_f, ms_b=ms_b, whole_b=whole_b, plain_f=plain_f,
+                    plain_fb=plain_fb, lib_f=lib_f, lib_fb=lib_fb,
+                    mask_ms=mask_ms)
+
+    @staticmethod
+    def window_bounds(flops, nbytes):
+        """(ms, bound_by) of the forward and the backward, printed."""
+        bounds = [bound(f, n, PEAK_BF16_FLOPS) for f, n in zip(flops, nbytes)]
+        print(f"  bound forward {bounds[0][0]:.5f} ms ({bounds[0][1]}), "
+              f"backward {bounds[1][0]:.5f} ms ({bounds[1][1]})")
+        return bounds
+
+    def record_window(self, name, source, replaces, err, t, bounds, shape,
+                      **extra):
+        """The kernels-line entries of one forward/backward kernel pair."""
+        (b_f, by_f), (b_b, by_b) = bounds
+        for kind, ms, plain_ms, lib_ms, b_ms, by, e in (
+                ("fwd", t["ms_f"], t["plain_f"], t["lib_f"], b_f, by_f,
+                 err["fwd"]),
+                ("bwd", t["ms_b"], t["plain_fb"], t["lib_fb"], b_b, by_b,
+                 err["bwd"])):
+            self.kernels[f"{name}_{kind}"] = {
+                "name": f"{name}_{kind}", "route": "cuda", "source": source,
+                "replaces": replaces[kind], "launches": None,
+                "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                "shape": shape + ("" if kind == "fwd" else "; plain and "
+                                  "library times are forward+backward"),
+                "library_mask_build_ms": t["mask_ms"], **extra}
+        self.kernels[f"{name}_bwd"]["with_wrapper_ms"] = t["whole_b"]
+
+    def local_window(self):
+        """The local-window kernels against the plain version at the shapes
+        the reformer's local heads give them (G = batch·4 heads, d=128,
+        windows of 128): the probe (G=16, N=128 text and N=1152 frames),
+        the train step (G=64, N=128 and 896), and N=1152 with a ragged tail
+        of random lengths; bf16 and f32; prefix validity, which leaves whole
+        windows padded (at N=128 one row is all padding). Times in bf16 at
+        each shape."""
+        from ctts_torch.ops import local_window_attention as lw
+        dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(11)
+        d, win, scale = 128, 128, 128 ** -0.5
+        cases = []
+        for G, N in ((16, 128), (16, 1152), (64, 128), (64, 896)):
+            lens = np.linspace(N, N // 2 + 3, G).astype(np.int64)
+            if N == win:
+                lens[-1] = 0
+            cases.append((f"G={G} N={N}", G, N, lens))
+        lens = 1152 - np.random.RandomState(3).randint(0, 127, 16)
+        cases.append(("G=16 N=1152 ragged tail", 16, 1152, lens))
+        worst = {"fwd": 0.0, "bwd": 0.0}
+        for what, G, N, lens in cases:
+            qk, v, cot = (randn(gen, G, N, d).to(dev) for _ in range(3))
+            valid = torch.arange(N, device=dev)[None] < torch.as_tensor(
+                lens, device=dev)[:, None]
+            for dtype in (torch.bfloat16, torch.float32):
+                before = (lw.launches, lw.bwd_launches)
+                pairs = self.grad_case(
+                    lw.local_window_attention, lw.local_window_attention_plain,
+                    [qk.to(dtype), v.to(dtype)], cot, (valid, win, scale))
+                errs = self.rel_errs(pairs)
+                tol = WINDOW_TOL[dtype]
+                ok = max(errs) <= tol and (lw.launches, lw.bwd_launches) == (
+                    before[0] + 1, before[1] + 1)
+                print(f"local window {what} {str(dtype)[6:]}: max|kernel - "
+                      f"plain f32| / max|plain| of o, dqk, dv = "
+                      + ", ".join(f"{e:.2e}" for e in errs)
+                      + f" (tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"local window {what} {dtype}")
+                if dtype == torch.bfloat16:
+                    absd = [(x.float() - y).abs().max().item()
+                            for x, y in pairs]
+                    worst["fwd"] = max(worst["fwd"], absd[0])
+                    worst["bwd"] = max(worst["bwd"], max(absd[1:]))
+
+            qkb, vb = qk.to(torch.bfloat16), v.to(torch.bfloat16)
+            vi = valid.to(torch.int32)
+            o, m, l = lw._launch_fwd(qkb, vb, vi, win, scale)
+            g = cot.to(torch.bfloat16)
+            W = N // win
+
+            def build():
+                q = qkb.reshape(G * W, win, d)
+                k = qkb.float()
+                k = (k * torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
+                     ).to(torch.bfloat16)
+
+                def windows(x):
+                    return x.reshape(G, W, win, *x.shape[2:])
+
+                kk = lw._look_back_padded(windows(k), 0.0).reshape(
+                    G * W, 2 * win, d)
+                vv = lw._look_back_padded(windows(vb), 0.0).reshape(
+                    G * W, 2 * win, d)
+                pos = torch.arange(N, device=dev).expand(G, N)
+                kt = lw._look_back_padded(windows(pos), -1)[..., None, :]
+                qt = windows(pos)[..., :, None]
+                ok = windows(valid)[..., :, None] & (lw._look_back_padded(
+                    windows(valid), False) & (kt[..., 0, :] >= 0))[..., None, :]
+                mask = torch.where(qt == kt, lw.SELF_ATTN_VAL, 0.0)
+                mask = torch.where((qt < kt) | ~ok, lw.NEG, mask)
+                return q, kk, vv, mask.reshape(G * W, win, 2 * win).to(
+                    torch.bfloat16)
+
+            t = self.window_timings(
+                f"local window {what}",
+                lambda: lw._launch_fwd(qkb, vb, vi, win, scale),
+                lambda: lw._launch_bwd(qkb, vb, vi, g, o, m, l, win, scale),
+                lambda a, b: lw.local_window_attention_plain(a, b, valid, win,
+                                                            scale),
+                [qkb, vb], g, build,
+                lambda q, k, v, mask: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale))
+            # the work the function needs: per valid query the valid keys
+            # at or before it in its window and all valid keys of the
+            # window before (4d flops each forward, 10d backward); a padded
+            # query averages all 2·win values
+            vw = valid.reshape(G, W, win)
+            prev = torch.cat([torch.zeros_like(vw[:, :1]), vw[:, :-1]], 1)
+            live = ((vw.cumsum(-1) + prev.sum(-1, keepdim=True)) * vw).sum()
+            n_pad = int((~valid).sum())
+            flops = (4 * d * int(live) + 2 * d * 2 * win * n_pad,
+                     10 * d * int(live) + 2 * d * 2 * win * n_pad)
+            # the function's bytes: qk, v, valid in, o out (bf16); backward
+            # qk, v, valid and the bf16 cotangent in, dqk and dv out in f32
+            e2, f4, r4 = G * N * d * 2, G * N * d * 4, G * N * 4
+            nbytes = (3 * e2 + r4, 3 * e2 + r4 + 2 * f4)
+            bounds = self.window_bounds(flops, nbytes)
+            if (G, N) == (B_TRAIN * 4, T_M):
+                self.record_window(
+                    "local_window", "ctts_torch/csrc/local_window_attention.cu",
+                    {"fwd": "ctts_tpu/ops/local_window_attention.py:85",
+                     "bwd": "ctts_tpu/ops/local_window_attention.py:97"},
+                    worst, t, bounds,
+                    f"bf16 G={G} N={N} d={d} window {win}, prefix validity "
+                    f"{lens.min()}-{lens.max()}")
+        self.kernels["local_window_fwd"]["max_abs_err"] = worst["fwd"]
+        self.kernels["local_window_bwd"]["max_abs_err"] = worst["bwd"]
+
+    def lsh_chunk(self):
+        """The LSH chunk kernels against the plain version on one hash sort
+        at the shapes the reformer's LSH heads give them (G = batch·4 heads,
+        d=128, chunks of 64, 4 rounds): the probe's frames (G=16, N=1152,
+        M=4608), the train step's frames (G=64, N=896, M=3584) and N=128
+        (8 chunks: chunk 0 wraps to the last); bf16 and f32, causal, prefix
+        validity; out ‖ lse, then dqk and dv from a random cotangent on both.
+        Then times in bf16, and the un-sort scatter's."""
+        from ctts_torch.models.reformer import lsh_sort
+        from ctts_torch.ops import lsh_chunk_attention as lc
+        from ctts_torch.ops import sort_gather
+        dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(12)
+        d, cs, nh, scale = 128, 64, 4, 128 ** -0.5
+        worst = {"fwd": 0.0, "bwd": 0.0}
+        for G, N in ((16, 1152), (64, 896), (16, 128)):
+            M = nh * N
+            lens = np.linspace(N, N // 2 + 3, G).astype(np.int64)
+            qk, v = (randn(gen, G, N, d).to(dev) for _ in range(2))
+            qk = qk.to(torch.bfloat16).float()        # one sort for both
+            cot = randn(gen, G, M, d + 1).to(dev)
+            valid = torch.arange(N, device=dev)[None] < torch.as_tensor(
+                lens, device=dev)[:, None]
+            rot = randn(gen, 1, d, nh, N // cs // 2).to(dev)
+            sticker, st, svalid = lsh_sort(qk, valid, rot, cs, nh)
+            for dtype in (torch.bfloat16, torch.float32):
+                before = (lc.launches, lc.bwd_launches)
+                pairs = self.grad_case(
+                    lc.chunk_attention, lc.chunk_attention_plain,
+                    [qk.to(dtype), v.to(dtype)], cot,
+                    (st, svalid, cs, True, scale))
+                (out, ref), grads = pairs[0], pairs[1:]
+                errs = self.rel_errs([(out[..., :d], ref[..., :d])] + grads)
+                lse_err = ((out[..., d] - ref[..., d]).abs()
+                           / ref[..., d].abs().clamp(min=1)).max().item()
+                tol = WINDOW_TOL[dtype]
+                ok = max(errs) <= tol and lse_err <= 1e-5 and (
+                    lc.launches, lc.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+                print(f"LSH chunk G={G} N={N} M={M} {str(dtype)[6:]}: "
+                      f"max|kernel - plain f32| / max|plain| of o, dqk, dv = "
+                      + ", ".join(f"{e:.2e}" for e in errs)
+                      + f" (tol {tol:g}); lse relative to max(1, |lse|) "
+                      f"{lse_err:.2e} (tol 1e-5) {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    raise AssertionError(f"LSH chunk G={G} N={N} {dtype}")
+                if dtype == torch.bfloat16:
+                    worst["fwd"] = max(worst["fwd"], (
+                        out - ref).abs().max().item())
+                    worst["bwd"] = max(worst["bwd"], max(
+                        (x.float() - y).abs().max().item() for x, y in grads))
+
+            qkb, vb = qk.to(torch.bfloat16), v.to(torch.bfloat16)
+            out = lc._launch_fwd(qkb, vb, st, svalid, cs, True, scale)
+            C = M // cs
+
+            def build():
+                rows = sort_gather.gather_rows(torch.cat([qkb, vb], -1), st)
+                q = rows[..., :d].reshape(G * C, cs, d)
+                k = rows[..., :d].float()
+                k = (k * torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-12)
+                     ).to(torch.bfloat16).reshape(G, C, cs, d)
+                kk = lc.look_one_back(k).reshape(G * C, 2 * cs, d)
+                vv = lc.look_one_back(rows[..., d:].reshape(G, C, cs, d)
+                                      ).reshape(G * C, 2 * cs, d)
+                qt = st.reshape(G, C, cs)[..., :, None]
+                kt = lc.look_one_back(st.reshape(G, C, cs))[..., None, :]
+                sv = svalid.reshape(G, C, cs) > 0
+                ok = sv[..., :, None] & lc.look_one_back(sv)[..., None, :]
+                mask = torch.where(ok & (qt >= kt), 0.0, lc.NEG)
+                mask = torch.where(qt == kt, lc.SELF_ATTN_VAL, mask)
+                return q.contiguous(), kk, vv, mask.reshape(
+                    G * C, cs, 2 * cs).to(torch.bfloat16)
+
+            t = self.window_timings(
+                f"LSH chunk G={G} N={N}",
+                lambda: lc._launch_fwd(qkb, vb, st, svalid, cs, True, scale),
+                lambda: lc._launch_bwd(qkb, vb, st, svalid, cot, out, cs, True,
+                                       scale),
+                lambda a, b: lc.chunk_attention_plain(a, b, st, svalid, cs,
+                                                      True, scale),
+                [qkb, vb], cot, build,
+                lambda q, k, v, mask: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale))
+            sc_un, _ = timings(lambda: sort_gather.scatter_rows(
+                out, sticker, M))
+            grows = torch.cat([out[..., :d], out[..., :d]], -1)
+            sc_bwd, _ = timings(lambda: sort_gather.scatter_rows(
+                grows, st, N))
+            print(f"  scatter_rows at this shape: the un-sort [G={G}, M={M}, "
+                  f"F={d + 1}] f32 → {M} rows {sc_un:.4f} ms; the chunk "
+                  f"backward's sum [G={G}, M={M}, F={2 * d}] f32 → {N} rows "
+                  f"{sc_bwd:.4f} ms")
+            # the work the function needs: per valid sorted query the valid
+            # keys of its chunk and the one before at or before it (self and
+            # duplicates included); a padded query keeps its own key
+            sv = svalid.reshape(G, C, cs) > 0
+            bt = st.reshape(G, C, cs)
+            live = (sv[..., :, None] & lc.look_one_back(sv)[..., None, :]
+                    & (lc.look_one_back(bt)[..., None, :] <= bt[..., :, None])
+                    ).sum() + (~sv).sum()
+            flops = (4 * d * int(live), 10 * d * int(live))
+            # the function's bytes: qk, v (bf16), st, svalid in, out ‖ lse
+            # [G, M, d+1] f32 out; backward qk, v, st, svalid, the f32
+            # cotangent on out ‖ lse and lse in, [G, N, 2d] f32 out once
+            e2, f4, m4 = G * N * d * 2, G * N * d * 4, G * M * 4
+            nbytes = (2 * e2 + 2 * m4 + m4 * (d + 1),
+                      2 * e2 + 2 * m4 + m4 * (d + 1) + m4 + 2 * f4)
+            bounds = self.window_bounds(flops, nbytes)
+            if (G, N) == (B_TRAIN * 4, T_M):
+                self.record_window(
+                    "lsh_chunk", "ctts_torch/csrc/lsh_chunk_attention.cu",
+                    {"fwd": "ctts_tpu/ops/lsh_chunk_attention.py:144",
+                     "bwd": "ctts_tpu/ops/lsh_chunk_attention.py:158"},
+                    worst, t, bounds,
+                    f"bf16 G={G} N={N} M={M} d={d} chunks of {cs}, causal, "
+                    f"prefix validity {lens.min()}-{lens.max()}",
+                    scatter_unsort_ms=sc_un, scatter_bwd_sum_ms=sc_bwd)
+        self.kernels["lsh_chunk_fwd"]["max_abs_err"] = worst["fwd"]
+        self.kernels["lsh_chunk_bwd"]["max_abs_err"] = worst["bwd"]
+
+    # ---- phase 11: the reformer forward ----------------------------------- #
+    @staticmethod
+    def reformer_configs():
+        from ctts_torch.config import get_configs_of
+        configs = get_configs_of("LJSpeech")
+        configs[1]["block_type"] = "reformer"
+        return configs
+
+    @staticmethod
+    def lsh_route(fused):
+        os.environ["CTTS_FUSED_LSH"] = "1" if fused else "0"
+        return "fused (CTTS_FUSED_LSH=1)" if fused else "default"
+
+    def reformer_forward(self):
+        """``configs/LJSpeech.yaml`` with ``block_type: reformer`` at full
+        width and depth (seeded weights; the repo has no trained reformer)
+        on the probe texts at budget 1152, bf16, on both LSH routes: the
+        counted forward, its latency and profile, and the same model with
+        the plain versions of every kernel of the stacks on the card, fed
+        the kernel run's hash sorts (so that only the attention differs)."""
+        import ctts_torch.models.reformer as rf
+        from ctts_torch.ops import lsh_chunk_attention as lc
+        from ctts_torch.ops import local_window_attention as lw
+        from ctts_torch.ops import sort_gather
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        from ctts_torch.synthesize import infer_mels
+        from ctts_torch.utils.model import get_model
+        configs = self.reformer_configs()
+        model = get_model(0, configs, device="cuda")
+        man = json.load(open(MANIFEST))["probe"]
+        budget = man["budget"]
+        batch = {"speakers": np.zeros(len(man["src_lens"]), np.int64),
+                 "texts": np.asarray(man["texts"], np.int64),
+                 "src_lens": np.asarray(man["src_lens"], np.int64)}
+        texts = torch.as_tensor(batch["texts"], device="cuda")
+        src_lens = torch.as_tensor(batch["src_lens"], device="cuda")
+        smask = torch.arange(texts.shape[1], device="cuda")[None] >= \
+            src_lens[:, None]
+        twin_lens = budget - np.random.RandomState(0).randint(0, budget // 8, 4)
+        twin_lens[0] = budget
+        dec_in = torch.randn(4, budget, 256, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+        mmask = torch.arange(budget, device="cuda")[None] >= \
+            torch.as_tensor(twin_lens, device="cuda")[:, None]
+        print(f"reformer: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}"
+              f" M parameters, compute_dtype {configs[1]['compute_dtype']}")
+
+        def forward():
+            out = infer_mels(model, batch, configs, max_mel_len=budget)
+            torch.cuda.synchronize()
+            return out
+
+        def stacks_and_forward():
+            with torch.no_grad():
+                enc, _ = model.encoder(texts, smask)
+                dec, _ = model.decoder(dec_in, mmask)
+            return enc, dec, infer_mels(model, batch, configs,
+                                        max_mel_len=budget)
+
+        plain = {"local_window_attention": lw.local_window_attention_plain,
+                 "chunk_attention": lc.chunk_attention_plain,
+                 "gather_rows": sort_gather.gather_rows_plain,
+                 "scatter_rows": sort_gather.scatter_rows_plain}
+        try:
+            for fused in (False, True):
+                route = self.lsh_route(fused)
+                forward()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                out = forward()
+                latency = time.perf_counter() - t0
+                counts = {k: v for k, v in launch_counts().items() if v}
+                repeats = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    forward()
+                    repeats.append(time.perf_counter() - t0)
+                print(f"reformer probe forward, {route} route: launches "
+                      f"{counts}")
+                self.breakdown(forward, f"reformer probe forward ({route})")
+                print(f"reformer request latency, {route} route (4 texts, "
+                      f"budget {budget}): {latency * 1e3:.2f} ms; 20 more: "
+                      f"median {np.median(repeats) * 1e3:.2f} ms, min "
+                      f"{min(repeats) * 1e3:.2f}, max {max(repeats) * 1e3:.2f}")
+                # 6 encoder + 6 decoder layers; the length regulator gathers
+                # twice (frames and the energy embedding)
+                want = {"local_window_fwd": 12, "scatter_rows": 12,
+                        **({"lsh_chunk_fwd": 12, "gather_rows": 2} if fused
+                           else {"gather_rows": 14})}
+                if counts != want:
+                    raise AssertionError(f"expected launches {want}, got "
+                                         f"{counts}")
+                tag = "lsh_chunk_fwd" if fused else "local_window_fwd"
+                self.kernels[tag]["launches"] = counts[tag]
+                self.kernels["local_window_fwd"][
+                    f"launches_forward_{'fused' if fused else 'default'}"] = \
+                    counts["local_window_fwd"]
+                mel = out["postnet_mel_predictions"].float()
+                if not bool(torch.isfinite(mel).all()) or mel.shape != (
+                        4, budget, 80):
+                    raise AssertionError(f"reformer mel {tuple(mel.shape)} "
+                                         "or non-finite")
+
+                # the twin: record the kernel path's sorts, replay them
+                sorts, orig_sort = [], rf.lsh_sort
+
+                def record(*a):
+                    sorts.append(orig_sort(*a))
+                    return sorts[-1]
+
+                rf.lsh_sort = record
+                try:
+                    enc_k, dec_k, out_k = stacks_and_forward()
+                finally:
+                    rf.lsh_sort = orig_sort
+                replay = iter(sorts)
+                kernel_fns = {n: getattr(rf, n) for n in plain}
+                rf.lsh_sort = lambda *a: next(replay)
+                for n, fn in plain.items():
+                    setattr(rf, n, fn)
+                try:
+                    enc_p, dec_p, out_p = stacks_and_forward()
+                finally:
+                    rf.lsh_sort = orig_sort
+                    for n, fn in kernel_fns.items():
+                        setattr(rf, n, fn)
+                torch.cuda.synchronize()
+                valid = ~smask
+                rel = [((x - y).abs().max() / y.abs().max()).item()
+                       for x, y in ((enc_k, enc_p), (dec_k, dec_p),
+                                    (out_k["log_duration_predictions"][valid],
+                                     out_p["log_duration_predictions"][valid]))]
+                lens_k = out_k["mel_lens"].cpu().numpy()
+                lens_p = out_p["mel_lens"].cpu().numpy()
+                print(f"reformer kernel path ({route}) vs the plain twin "
+                      f"on the same sorts (bf16): encoder output max rel err "
+                      f"{rel[0]:.3e}, decoder output {rel[1]:.3e} over "
+                      f"lengths {twin_lens.tolist()} of {budget}, "
+                      f"log-durations {rel[2]:.3e} (tol {REFORMER_TOL:g}); "
+                      f"mel lens {lens_k.tolist()} vs {lens_p.tolist()}")
+                if max(rel) > REFORMER_TOL or not np.all(
+                        np.abs(lens_k - lens_p) <= np.maximum(0.05 * lens_p, 3)):
+                    raise AssertionError(f"reformer twin ({route}): {rel}, "
+                                         f"{lens_k} vs {lens_p}")
+        finally:
+            os.environ.pop("CTTS_FUSED_LSH", None)
+
+    # ---- phase 12: reformer training ------------------------------------ #
+    def run_train_cli(self, raw, tmp, name, max_steps, restore=0):
+        """``python -m ctts_torch.train`` with the merged config ``raw``
+        under ``tmp/name``; returns its log lines by step."""
+        from ctts_torch.config import dump_yaml
+        cfg_dir = os.path.join(tmp, name)
+        os.makedirs(cfg_dir, exist_ok=True)
+        raw["train"]["path"] = {k: os.path.join(cfg_dir, k)
+                                for k in ("ckpt_path", "log_path",
+                                          "result_path")}
+        with open(os.path.join(cfg_dir, "LJSpeech.yaml"), "w") as f:
+            f.write(dump_yaml(raw))
+        cmd = [sys.executable, "-m", "ctts_torch.train", "--dataset",
+               "LJSpeech", "--config_dir", cfg_dir, "--max_steps",
+               str(max_steps), "--restore_step", str(restore)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=600)
+        print(f"$ python -m ctts_torch.train ... --max_steps {max_steps} "
+              f"--restore_step {restore} ({time.perf_counter() - t0:.1f} s)")
+        print("\n".join("  " + ln for ln in
+                        res.stdout.strip().splitlines()[-12:]))
+        if res.returncode != 0:
+            print(res.stderr[-3000:])
+            raise AssertionError(f"train CLI exited {res.returncode}")
+        path = os.path.join(cfg_dir, "log_path", "train", "log.jsonl")
+        return {r["step"]: r for r in map(json.loads, open(path))}
+
+    def reformer_train(self):
+        """``python -m ctts_torch.train`` on a synthetic store with the
+        reformer config at full width and depth (bf16, batch 16, dropout
+        on, the warm-up cut to 50 steps): 6 straight steps, and 3 + a
+        resume from the step-3 checkpoint for 3 more. Then ``train_unsup``
+        steps in this process at [16, 128 tokens, 896 frames] (the soft
+        upsample regime) on both LSH routes, with the launch counters zeroed
+        just before a step and read just after, the step's host time and
+        one step under the profiler."""
+        from ctts_torch.config import load_yaml
+        from ctts_torch.models.comp_trans_tts import (CompTransTTS,
+                                                      prepare_model_config)
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        from ctts_torch.parallel.train_step import (batch_to_device,
+                                                    create_train_state,
+                                                    make_train_step)
+        from ctts_torch.utils.model import init_weights
+        from ctts_torch.utils.optimizer import build_optimizer
+        from ctts_torch.utils.testing import synth_batch
+        tmp = tempfile.mkdtemp(prefix="ctts_smoke_")
+        try:
+            store = os.path.join(tmp, "store")
+            self.write_store(store)
+            raw = load_yaml(open(os.path.join(REPO, "configs",
+                                              "LJSpeech.yaml")))
+            raw["model"]["block_type"] = "reformer"
+            raw["preprocess"]["path"]["preprocessed_path"] = store
+            raw["train"]["optimizer"]["warm_up_step"] = 50
+            raw["train"]["step"].update(log_step=1, save_step=3,
+                                        val_step=100000)
+            straight = self.run_train_cli(raw, tmp, "straight", 6)
+            self.run_train_cli(raw, tmp, "resumed", 3)
+            resumed = self.run_train_cli(raw, tmp, "resumed", 6, restore=3)
+            totals = [straight[s]["total"] for s in range(1, 7)]
+            bad = [(s, k) for s, r in straight.items() for k, v in r.items()
+                   if isinstance(v, float) and not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"non-finite loss terms {bad}")
+            print("reformer train CLI total over 6 steps: "
+                  + ", ".join(f"{t:.3f}" for t in totals))
+            if not np.mean(totals[-2:]) < np.mean(totals[:2]):
+                raise AssertionError(f"total did not fall: {totals}")
+            diff = max(abs(straight[s][k] - resumed[s][k]) /
+                       max(1.0, abs(straight[s][k]))
+                       for s in range(4, 7) for k in ("total", "mel"))
+            print(f"resume from step 3: steps 4-6 total/mel max relative "
+                  f"difference to the straight run {diff:.3e} (tol "
+                  f"{RESUME_TOL:g}); launches per step in the log: "
+                  f"{straight[6]['launches_per_step']}")
+            if diff > RESUME_TOL:
+                raise AssertionError(f"resumed losses differ by {diff}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        pre, mc, tr = self.reformer_configs()
+        mc = prepare_model_config(pre, mc)
+        src_lens, mel_lens = self.train_lengths()
+        batch = synth_batch(B=B_TRAIN, T_s=T_S, T_m=T_M, seed=0,
+                            src_lens=src_lens, mel_lens=mel_lens, prior=False)
+        batch["mels"] = batch["mels"].astype(np.float16)   # transfer_dtype
+        batch = batch_to_device(batch, "cuda")
+        try:
+            for fused in (False, True):
+                route = self.lsh_route(fused)
+                model = init_weights(CompTransTTS(pre, mc, tr),
+                                     tr["seed"]).cuda()
+                opt, _ = build_optimizer(model, mc, tr, d_model=256)
+                state = create_train_state(model, opt, seed=tr["seed"])
+                step = make_train_step(pre, mc, tr, "train_unsup")
+                step(state, batch)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                metrics = step(state, batch)
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in launch_counts().items() if v}
+                print(f"reformer train step [{B_TRAIN}, {T_S} tokens, {T_M} "
+                      f"frames], {route} route, counted in process: "
+                      f"total={metrics['total'].item():.4f}; launches "
+                      f"{counts}")
+                # per layer the un-sort scatter and its gather backward;
+                # default: the sorted-row gather and its scatter backward;
+                # fused: the chunk kernels and the backward's row sum (a
+                # scatter); the length regulator's gather and scatter once
+                lsh = ({"lsh_chunk_fwd": 12, "lsh_chunk_bwd": 12,
+                        "gather_rows": 13, "scatter_rows": 25} if fused
+                       else {"gather_rows": 25, "scatter_rows": 25})
+                want = {"local_window_fwd": 12, "local_window_bwd": 12,
+                        "b_mas": 1, "ctc_alpha": 1, "ctc_grad": 1, **lsh}
+                if counts != want:
+                    raise AssertionError(f"expected launches {want}, got "
+                                         f"{counts}")
+                if not np.isfinite(metrics["total"].item()):
+                    raise AssertionError("non-finite total")
+                key = "fused" if fused else "default"
+                for name, n in counts.items():
+                    self.kernels[name].setdefault(
+                        f"launches_reformer_step_{key}", n)
+                self.kernels["local_window_bwd"]["launches"] = \
+                    counts["local_window_bwd"]
+                if fused:
+                    self.kernels["lsh_chunk_bwd"]["launches"] = \
+                        counts["lsh_chunk_bwd"]
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    step(state, batch)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.reset_peak_memory_stats()
+
+                def traced():
+                    step(state, batch)
+                    torch.cuda.synchronize()
+
+                wall, busy, idle = self.breakdown(
+                    traced, f"reformer train step ({route})")
+                print(f"reformer train step ({route}), host clock around a "
+                      f"synchronised step: median of 5 {np.median(times):.2f}"
+                      f" ms, min {min(times):.2f}, max {max(times):.2f}; "
+                      f"under the profiler wall {wall:.2f} ms, device busy "
+                      f"{busy:.2f} ms, idle share {idle:.3f}; peak device "
+                      f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                      f" GiB")
+                del model, opt, state
+        finally:
+            os.environ.pop("CTTS_FUSED_LSH", None)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1303,24 +1923,28 @@ def main():
     sys.path.insert(0, REPO)
     smoke = Smoke()
     smoke.phase("build", smoke.build)
-    if not smoke.failures:
-        smoke.phase("attention kernel vs plain", smoke.attention)
-        smoke.phase("gather kernel vs plain", smoke.gather)
-        smoke.phase("trained-weights probe", smoke.probe)
-    if not smoke.failures:
-        smoke.phase("vocoder", smoke.vocoder)
-        smoke.phase("synthesize CLI", smoke.cli)
-        smoke.phase("scatter kernel vs plain", smoke.scatter)
-        smoke.phase("MAS kernel vs plain", smoke.mas)
-        smoke.phase("CTC kernels vs plain", smoke.ctc)
-        smoke.phase("attention backward vs plain", smoke.attention_backward)
-    if not smoke.failures:
-        smoke.phase("train step", smoke.train)
-    if not smoke.failures:
-        smoke.phase("relpos kernels vs plain", smoke.relpos)
-    if not smoke.failures:
-        smoke.phase("conformer forward", smoke.conformer_forward)
-        smoke.phase("conformer train CLI", smoke.conformer_train)
+    # each group runs only when every phase before it passed
+    groups = [
+        [("attention kernel vs plain", smoke.attention),
+         ("gather kernel vs plain", smoke.gather),
+         ("trained-weights probe", smoke.probe)],
+        [("vocoder", smoke.vocoder), ("synthesize CLI", smoke.cli),
+         ("scatter kernel vs plain", smoke.scatter),
+         ("MAS kernel vs plain", smoke.mas),
+         ("CTC kernels vs plain", smoke.ctc),
+         ("attention backward vs plain", smoke.attention_backward)],
+        [("train step", smoke.train)],
+        [("relpos kernels vs plain", smoke.relpos)],
+        [("conformer forward", smoke.conformer_forward),
+         ("conformer train CLI", smoke.conformer_train)],
+        [("local-window kernels vs plain", smoke.local_window),
+         ("LSH chunk kernels vs plain", smoke.lsh_chunk)],
+        [("reformer forward", smoke.reformer_forward),
+         ("reformer train", smoke.reformer_train)]]
+    for group in groups:
+        for name, fn in group:
+            if not smoke.failures:
+                smoke.phase(name, fn)
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", file=sys.stderr)
         return 1

@@ -78,8 +78,8 @@ class Dropout(nn.Module):
     """Inverted dropout whose mask is drawn from an explicit
     ``torch.Generator`` on the tensor's device (``nn.Dropout`` takes none).
     The identity in eval mode. ``set_dropout_generator`` hands every Dropout
-    of a model the train state's generator; with none set, the device's
-    default generator is used."""
+    (and every other module with a ``generator``) the train state's one;
+    with none set, the device's default generator is used."""
 
     def __init__(self, p):
         super().__init__()
@@ -95,8 +95,11 @@ class Dropout(nn.Module):
 
 
 def set_dropout_generator(module, generator):
+    """Hand ``generator`` to every submodule that draws random numbers in
+    training: each Dropout, and the reformer stacks' hash rotations (each
+    keeps it at ``.generator``)."""
     for m in module.modules():
-        if isinstance(m, Dropout):
+        if hasattr(m, "generator"):
             m.generator = generator
 
 

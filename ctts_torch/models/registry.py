@@ -1,14 +1,16 @@
 """block_type → (TextEncoder, Decoder) (ctts_tpu/models/registry.py).
 
-``transformer_fs2`` (the shipped default) and ``conformer`` are ported; the
-other block types raise and name the ROADMAP item that ports them.
+``transformer_fs2`` (the shipped default), ``conformer`` and ``reformer``
+are ported; the other block types raise and name the ROADMAP item that
+ports them.
 """
 
 import importlib
 
 _BLOCKS = {"transformer_fs2": "ctts_torch.models.transformer_fs2",
-           "conformer": "ctts_torch.models.conformer"}
-_NOT_YET = ("transformer", "fastformer", "lstransformer", "reformer")
+           "conformer": "ctts_torch.models.conformer",
+           "reformer": "ctts_torch.models.reformer"}
+_NOT_YET = ("transformer", "fastformer", "lstransformer")
 
 
 def get_block(block_type):
@@ -25,6 +27,11 @@ def get_block(block_type):
 
 
 def block_hidden(model_config):
-    """encoder/decoder hidden size for the selected block."""
-    cfg = model_config[model_config["block_type"]]
-    return cfg["encoder_hidden"], cfg["decoder_hidden"]
+    """encoder/decoder hidden size for the selected block; a section
+    without them (the reformer's) takes the ``transformer`` section's."""
+    bt = model_config["block_type"]
+    cfg = model_config[bt if bt in model_config else "transformer"]
+    if "encoder_hidden" in cfg:
+        return cfg["encoder_hidden"], cfg["decoder_hidden"]
+    t = model_config["transformer"]
+    return t["encoder_hidden"], t["decoder_hidden"]

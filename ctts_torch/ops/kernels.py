@@ -4,8 +4,9 @@ The sources have a plain C interface and make up one shared library for
 ``sm_90a``, loaded with ``ctypes``. The build happens at first use, never
 at import, into ``build/ctts_torch/`` at the root of the checkout (listed
 in ``.gitignore``): one ``nvcc -c`` per source, all started together, then
-one link. The library's file name carries a hash of the sources and flags,
-so an edited source is rebuilt and an unchanged tree reuses its library.
+one link. The library's file name carries a hash of the sources, headers
+and flags, so an edited source is rebuilt and an unchanged tree reuses its
+library.
 """
 
 import ctypes
@@ -20,7 +21,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ctts_torch")
 SOURCES = ("attention.cu", "gather_rows.cu", "scatter_rows.cu", "mas.cu",
-           "forward_sum.cu", "relpos_attention.cu", "barrier_chain.cu")
+           "forward_sum.cu", "relpos_attention.cu",
+           "local_window_attention.cu", "lsh_chunk_attention.cu",
+           "barrier_chain.cu")
+HEADERS = ("window_attention.cuh",)       # included by sources; hashed too
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -47,7 +51,7 @@ class KernelLibrary:
     @staticmethod
     def target():
         digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-        for src in SOURCES:
+        for src in SOURCES + HEADERS:
             with open(os.path.join(_CSRC, src), "rb") as f:
                 digest.update(f.read())
         return os.path.join(BUILD_DIR,
@@ -131,7 +135,8 @@ def check(err, lib, what):
 def launch_counts():
     """Kernel launches since the counters were last reset, by kernel name
     (each wrapper counts its own; the counters are plain module ints)."""
-    from ctts_torch.ops import (attention, forward_sum, mas, relpos_attention,
+    from ctts_torch.ops import (attention, forward_sum, local_window_attention,
+                                lsh_chunk_attention, mas, relpos_attention,
                                 sort_gather)
     return {"fused_attention": attention.launches,
             "gather_rows": sort_gather.launches,
@@ -140,13 +145,20 @@ def launch_counts():
             "ctc_alpha": forward_sum.alpha_launches,
             "ctc_grad": forward_sum.grad_launches,
             "relpos_fwd": relpos_attention.launches,
-            "relpos_bwd": relpos_attention.bwd_launches}
+            "relpos_bwd": relpos_attention.bwd_launches,
+            "local_window_fwd": local_window_attention.launches,
+            "local_window_bwd": local_window_attention.bwd_launches,
+            "lsh_chunk_fwd": lsh_chunk_attention.launches,
+            "lsh_chunk_bwd": lsh_chunk_attention.bwd_launches}
 
 
 def reset_launch_counts():
-    from ctts_torch.ops import (attention, forward_sum, mas, relpos_attention,
+    from ctts_torch.ops import (attention, forward_sum, local_window_attention,
+                                lsh_chunk_attention, mas, relpos_attention,
                                 sort_gather)
     attention.launches = sort_gather.launches = 0
     sort_gather.scatter_launches = mas.launches = 0
     forward_sum.alpha_launches = forward_sum.grad_launches = 0
     relpos_attention.launches = relpos_attention.bwd_launches = 0
+    local_window_attention.launches = local_window_attention.bwd_launches = 0
+    lsh_chunk_attention.launches = lsh_chunk_attention.bwd_launches = 0

@@ -5,9 +5,10 @@
 
 Reads the preprocessed ``.npy`` store named by the config
 (``preprocess.path.preprocessed_path``), builds ``CompTransTTS`` for the
-config's ``block_type`` (``transformer_fs2`` or ``conformer``) with seeded
-weights, and takes ``train_unsup`` steps (``parallel.train_step``) until
-``--max_steps`` or ``train.step.total_step``. As in the JAX loop:
+config's ``block_type`` (``transformer_fs2``, ``conformer`` or
+``reformer``) with seeded weights, and takes ``train_unsup`` steps
+(``parallel.train_step``) until ``--max_steps`` or
+``train.step.total_step``. As in the JAX loop:
 
 * when the store fits ``train.device_cache_mb`` (and the prior is computed
   on the device), it goes to the device once and each step ships a [B]

@@ -8,14 +8,25 @@ import torch
 from ctts_torch import resolve_device
 
 
+# the reformer attention's projections, Xavier-uniform in the JAX package
+_XAVIER = ("toqk", "tov", "to_out")
+
+
 def init_weights(module, seed):
     """Redraw every parameter of ``module`` from a seeded torch.Generator:
-    N(0, fan_in^-1) for matrices and kernels, 1 for norm scales and the
-    positional alphas, 0 for biases; embedding padding rows stay zero."""
+    N(0, fan_in^-1) for matrices and kernels (Xavier-uniform for the
+    reformer attention's ``toqk``, ``tov`` and ``to_out``, as flax inits
+    them), 1 for norm scales and the positional alphas, 0 for biases;
+    embedding padding rows stay zero. A module shared by several parents
+    (the reformer's tied layers) is drawn once."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if p.dim() >= 2:
+            if p.dim() >= 2 and name.split(".")[-2] in _XAVIER:
+                fan_out, fan_in = p.shape
+                bound = (6.0 / (fan_in + fan_out)) ** 0.5
+                p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)
+            elif p.dim() >= 2:
                 fan_in = p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
             elif name.endswith("bias"):

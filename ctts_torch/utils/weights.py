@@ -16,7 +16,11 @@ state_dict straight back. Layout changes:
   ``[H, Dh, C]`` → the upstream ``LinearNorm`` weights ``[C, C]``, the
   pointwise Dense ``[in, out]`` → conv ``[out, in, 1]``, the depthwise conv
   ``[k, 1, C]`` → ``[C, 1, k]``, and each conv module's BatchNorm statistics
-  from ``batch_stats``.
+  from ``batch_stats``;
+- reformer stacks: the tied ``attn`` (``toqk``, ``tov``, ``to_out``) and
+  ``ff`` (``w1``, ``w2``) Dense kernels and each layer's ``norm_f_i`` /
+  ``norm_g_i`` → ``layer_stack.net.layers.irrev_blocks.{i}.{f,g}.*``, the
+  tied weights under every ``i`` as an upstream state_dict holds them.
 
 :func:`jax_tree_from_state_dict` is the inverse for the acoustic model, so a
 test can compare the port's parameters with the JAX tree after a step.
@@ -118,6 +122,26 @@ def _conformer_stack(sd, prefix, stack, stack_stats):
         i += 1
 
 
+_REFORMER_ATTN = ("toqk", "tov", "to_out")
+_REFORMER_FF = ("w1", "w2")
+
+
+def _reformer_stack(sd, prefix, node):
+    """``{prefix}.layer_stack.net.layers.irrev_blocks.{i}.*`` from the JAX
+    ``stack/reformer`` (the upstream layout ``torch_import.py:_reformer_stack``
+    reads)."""
+    i = 0
+    while f"norm_f_{i}" in node:
+        p = f"{prefix}.layer_stack.net.layers.irrev_blocks.{i}"
+        _ln(sd, f"{p}.f.norm", node[f"norm_f_{i}"])
+        _ln(sd, f"{p}.g.norm", node[f"norm_g_{i}"])
+        for name in _REFORMER_ATTN:
+            _dense(sd, f"{p}.f.fn.{name}", node["attn"][name])
+        for name in _REFORMER_FF:
+            _dense(sd, f"{p}.g.fn.fn.{name}", node["ff"][name])
+        i += 1
+
+
 def _predictor(sd, prefix, node):
     conv = node["conv"]
     i = 0
@@ -156,7 +180,11 @@ def state_dict_from_jax(tree):
             f"parameters for {sorted(extra)} have no module in ctts_torch yet")
     sd = {}
     enc = params["encoder"]
-    if "stack" in enc:                                      # conformer
+    if "reformer" in enc.get("stack", {}):
+        sd["encoder.src_word_emb.weight"] = enc["src_word_emb"]["embedding"]
+        for side in ("encoder", "decoder"):
+            _reformer_stack(sd, side, params[side]["stack"]["reformer"])
+    elif "stack" in enc:                                    # conformer
         sd["encoder.src_word_emb.weight"] = enc["src_word_emb"]["embedding"]
         for side in ("encoder", "decoder"):
             _conformer_stack(sd, side, params[side]["stack"],
@@ -296,6 +324,23 @@ def _inv_conformer_stack(sd, prefix, num_heads):
     return params, stats
 
 
+def _inv_reformer_stack(sd, prefix):
+    """The JAX ``stack/reformer`` params; the tied modules are read from
+    layer 0."""
+    blocks = f"{prefix}.layer_stack.net.layers.irrev_blocks"
+    node = {}
+    i = 0
+    while f"{blocks}.{i}.f.norm.weight" in sd:
+        node[f"norm_f_{i}"] = _inv_ln(sd, f"{blocks}.{i}.f.norm")
+        node[f"norm_g_{i}"] = _inv_ln(sd, f"{blocks}.{i}.g.norm")
+        i += 1
+    node["attn"] = {n: _inv_dense(sd, f"{blocks}.0.f.fn.{n}")
+                    for n in _REFORMER_ATTN}
+    node["ff"] = {n: _inv_dense(sd, f"{blocks}.0.g.fn.fn.{n}")
+                  for n in _REFORMER_FF}
+    return {"stack": {"reformer": node}}
+
+
 def _inv_predictor(sd, prefix):
     conv = {}
     i = 0
@@ -317,7 +362,12 @@ def jax_tree_from_state_dict(state_dict, model_config):
     sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
     cfg = model_config[model_config["block_type"]]
     batch_stats = {}
-    if model_config["block_type"] == "conformer":
+    if model_config["block_type"] == "reformer":
+        params = {side: _inv_reformer_stack(sd, side)
+                  for side in ("encoder", "decoder")}
+        params["encoder"]["src_word_emb"] = {
+            "embedding": sd["encoder.src_word_emb.weight"]}
+    elif model_config["block_type"] == "conformer":
         params = {}
         for side in ("encoder", "decoder"):
             sp, ss = _inv_conformer_stack(sd, side, cfg[f"{side}_head"])

@@ -423,3 +423,190 @@ def test_conformer_train_step_on_the_card():
         metrics = step(state, batch)
         assert (ra.launches - before[0], ra.bwd_launches - before[1]) == (4, 4)
     assert all(np.isfinite(v.item()) for v in metrics.values())
+
+
+# ---- the reformer's kernels: local window and LSH chunk ------------------------ #
+
+def _window_case(dev, G, N, d, seed):
+    """qk, v [G, N, d] and validity with holes, and a short row whose last
+    window of 128 is all padding (at N=128 the whole row)."""
+    rng = np.random.RandomState(seed)
+    qk, v, cot = (torch.from_numpy(rng.randn(G, N, d).astype(np.float32)).to(dev)
+                  for _ in range(3))
+    valid = rng.rand(G, N) > 0.15
+    valid[0] = True
+    valid[-1, min(N // 2 + 3, N - 128):] = False
+    return qk, v, cot, torch.from_numpy(valid).to(dev)
+
+
+def _assert_close(pairs, tol):
+    for got, want in pairs:
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("G,N", [(3, 128), (3, 256)])
+def test_local_window_kernels_match_plain(G, N, dtype, tol):
+    """Forward and backward against the plain version in float32 on the same
+    (rounded) inputs, window 128: output, dqk and dv within ``tol`` of their
+    largest entries (bf16: one rounding of each result); one launch of
+    each kernel."""
+    dev = _need_card()
+    from ctts_torch.ops import local_window_attention as lw
+    qk, v, cot, valid = _window_case(dev, G, N, 128, N)
+    qk, v = qk.to(dtype).float(), v.to(dtype).float()
+    a = [x.to(dtype).requires_grad_(True) for x in (qk, v)]
+    before = (lw.launches, lw.bwd_launches)
+    out = lw.local_window_attention(*a, valid, 128, 128 ** -0.5)
+    out.backward(cot.to(dtype))
+    torch.cuda.synchronize()
+    assert (lw.launches, lw.bwd_launches) == (before[0] + 1, before[1] + 1)
+    b = [x.detach().clone().requires_grad_(True) for x in (qk, v)]
+    ref = lw.local_window_attention_plain(*b, valid, 128, 128 ** -0.5)
+    ref.backward(cot.to(dtype).float())
+    assert out.dtype == dtype and out.shape == ref.shape
+    _assert_close([(out, ref)] + [(x.grad, y.grad) for x, y in zip(a, b)], tol)
+
+
+def _lsh_sort_case(dev, G, N, d, seed, n_hashes=4, bucket=64):
+    """qk, v, validity and a real hash sort of qk (st, svalid, sticker)."""
+    from ctts_torch.models.reformer import lsh_sort
+    qk, v, cot, valid = _window_case(dev, G, N, d, seed)
+    rot = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        1, d, n_hashes, N // bucket // 2).astype(np.float32)).to(dev)
+    sticker, st, svalid = lsh_sort(qk, valid, rot, bucket, n_hashes)
+    return qk, v, st, svalid
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("G,N", [(2, 128), (2, 256)])
+def test_lsh_chunk_kernels_match_plain(G, N, dtype, tol, causal):
+    """Forward (output ‖ logsumexp, float32) and backward with a random
+    cotangent on both against the plain version in float32 on the same
+    (rounded) inputs and the same sort, chunks of 64 over 4 hash rounds (at
+    N=128, 8 chunks: chunk 0 wraps to the last); dqk and dv within ``tol``
+    of their largest entries. One launch of each kernel, and one scatter
+    launch in the backward."""
+    dev = _need_card()
+    from ctts_torch.ops import lsh_chunk_attention as lc
+    from ctts_torch.ops import sort_gather
+    qk, v, st, svalid = _lsh_sort_case(dev, G, N, 128, N)
+    qk, v = qk.to(dtype).float(), v.to(dtype).float()
+    cot = torch.from_numpy(np.random.RandomState(3).randn(
+        G, 4 * N, 129).astype(np.float32)).to(dev)
+    a = [x.to(dtype).requires_grad_(True) for x in (qk, v)]
+    before = (lc.launches, lc.bwd_launches, sort_gather.scatter_launches)
+    out = lc.chunk_attention(*a, st, svalid, 64, causal, 128 ** -0.5)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert (lc.launches, lc.bwd_launches, sort_gather.scatter_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    b = [x.detach().clone().requires_grad_(True) for x in (qk, v)]
+    ref = lc.chunk_attention_plain(*b, st, svalid, 64, causal, 128 ** -0.5)
+    ref.backward(cot)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    _assert_close([(out[..., :128], ref[..., :128])], 1e-4)
+    assert (out[..., 128] - ref[..., 128]).abs().max().item() <= 1e-3
+    _assert_close([(x.grad, y.grad) for x, y in zip(a, b)], tol)
+
+
+def test_reformer_wrappers_raise_on_untaken_cuda_input():
+    dev = _need_card()
+    from ctts_torch.ops import local_window_attention as lw
+    from ctts_torch.ops import lsh_chunk_attention as lc
+    qk, v, _, valid = _window_case(dev, 2, 128, 64, 0)       # d=64: no kernel
+    with pytest.raises(ValueError):
+        lw.local_window_attention(qk, v, valid, 128, 0.1)
+    st = torch.zeros(2, 512, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        lc.chunk_attention(qk, v, st, st, 64, True, 0.1)
+    qk, v, _, valid = _window_case(dev, 2, 128, 128, 0)
+    with pytest.raises(TypeError):
+        lc.chunk_attention(qk, v, st.long(), st, 64, True, 0.1)
+    with pytest.raises(TypeError):
+        lw.local_window_attention(qk.half(), v.half(), valid, 128, 0.1)
+
+
+def _reformer_configs():
+    """The reformer at heads of 128 (the kernels' width): d_model 128,
+    depth 2, 2 heads (one local, one LSH), dropout off."""
+    from ctts_torch.utils.testing import tiny_configs
+    pre, mc, tr = tiny_configs()
+    mc["block_type"] = "reformer"
+    mc["transformer"].update(encoder_hidden=128, decoder_hidden=128,
+                             encoder_head=1, decoder_head=1,
+                             encoder_dropout=0.0, decoder_dropout=0.0)
+    mc["reformer"].update(depth=2, encoder_head=2, decoder_head=2)
+    return pre, mc, tr
+
+
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_reformer_forward_on_the_card(fused, monkeypatch):
+    """The reformer model in infer mode on the card, float32, on both LSH
+    routes, against the same weights on the CPU: mel within 1e-3, equal
+    lengths; one forward launches the local-window kernel once per layer and
+    either the gather (default) or the chunk kernel (fused) once per layer,
+    and the un-sort scatter once per layer."""
+    dev = _need_card()
+    from ctts_torch.models.comp_trans_tts import CompTransTTS
+    from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ctts_torch.utils.model import init_weights
+    from ctts_torch.utils.testing import synth_batch
+    monkeypatch.setenv("CTTS_FUSED_LSH", fused)
+    pre, mc, tr = _reformer_configs()
+    model = init_weights(CompTransTTS(pre, mc, tr), 1).eval()
+    b = synth_batch()
+    inputs = [torch.from_numpy(b[k]).long() for k in ("speakers", "texts",
+                                                       "src_lens")]
+    with torch.no_grad():
+        want = model(*inputs, "infer", max_mel_len=48)
+        model.to(dev)
+        reset_launch_counts()
+        got = model(*(x.to(dev) for x in inputs), "infer", max_mel_len=48)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in launch_counts().items() if n}
+    # the length regulator gathers twice (frames and the energy embedding)
+    lsh = {"lsh_chunk_fwd": 4} if fused == "1" else {"gather_rows": 6}
+    assert counts == {"local_window_fwd": 4, "scatter_rows": 4,
+                      "gather_rows": 2, **lsh}, counts
+    np.testing.assert_array_equal(got["mel_lens"].cpu().numpy(),
+                                  want["mel_lens"].numpy())
+    err = (got["postnet_mel_predictions"].cpu()
+           - want["postnet_mel_predictions"]).abs().max().item()
+    assert err <= 1e-3, err
+
+
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_reformer_train_step_on_the_card(fused, monkeypatch):
+    """Two train steps of the small reformer on the card, dropout on, on
+    both LSH routes: finite losses; per step the local-window kernels 4 + 4
+    and the chunk kernels 4 + 4 (fused) or none (default)."""
+    dev = _need_card()
+    from ctts_torch.models.comp_trans_tts import CompTransTTS
+    from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ctts_torch.parallel.train_step import (batch_to_device,
+                                                create_train_state,
+                                                make_train_step)
+    from ctts_torch.utils.model import init_weights
+    from ctts_torch.utils.optimizer import build_optimizer
+    from ctts_torch.utils.testing import synth_batch
+    monkeypatch.setenv("CTTS_FUSED_LSH", fused)
+    pre, mc, tr = _reformer_configs()
+    mc["transformer"].update(encoder_dropout=0.2, decoder_dropout=0.2)
+    model = init_weights(CompTransTTS(pre, mc, tr), 0).to(dev)
+    opt, _ = build_optimizer(model, mc, tr)
+    state = create_train_state(model, opt, step=7000)
+    step = make_train_step(pre, mc, tr, "train_unsup")
+    batch = batch_to_device(synth_batch(prior=False), dev)
+    for _ in range(2):
+        reset_launch_counts()
+        metrics = step(state, batch)
+        counts = launch_counts()
+        assert (counts["local_window_fwd"], counts["local_window_bwd"]) == (4, 4)
+        want = (4, 4) if fused == "1" else (0, 0)
+        assert (counts["lsh_chunk_fwd"], counts["lsh_chunk_bwd"]) == want
+    assert all(np.isfinite(v.item()) for v in metrics.values())

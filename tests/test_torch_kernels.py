@@ -206,6 +206,9 @@ def test_kernel_build_is_lazy_and_named_by_content():
     assert kernels.BUILD_DIR == os.path.join(repo, "build", "ctts_torch")
     assert kernels.SOURCES == ("attention.cu", "gather_rows.cu",
                                "scatter_rows.cu", "mas.cu", "forward_sum.cu",
-                               "relpos_attention.cu", "barrier_chain.cu")
-    for src in kernels.SOURCES:
+                               "relpos_attention.cu",
+                               "local_window_attention.cu",
+                               "lsh_chunk_attention.cu", "barrier_chain.cu")
+    assert kernels.HEADERS == ("window_attention.cuh",)
+    for src in kernels.SOURCES + kernels.HEADERS:
         assert os.path.isfile(os.path.join(repo, "ctts_torch", "csrc", src))

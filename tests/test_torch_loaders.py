@@ -91,9 +91,10 @@ def test_text_frontend_matches_jax_package():
 
 
 def test_imports_need_no_jax_yaml_or_ml_dtypes():
-    """Every ctts_torch module (the conformer, the data pipeline and the
-    train CLI included) and chip_smoke.py import with jax, ctts_tpu, yaml,
-    ml_dtypes, matplotlib, flax and orbax blocked."""
+    """Every ctts_torch module (the conformer, the reformer and its two ops,
+    the data pipeline and the train CLI included) and chip_smoke.py import
+    with jax, ctts_tpu, yaml, ml_dtypes, matplotlib, flax and orbax
+    blocked."""
     code = r"""
 import importlib, os, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "ctts_tpu", "yaml", "ml_dtypes",
@@ -120,7 +121,8 @@ print(" ".join(mods), len(mods))
                 "utils.testing", "parallel.train_step",
                 "ops.relpos_attention", "models.conformer", "data.dataset",
                 "data.device_cache", "utils.checkpoint", "utils.logging",
-                "train"):
+                "train", "models.reformer", "ops.local_window_attention",
+                "ops.lsh_chunk_attention"):
         assert f"ctts_torch.{new}" in names, new
 
 
@@ -169,7 +171,7 @@ def test_unported_options_raise(tmp_path):
     from ctts_torch.config import get_configs_of
     from ctts_torch.utils.model import get_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_block("reformer")
+        get_block("fastformer")
     configs = get_configs_of("LJSpeech")
     configs[2]["path"]["ckpt_path"] = str(tmp_path)
     with pytest.raises(FileNotFoundError):     # no checkpoint at step 5
