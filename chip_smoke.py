@@ -58,13 +58,24 @@ suppresses the final line:
 12. ``python -m ctts_torch.train`` with the reformer config: 6 steps, and
    3 + a resume for 3 more; then counted, timed and profiled steps at
    [16, 128 tokens, 896 frames] on both routes;
-13. the ``kernels`` JSON line, the card line, and the result line.
+13. serving: the fused HiFi-GAN ResBlock1 kernel against its plain version
+   at levels 1-3 of the probe (C = 128, 64, 32; k = 3, 7, 11; bf16 and
+   f32; the generator's own weights and inputs) plus two and ragged tiles,
+   with its times beside the plain version's, the unfused cuDNN block's and
+   the bound; HiFi-GAN on the probe mels with ``CTTS_FUSE_RESBLOCK=1``
+   against unfused (9 launches); ``ctts_torch.serve`` in a thread with the
+   trained weights (/healthz, the 4 probe texts as 4 concurrent requests,
+   one streamed request, and the same streamed with the fused resblocks,
+   counted); ``python -m ctts_torch.synthesize`` in batch mode with
+   ``--stream_chunk``; the relpos flip tool
+   (``python -m ctts_torch.tools.bench_flip``), counted, and each of its
+   variants bit-exact against its plain version;
+14. the ``kernels`` JSON line, the card line, and the result line.
 
-Exits non-zero without a result when no CUDA device is present. With phase
-names as arguments (``python3 chip_smoke.py "reformer forward"``) it builds
-the kernels and runs those phases alone, and prints no result line.
+Exits non-zero without a result when no CUDA device is present.
 """
 
+import io
 import json
 import os
 import shutil
@@ -115,6 +126,23 @@ WINDOW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # the plain versions on the card and the kernel run's hash sorts: relative to
 # the largest output entry, after 6 layers
 REFORMER_TOL = 5e-2
+# the fused ResBlock1 against its plain version, relative to the largest
+# plain entry: both round at the same places (the leaky ReLU, each conv
+# after its float32 sum and bias, the residual); only the order of the
+# float32 sums differs, so in bf16 a value within float32 rounding of a
+# rounding boundary may land on its neighbour (2^-8) and carry through the
+# rest of the chain
+FUSED_RESBLOCK_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# HiFi-GAN fused against unfused: float32, max |difference| on the tanh
+# output (sum order only); bf16, RMS of the difference over RMS of the
+# output, since cuDNN's bf16 conv rounds before adding the bias and the
+# fused chain after, which moves many values by one bf16 step
+VOCODER_F32_TOL = 1e-4
+VOCODER_BF16_RMS_TOL = 5e-2
+# served PCM (bf16 vocoder), streamed against the full response: RMS of
+# the difference over RMS of the full PCM; the window's cuDNN convs may sum
+# in another order than the full pass's, and bf16 rounding carries that
+SERVE_PCM_RMS_TOL = 5e-2
 # resumed against straight train steps on the card: the same weights,
 # batches and dropout seeds; cuDNN and embedding backward sums are not
 # bitwise reproducible on the card, so the losses agree to float rounding
@@ -142,34 +170,86 @@ def cuda_ms(fn, warmup=10, iters=100):
     return start.elapsed_time(end) / iters
 
 
+# torch.cuda._sleep's kernel: leading markers open each profile, one closes
+# it; a try that loses more than its leading markers retries with more
+MARKER = "spin_kernel"
+LEADS = (8, 64, 512)
+# profiles kept, those of them that lost leading markers, the most lost,
+# and profiles rejected after every try
+PROFILES = {"whole": 0, "lost_lead": 0, "most_lost": 0, "rejected": 0}
+
+
+def profiled(body, cpu=False):
+    """Run ``body()`` under torch.profiler between marker kernels, a run of
+    leading ones before it and one after. In a process that has taken many
+    profiles, each profile loses its first records (PERF.md §7); the
+    leading markers are those records, so a profile is kept while at least
+    one of them and the closing one came back. Returns (the device events
+    other than the markers, host ms of ``body``), or None when every try
+    lost more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+    for n_lead in LEADS:
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            for _ in range(n_lead):
+                torch.cuda._sleep(1000)
+            t0 = time.perf_counter()
+            body()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [MARKER in e.name for e in events]
+        lead = marks.index(False) if False in marks else len(marks)
+        if lead >= 1 and marks[-1] and sum(marks) == lead + 1:
+            PROFILES["whole"] += 1
+            if lead < n_lead:
+                PROFILES["lost_lead"] += 1
+                PROFILES["most_lost"] = max(PROFILES["most_lost"],
+                                            n_lead - lead)
+            return [e for e, m in zip(events, marks) if not m], wall_ms
+        print(f"  (the profile lost {n_lead - lead} of its {n_lead} leading "
+              f"markers{'' if marks and marks[-1] else ' and the closing one'}"
+              f")")
+    PROFILES["rejected"] += 1
+    return None
+
+
 def device_ms(fn, iters=50, only=None):
     """Device time of one call: the summed duration of every kernel the
     profiler (CUPTI) records over ``iters`` calls (of those whose name
     contains ``only``, when given), divided by ``iters``. Unlike CUDA events
     around a stream of calls, it leaves out the gaps in which the device
-    waits for the host to launch. None if the profiler recorded no
-    kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    waits for the host to launch. None unless the profile is whole (see
+    :func:`profiled`) and holds a positive multiple of ``iters`` kernels."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def body():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and (only is None or only in e.name))
-    return us / 1e3 / iters if us > 0 else None
+
+    got = profiled(body)
+    if got is None:
+        return None
+    kernels = [e for e in got[0] if only is None or only in e.name]
+    if not kernels or len(kernels) % iters:
+        print(f"  (the profile holds {len(kernels)} kernels for {iters} "
+              f"calls)")
+        return None
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
 
 
 def timings(fn, iters=50, only=None):
-    """(ms, event ms): ms is the device time when the profiler sees device
-    activity, else the event time; the event time includes launch gaps."""
+    """(ms, event ms): ms is the device time from a whole profile, else the
+    event time; the event time includes launch gaps."""
     ev = cuda_ms(fn, warmup=min(10, iters), iters=2 * iters)
     dev = device_ms(fn, iters=iters, only=only)
     if dev is None:
-        print("  (the profiler recorded no kernel: event time used)")
+        print("  (no whole profile: event time used)")
     return (ev if dev is None else dev), ev
 
 
@@ -387,26 +467,23 @@ class Smoke:
         """Device time of one call of ``forward`` by kernel, and the
         device's idle share of the host-clock window. Returns (wall ms,
         busy ms, idle share)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            forward()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        got = profiled(forward, cpu=True)
+        if got is None:
+            print(f"{what} under the profiler: no whole profile, device busy "
+                  f"not measured")
+            return float("nan"), float("nan"), float("nan")
+        events, wall = got
         per = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                n, us = per.get(e.name, (0, 0.0))
-                per[e.name] = (n + 1, us + e.time_range.elapsed_us())
-        busy = sum(us for _, us in per.values())
-        print(f"{what} under the profiler: wall {wall_us / 1e3:.2f} "
-              f"ms, device busy {busy / 1e3:.3f} ms, idle share "
-              f"{1 - busy / wall_us:.3f}, {sum(n for n, _ in per.values())} "
-              f"kernels")
+        for e in events:
+            n, us = per.get(e.name, (0, 0.0))
+            per[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        busy = sum(us for _, us in per.values()) / 1e3
+        print(f"{what} under the profiler: wall {wall:.2f} ms, device busy "
+              f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+              f"{sum(n for n, _ in per.values())} kernels")
         for name, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:12]:
             print(f"  {us / 1e3:8.3f} ms  {n:4d}x  {name[:100]}")
-        return wall_us / 1e3, busy / 1e3, 1 - busy / wall_us
+        return wall, busy, 1 - busy / wall
 
     # ---- phase 4 ----------------------------------------------------- #
     def vocoder(self):
@@ -1909,6 +1986,439 @@ class Smoke:
             os.environ.pop("CTTS_FUSED_LSH", None)
 
 
+    # ---- phase 13: the vocoder's fused ResBlock1 and serving ---------- #
+    def resblock_inputs(self):
+        """HiFi-GAN V1 at full width with seed-0 weights (bf16, as served)
+        and the input of each of its ResBlock1s on the probe mels, captured
+        by forward pre-hooks: {resblock index: input [4, C, T]}."""
+        from ctts_torch.utils.model import get_vocoder
+        mels, _, _, configs = self.probe_out
+        with tempfile.TemporaryDirectory() as empty:
+            name, gen = get_vocoder(configs[1], ckpt_dir=empty,
+                                    device="cuda", seed=0)
+        assert name == "HiFi-GAN"
+        seen = {}
+        hooks = [blk.register_forward_pre_hook(
+            lambda m, a, i=i: seen.__setitem__(i, a[0].detach().clone()))
+            for i, blk in enumerate(gen.resblocks)]
+        os.environ.pop("CTTS_FUSE_RESBLOCK", None)
+        try:
+            with torch.no_grad():
+                gen(mels)
+        finally:
+            for h in hooks:
+                h.remove()
+        self.hifigan = gen
+        return gen, seen
+
+    def fused_resblock(self):
+        """The fused ResBlock1 kernel against its plain version at levels
+        1-3 of the probe (C = 128, 64, 32 at T = 73728, 147456, 294912,
+        N=4; k = 3, 7, 11; the generator's own weights and inputs), bf16
+        and f32, plus two tiles (T=256) and a ragged tile (T=250) at C=32;
+        the bf16 times beside the plain version's, the port's unfused
+        ResBlock1 (six cuDNN convs and the leaky ReLUs) and the bound."""
+        from ctts_torch.ops import fused_resblock as fr
+        gen, inputs = self.resblock_inputs()
+        rows, worst_abs, worst_rel = [], 0.0, 0.0
+
+        def check(what, x, blk, dtype, block_t=1024):
+            nonlocal worst_abs, worst_rel
+            convs = blk.stacked(dtype)
+            x = x.to(dtype).contiguous()
+            got = fr.fused_resblock1(x, *convs, blk.kernel_size,
+                                     blk.dilations, block_t=block_t)
+            ref = fr.reference_resblock1(x, *convs, blk.kernel_size,
+                                         blk.dilations)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            ok = rel <= FUSED_RESBLOCK_TOL[dtype] and \
+                bool(torch.isfinite(got).all())
+            print(f"fused resblock {what} k={blk.kernel_size} "
+                  f"{str(dtype)[6:]}: max|kernel - plain| = {err:.3e}, "
+                  f"{rel:.3e} of the largest entry (tol "
+                  f"{FUSED_RESBLOCK_TOL[dtype]:g}) "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                raise AssertionError(f"fused resblock {what} {dtype}: {rel}")
+            if dtype == torch.bfloat16:
+                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            return x, convs
+
+        os.environ.pop("CTTS_FUSE_RESBLOCK", None)
+        for i, blk in enumerate(gen.resblocks):
+            x16 = inputs[i]
+            N, C, T = x16.shape
+            if C > 128:
+                continue                      # level 0 stays on cuDNN
+            k = blk.kernel_size
+            check(f"C={C} T={T}", x16, blk, torch.float32)
+            x, convs = check(f"C={C} T={T}", x16, blk, torch.bfloat16)
+            ms, ev_ms = timings(lambda: fr.fused_resblock1(
+                x, *convs, k, blk.dilations), iters=3)
+            plain_ms, _ = timings(lambda: fr.reference_resblock1(
+                x, *convs, k, blk.dilations), iters=2)
+
+            def library():
+                with torch.no_grad(), torch.autocast("cuda",
+                                                     dtype=torch.bfloat16):
+                    blk(x)
+
+            lib_ms, _ = timings(library, iters=5)
+            flops = 12 * k * C * C * T * N
+            nbytes = 2 * N * C * T * 2 + 6 * k * C * C * 2 + 6 * C * 4
+            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            rows.append((C, T, k, ms, plain_ms, lib_ms, b_ms, b_by))
+            print(f"  timing bf16 N={N} C={C} T={T} k={k} (block_t "
+                  f"{fr.block_t_for(C, x.dtype, k, blk.dilations)}): ms "
+                  f"kernel {ms:.4f}, plain {plain_ms:.4f}, unfused "
+                  f"ResBlock1 (cuDNN) {lib_ms:.4f}; bound {b_ms:.5f} ms "
+                  f"({b_by}); event ms kernel {ev_ms:.4f}", flush=True)
+            if C == 32:
+                gen_ = torch.Generator().manual_seed(i)
+                for T_small in (256, 250):
+                    xs = (randn(gen_, 2, C, T_small) * 0.5).to("cuda")
+                    for dtype in (torch.float32, torch.bfloat16):
+                        check(f"C={C} T={T_small} block_t=128", xs, blk,
+                              dtype, block_t=128)
+        head = max(rows, key=lambda r: r[3])
+        tot = [sum(r[j] for r in rows) for j in (3, 4, 5, 6)]
+        print(f"fused resblock per generator forward ({len(rows)} calls, "
+              f"bf16): kernel {tot[0]:.3f} ms, plain {tot[1]:.3f} ms, "
+              f"unfused cuDNN {tot[2]:.3f} ms, bound {tot[3]:.5f} ms")
+        C, T, k, ms, plain_ms, lib_ms, b_ms, b_by = head
+        self.kernels["fused_resblock"] = {
+            "name": "fused_resblock", "route": "cuda",
+            "source": "ctts_torch/csrc/fused_resblock.cu",
+            "replaces": "ctts_tpu/ops/fused_resblock.py:59", "launches": None,
+            "max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": f"bf16 N=4 C={C} T={T} k={k}, dilations 1/3/5; library "
+                     f"= the port's unfused ResBlock1 (cuDNN convs)",
+            "max_rel_err": worst_rel, "per_forward_ms": tot[0],
+            "per_forward_plain_ms": tot[1],
+            "per_forward_library_ms": tot[2],
+            "per_forward_bound_ms": tot[3]}
+
+    def vocoder_fused(self):
+        """HiFi-GAN V1 on the probe mels with CTTS_FUSE_RESBLOCK=1 against
+        the same generator unfused: bf16 as served (launches counted, times
+        beside each other) and float32 (the exact check)."""
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        gen = self.hifigan
+        mels = self.probe_out[0]
+
+        def run(fuse):
+            if fuse:
+                os.environ["CTTS_FUSE_RESBLOCK"] = "1"
+            else:
+                os.environ.pop("CTTS_FUSE_RESBLOCK", None)
+            with torch.no_grad():
+                out = gen(mels)
+            torch.cuda.synchronize()
+            return out
+
+        try:
+            for dtype in (torch.bfloat16, torch.float32):
+                gen.compute_dtype = dtype
+                want = run(False)
+                run(True)                                  # warm-up
+                reset_launch_counts()
+                got = run(True)
+                counts = {k: v for k, v in launch_counts().items() if v}
+                times = {}
+                for fuse in (False, True, True, False):
+                    t0 = time.perf_counter()
+                    run(fuse)
+                    times.setdefault(fuse, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+                diff = (got - want).float()
+                rms = (diff.pow(2).mean().sqrt()
+                       / want.float().pow(2).mean().sqrt()).item()
+                err = diff.abs().max().item()
+                print(f"HiFi-GAN V1 {str(dtype)[6:]} on "
+                      f"{tuple(mels.shape)}: fused {min(times[True]):.2f} "
+                      f"ms, unfused {min(times[False]):.2f} ms (host clock "
+                      f"around a synchronised forward, best of 2); launches "
+                      f"{counts}; max|fused - unfused| = {err:.3e}, RMS "
+                      f"ratio {rms:.3e}", flush=True)
+                if counts != {"fused_resblock": 9}:
+                    raise AssertionError(f"expected 9 fused resblock "
+                                         f"launches, got {counts}")
+                ok = (err <= VOCODER_F32_TOL if dtype == torch.float32
+                      else rms <= VOCODER_BF16_RMS_TOL)
+                if not ok or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"fused vocoder {dtype}: max "
+                                         f"{err}, RMS ratio {rms}")
+        finally:
+            gen.compute_dtype = torch.bfloat16
+            os.environ.pop("CTTS_FUSE_RESBLOCK", None)
+
+    @staticmethod
+    def probe_lexicon(path):
+        """A lexicon that spells each probe text of the manifest as one
+        word (``probea`` ... ``probed``), so that a request's text reaches
+        the manifest's phone IDs through the port's own text frontend.
+        Returns the words."""
+        from ctts_torch.text.symbols import symbols
+        man = json.load(open(MANIFEST))["probe"]
+        words = [f"probe{c}" for c in "abcd"]
+        with open(path, "w") as f:
+            for w, ids, n in zip(words, man["texts"], man["src_lens"]):
+                f.write(w + " " + " ".join(symbols[i][1:] for i in ids[:n])
+                        + "\n")
+        return words
+
+    def serve(self):
+        """``ctts_torch.serve`` in a thread on 127.0.0.1:0 with the trained
+        acoustic weights and HiFi-GAN at seed 0 (bf16): /healthz, the
+        manifest's 4 texts as 4 concurrent requests (batched), one text
+        alone and streamed, and streamed again with CTTS_FUSE_RESBLOCK=1
+        with the launch counters zeroed just before that request and read
+        just after it."""
+        import http.client
+        import threading
+        import urllib.request
+        import wave
+        from ctts_torch.config import get_configs_of
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        from ctts_torch.serve import TTSService, make_server
+        from ctts_torch.utils.model import get_model
+        from ctts_torch.vocoder.streaming import RF_MEL
+        man = json.load(open(MANIFEST))["probe"]
+        os.environ.pop("CTTS_FUSE_RESBLOCK", None)
+        tmp = tempfile.mkdtemp()
+        configs = get_configs_of("LJSpeech")
+        configs[0]["path"]["lexicon_path"] = os.path.join(tmp, "lexicon.txt")
+        words = self.probe_lexicon(configs[0]["path"]["lexicon_path"])
+        model = get_model(0, configs, packed_ckpt=NPZ, device="cuda")
+        svc = TTSService(model, configs, ("HiFi-GAN", self.hifigan))
+        t0 = time.perf_counter()
+        svc.warmup()
+        print(f"server warm-up: {time.perf_counter() - t0:.2f} s")
+        srv = make_server(svc)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        host, port = srv.server_address[:2]
+        url = f"http://{host}:{port}"
+
+        def healthz():
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                return json.loads(r.read())
+
+        def post(body):
+            """-> (seconds to the first PCM bytes, seconds in all, PCM)."""
+            conn = http.client.HTTPConnection(host, port, timeout=600)
+            t0 = time.perf_counter()
+            conn.request("POST", "/tts", json.dumps(body),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            if resp.status != 200:
+                raise AssertionError(f"/tts {resp.status}: {resp.read()}")
+            head = resp.read(44)
+            first = resp.read(2)
+            t_first = time.perf_counter() - t0
+            rest = resp.read()
+            t_all = time.perf_counter() - t0
+            conn.close()
+            data = head + first + rest
+            if body.get("stream"):
+                pcm = np.frombuffer(data[44:], "<i2")
+            else:
+                with wave.open(io.BytesIO(data)) as w:
+                    pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+            return t_first, t_all, pcm
+
+        try:
+            h = healthz()
+            print(f"/healthz: {h}")
+            if not h["ok"]:
+                raise AssertionError(f"/healthz {h}")
+            results = [None] * len(words)
+
+            def one(i):
+                results[i] = post({"text": words[i]})
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(words))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+            batches = healthz()["batches"] - h["batches"]
+            hop = svc.hop
+            lens = []
+            for r in results:
+                if r is None or len(r[2]) % hop:
+                    raise AssertionError(f"bad response {r}")
+                lens.append(len(r[2]) // hop)
+            want = np.asarray(man["expect_mel_lens"])
+            print(f"4 concurrent requests: latencies "
+                  f"{[round(r[1] * 1e3, 2) for r in results]} ms, all done "
+                  f"in {wall * 1e3:.2f} ms, {batches} batch(es); mel lengths "
+                  f"from the WAVs {lens} (manifest {want.tolist()})",
+                  flush=True)
+            if not np.all(np.abs(np.asarray(lens) - want)
+                          <= np.maximum(0.05 * want, 3)):
+                raise AssertionError(f"served lengths {lens} vs {want}")
+            if not 1 <= batches < len(words):
+                raise AssertionError(f"{len(words)} concurrent requests ran "
+                                     f"as {batches} batches")
+            text = {"text": words[0]}
+            _, full_s, full = post(text)
+            ttfa, stream_s, streamed = post(dict(text, stream=True))
+            n = len(full) // hop
+            keep = min(-(-n // 128) * 128, -(-(n + RF_MEL) // 64) * 64)
+            windows = -(-keep // 64) if keep >= 64 + 2 * RF_MEL else 1
+            print(f"'{words[0]}' alone: full {full_s * 1e3:.2f} ms; streamed "
+                  f"time-to-first-audio {ttfa * 1e3:.2f} ms, all "
+                  f"{stream_s * 1e3:.2f} ms, {windows} windows of 64 frames",
+                  flush=True)
+            os.environ["CTTS_FUSE_RESBLOCK"] = "1"
+            reset_launch_counts()
+            f_ttfa, f_s, fused = post(dict(text, stream=True))
+            counts = {k: v for k, v in launch_counts().items() if v}
+            os.environ.pop("CTTS_FUSE_RESBLOCK", None)
+            print(f"streamed with CTTS_FUSE_RESBLOCK=1: time-to-first-audio "
+                  f"{f_ttfa * 1e3:.2f} ms, all {f_s * 1e3:.2f} ms; launches "
+                  f"{counts}", flush=True)
+            for name, got in (("streamed", streamed), ("fused streamed",
+                                                        fused)):
+                if got.shape != full.shape:
+                    raise AssertionError(f"{name} {got.shape} vs full "
+                                         f"{full.shape}")
+                d = np.abs(got.astype(np.int32) - full.astype(np.int32))
+                rms_d = np.sqrt(np.mean(d.astype(np.float64) ** 2))
+                tol = SERVE_PCM_RMS_TOL * np.sqrt(
+                    np.mean(full.astype(np.float64) ** 2))
+                print(f"{name} vs full PCM: max {d.max()} LSB, mean "
+                      f"{d.mean():.2f} LSB, RMS {rms_d:.2f} LSB (tol "
+                      f"{tol:.2f} LSB: {SERVE_PCM_RMS_TOL:g} of the full "
+                      f"PCM's RMS)")
+                if rms_d > tol:
+                    raise AssertionError(f"{name} PCM differs: RMS {rms_d}")
+            if counts.get("fused_resblock") != 9 * windows:
+                raise AssertionError(f"expected {9 * windows} fused resblock "
+                                     f"launches, got {counts}")
+            self.kernels["fused_resblock"]["launches"] = counts[
+                "fused_resblock"]
+        finally:
+            os.environ.pop("CTTS_FUSE_RESBLOCK", None)
+            srv.shutdown()
+            srv.server_close()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def cli_batch(self):
+        """``python -m ctts_torch.synthesize --mode batch --stream_chunk 64``
+        on the manifest's 4 texts (a metadata file of their phones) with
+        the trained weights and HiFi-GAN at seed 0, saved as an upstream
+        checkpoint under ``--vocoder_ckpt``."""
+        from ctts_torch.config import dump_yaml, get_configs_of, load_yaml
+        from ctts_torch.text.symbols import symbols
+        from ctts_torch.utils.model import get_vocoder
+        man = json.load(open(MANIFEST))["probe"]
+        with tempfile.TemporaryDirectory() as tmp:
+            mc = get_configs_of("LJSpeech")[1]
+            _, gen = get_vocoder(mc, ckpt_dir=os.path.join(tmp, "none"),
+                                 device="cpu", seed=0)
+            os.makedirs(os.path.join(tmp, "ckpt", "hifigan"))
+            torch.save({"generator": gen.state_dict()}, os.path.join(
+                tmp, "ckpt", "hifigan",
+                f"generator_{mc['vocoder']['speaker']}.pth.tar"))
+            raw = load_yaml(open(os.path.join(REPO, "configs",
+                                              "LJSpeech.yaml")))
+            raw["preprocess"]["path"]["preprocessed_path"] = tmp
+            os.makedirs(os.path.join(tmp, "cfg"))
+            with open(os.path.join(tmp, "cfg", "LJSpeech.yaml"), "w") as f:
+                f.write(dump_yaml(raw))
+            with open(os.path.join(tmp, "speakers.json"), "w") as f:
+                json.dump({"LJSpeech": 0}, f)
+            with open(os.path.join(tmp, "meta.txt"), "w") as f:
+                for i, (ids, n) in enumerate(zip(man["texts"],
+                                                 man["src_lens"])):
+                    phones = " ".join(symbols[j][1:] for j in ids[:n])
+                    f.write(f"probe{i}|LJSpeech|{{{phones}}}|probe {i}\n")
+            out = os.path.join(tmp, "out")
+            cmd = [sys.executable, "-m", "ctts_torch.synthesize", "--mode",
+                   "batch", "--source", os.path.join(tmp, "meta.txt"),
+                   "--dataset", "LJSpeech", "--config_dir",
+                   os.path.join(tmp, "cfg"), "--packed_ckpt", NPZ,
+                   "--vocoder_ckpt", os.path.join(tmp, "ckpt"),
+                   "--stream_chunk", "64",
+                   "--result_dir", out]
+            env = {k: v for k, v in os.environ.items()
+                   if k != "CTTS_FUSE_RESBLOCK"}
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=REPO, capture_output=True,
+                                 text=True, timeout=600, env=env)
+            print("\n".join(ln for ln in res.stdout.splitlines()
+                            if "Sequence" not in ln)[-800:])
+            if res.returncode != 0:
+                print(res.stderr[-3000:])
+                raise AssertionError(f"synthesize exited {res.returncode}")
+            from scipy.io import wavfile
+            lens = [len(wavfile.read(os.path.join(out, f"probe{i}.wav"))[1])
+                    / 256 for i in range(4)]
+            want = np.asarray(man["expect_mel_lens"])
+            print(f"synthesize CLI, batch and stream: "
+                  f"{time.perf_counter() - t0:.1f} s (process start "
+                  f"included); mel lengths from the WAVs {lens}")
+            if "griffin-lim" in res.stdout:
+                raise AssertionError("batch CLI: the vocoder checkpoint "
+                                     "was not loaded")
+            if "time-to-first-audio" not in res.stdout or not np.all(
+                    np.abs(np.asarray(lens) - want)
+                    <= np.maximum(0.05 * want, 3)):
+                raise AssertionError(f"batch CLI: lengths {lens} vs {want}")
+
+    def flip(self):
+        """``python -m ctts_torch.tools.bench_flip``'s entry point with the
+        launch counters zeroed just before it and read just after it; then
+        every variant against its plain version (bit-exact) at the tool's
+        shape, with times and the bound."""
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        from ctts_torch.ops import flip as fl
+        from ctts_torch.tools import bench_flip as bf
+        reset_launch_counts()
+        record = bf.main(["--iters", "20"])
+        launches = launch_counts()["bench_flip"]
+        print(f"bench_flip tool: launches {launches}")
+        if launches != len(fl.VARIANTS) * 23:
+            raise AssertionError(f"bench_flip launched {launches} times")
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn(bf.B * bf.H, bf.T, bf.T, generator=gen).to(
+            "cuda", torch.bfloat16)
+        N, T = x.shape[:2]
+        b_ms, b_by = bound(0, 2 * 2 * N * T * T, PEAK_BF16_FLOPS)
+        ms, plain = {}, {}
+        for variant in fl.VARIANTS:
+            got = fl.flip(x, variant)
+            exact = torch.equal(got, fl.flip_plain(x, variant))
+            ms[variant], ev_ms = timings(lambda: fl.flip(x, variant))
+            plain[variant], _ = timings(lambda: fl.flip_plain(x, variant),
+                                        iters=3)
+            print(f"flip {variant} [{N}, {T}, {T}] bf16: "
+                  f"{'bit-exact' if exact else 'MISMATCH'}; ms kernel "
+                  f"{ms[variant]:.4f}, plain {plain[variant]:.4f}; bound "
+                  f"{b_ms:.5f} ms ({b_by}); event ms kernel {ev_ms:.4f}",
+                  flush=True)
+            if not exact:
+                raise AssertionError(f"flip {variant} differs from plain")
+        self.kernels["bench_flip"] = {
+            "name": "bench_flip", "route": "cuda",
+            "source": "ctts_torch/csrc/bench_flip.cu",
+            "replaces": "tools/bench_flip.py:67", "launches": launches,
+            "max_abs_err": 0.0, "ms": ms["baseline"],
+            "plain_ms": plain["baseline"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "shape": f"bf16 [{N}, {T}, {T}] BQ={fl.BQ}, the baseline "
+                     f"variant; every variant in variants_ms",
+            "variants_ms": ms, "variants_plain_ms": plain,
+            "tool_event_ms": record["variants_ms"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1940,7 +2450,12 @@ def main():
         [("local-window kernels vs plain", smoke.local_window),
          ("LSH chunk kernels vs plain", smoke.lsh_chunk)],
         [("reformer forward", smoke.reformer_forward),
-         ("reformer train", smoke.reformer_train)]]
+         ("reformer train", smoke.reformer_train)],
+        [("fused resblock kernel vs plain", smoke.fused_resblock),
+         ("vocoder, fused resblocks", smoke.vocoder_fused),
+         ("serve", smoke.serve),
+         ("synthesize CLI, batch and stream", smoke.cli_batch),
+         ("flip kernel vs plain", smoke.flip)]]
     for group in groups:
         for name, fn in group:
             if not smoke.failures:
@@ -1948,6 +2463,9 @@ def main():
     if smoke.failures:
         print(f"chip_smoke FAILED: {smoke.failures}", file=sys.stderr)
         return 1
+    print(f"profiles: {PROFILES['whole']} kept, {PROFILES['lost_lead']} of "
+          f"them without their first 1-{PROFILES['most_lost']} leading "
+          f"markers; {PROFILES['rejected']} rejected")
     print(json.dumps({"kernels": list(smoke.kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

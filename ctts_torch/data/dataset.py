@@ -1,5 +1,6 @@
-"""Training datasets over the preprocessed .npy store
-(ctts_tpu/data/dataset.py), with numpy alone.
+"""Datasets over the preprocessed .npy store (ctts_tpu/data/dataset.py),
+with numpy alone: :class:`Dataset` for training and :class:`TextDataset`
+for batch synthesis.
 
 Same on-disk layout (per-utterance mel/pitch/f0/energy/duration/mel2ph or
 attn_prior/cwt .npy + metadata txt + speakers.json), and the same batches:
@@ -304,3 +305,70 @@ class Dataset:
     def n_batches(self, group_size=4, num_shards=1, shard=0):
         """Batches per epoch (the same for every shuffle)."""
         return len(self._order(group_size, False, 0, 0, num_shards, shard))
+
+
+class TextDataset:
+    """Inference dataset (ctts_tpu/data/dataset.py:TextDataset): a metadata
+    txt of ``basename|speaker|{phones}|raw text`` lines → batches of phone
+    IDs, with ``speakers.json`` from the preprocessed store."""
+
+    def __init__(self, filepath, preprocess_config, model_config):
+        self.cleaners = preprocess_config["preprocessing"]["text"]["text_cleaners"]
+        self.preprocessed_path = preprocess_config["path"]["preprocessed_path"]
+        self.load_spker_embed = (
+            model_config["multi_speaker"]
+            and preprocess_config["preprocessing"].get(
+                "speaker_embedder", "none") != "none")
+        self.basename, self.speaker, self.text, self.raw_text = \
+            self._process_meta(filepath)
+        with open(os.path.join(self.preprocessed_path, "speakers.json")) as f:
+            self.speaker_map = json.load(f)
+
+    def __len__(self):
+        return len(self.text)
+
+    def __getitem__(self, idx):
+        speaker = self.speaker[idx]
+        spker_embed = np.load(os.path.join(
+            self.preprocessed_path, "spker_embed",
+            f"{speaker}-spker_embed.npy")) if self.load_spker_embed else None
+        return (self.basename[idx], self.speaker_map[speaker],
+                np.array(text_to_sequence(self.text[idx], self.cleaners)),
+                self.raw_text[idx], spker_embed)
+
+    @staticmethod
+    def _process_meta(filename):
+        names, speakers, texts, raws = [], [], [], []
+        with open(filename, encoding="utf-8") as f:
+            for line in f:
+                n, s, t, r = line.strip("\n").split("|")
+                names.append(n)
+                speakers.append(s)
+                texts.append(t)
+                raws.append(r)
+        return names, speakers, texts, raws
+
+    def batches(self, batch_size=8, bucket_src=32):
+        """Batches in file order: ``ids``, ``raw_texts``, ``speakers`` [B],
+        ``texts`` [B, T_s] (T_s rounded up to ``bucket_src``),
+        ``src_lens`` [B] and ``spker_embeds`` (or None)."""
+        for b0 in range(0, len(self), batch_size):
+            items = [self[i] for i in range(b0, min(b0 + batch_size,
+                                                    len(self)))]
+            B = len(items)
+            T_s = _round_up(max(len(it[2]) for it in items), bucket_src)
+            texts = np.zeros((B, T_s), np.int32)
+            src_lens = np.zeros(B, np.int32)
+            for b, it in enumerate(items):
+                texts[b, :len(it[2])] = it[2]
+                src_lens[b] = len(it[2])
+            spker = (np.concatenate([it[4] for it in items], axis=0)
+                     if self.load_spker_embed else None)
+            yield {
+                "ids": [it[0] for it in items],
+                "raw_texts": [it[3] for it in items],
+                "speakers": np.array([it[1] for it in items], np.int32),
+                "texts": texts,
+                "src_lens": src_lens,
+                "spker_embeds": spker,
+            }

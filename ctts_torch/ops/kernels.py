@@ -23,7 +23,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ctts_torch")
 SOURCES = ("attention.cu", "gather_rows.cu", "scatter_rows.cu", "mas.cu",
            "forward_sum.cu", "relpos_attention.cu",
            "local_window_attention.cu", "lsh_chunk_attention.cu",
-           "barrier_chain.cu")
+           "fused_resblock.cu", "bench_flip.cu", "barrier_chain.cu")
 HEADERS = ("window_attention.cuh",)       # included by sources; hashed too
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -135,9 +135,9 @@ def check(err, lib, what):
 def launch_counts():
     """Kernel launches since the counters were last reset, by kernel name
     (each wrapper counts its own; the counters are plain module ints)."""
-    from ctts_torch.ops import (attention, forward_sum, local_window_attention,
-                                lsh_chunk_attention, mas, relpos_attention,
-                                sort_gather)
+    from ctts_torch.ops import (attention, flip, forward_sum, fused_resblock,
+                                local_window_attention, lsh_chunk_attention,
+                                mas, relpos_attention, sort_gather)
     return {"fused_attention": attention.launches,
             "gather_rows": sort_gather.launches,
             "scatter_rows": sort_gather.scatter_launches,
@@ -149,16 +149,19 @@ def launch_counts():
             "local_window_fwd": local_window_attention.launches,
             "local_window_bwd": local_window_attention.bwd_launches,
             "lsh_chunk_fwd": lsh_chunk_attention.launches,
-            "lsh_chunk_bwd": lsh_chunk_attention.bwd_launches}
+            "lsh_chunk_bwd": lsh_chunk_attention.bwd_launches,
+            "fused_resblock": fused_resblock.launches,
+            "bench_flip": flip.launches}
 
 
 def reset_launch_counts():
-    from ctts_torch.ops import (attention, forward_sum, local_window_attention,
-                                lsh_chunk_attention, mas, relpos_attention,
-                                sort_gather)
+    from ctts_torch.ops import (attention, flip, forward_sum, fused_resblock,
+                                local_window_attention, lsh_chunk_attention,
+                                mas, relpos_attention, sort_gather)
     attention.launches = sort_gather.launches = 0
     sort_gather.scatter_launches = mas.launches = 0
     forward_sum.alpha_launches = forward_sum.grad_launches = 0
     relpos_attention.launches = relpos_attention.bwd_launches = 0
     local_window_attention.launches = local_window_attention.bwd_launches = 0
     lsh_chunk_attention.launches = lsh_chunk_attention.bwd_launches = 0
+    fused_resblock.launches = flip.launches = 0

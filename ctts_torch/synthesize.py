@@ -2,6 +2,8 @@
 
     python -m ctts_torch.synthesize --mode single --text "..." \\
         --dataset LJSpeech --packed_ckpt assets/ljdemo_ckpt.npz
+    python -m ctts_torch.synthesize --mode batch --source metadata.txt \\
+        --dataset LJSpeech --packed_ckpt assets/ljdemo_ckpt.npz
 
 Phone IDs go through CompTransTTS (mode "infer") to a mel, and the vocoder
 turns the mel into a wav. The frame budget follows the JAX CLI's two
@@ -9,14 +11,18 @@ passes: a probe at one bucket (128 frames), then the predicted length
 rounded up to a whole bucket, capped at 2·max_seq_len. Writes
 ``<id>.wav`` and ``<id>.npy`` (the mel) per utterance. ``--restore_step N``
 reads the port's checkpoint of step N (written by ``ctts_torch.train``)
-from the config's ``ckpt_path``. Batch mode and ``--stream_chunk`` are not
-ported yet.
+from the config's ``ckpt_path``. Batch mode reads a metadata txt
+(``basename|speaker|{phones}|raw text``) in batches of 8 through
+:class:`ctts_torch.data.dataset.TextDataset`. ``--stream_chunk N`` vocodes
+through the chunked vocoder in chunks of N frames (the same audio, up to
+the order of float sums) and prints the time to the first chunk.
 """
 
 import argparse
 import os
 import re
 import string
+import time
 
 import numpy as np
 import torch
@@ -25,7 +31,8 @@ from scipy.io import wavfile
 from ctts_torch import resolve_device
 from ctts_torch.config import get_configs_of
 from ctts_torch.text import text_to_sequence
-from ctts_torch.utils.model import get_model, get_vocoder, vocoder_infer
+from ctts_torch.utils.model import (get_model, get_vocoder, vocoder_infer,
+                                    vocoder_stream)
 
 
 def read_lexicon(lex_path):
@@ -109,14 +116,31 @@ def infer_mels(model, batch, configs, controls=(1.0, 1.0, 1.0),
 
 
 def synthesize(model, batch, configs, vocoder, controls, result_dir,
-               max_mel_len=None, bucket=128):
+               max_mel_len=None, bucket=128, stream_chunk=0):
     """Text IDs → mel → wav; writes ``<id>.wav`` and ``<id>.npy`` (the mel,
-    [T, n_mel]) per utterance into result_dir. Returns the wavs."""
+    [T, n_mel]) per utterance into result_dir. With ``stream_chunk`` the
+    vocoder streams chunks of that many frames and the time to the first
+    chunk is printed. Returns the wavs."""
     preprocess_config, _, _ = configs
     out = infer_mels(model, batch, configs, controls, max_mel_len, bucket)
     mels = out["postnet_mel_predictions"]
     mel_lens = out["mel_lens"].cpu().numpy()
-    wavs = vocoder_infer(mels, vocoder, preprocess_config, lengths=mel_lens)
+    if stream_chunk and vocoder[0] != "griffin_lim":
+        hop = preprocess_config["preprocessing"]["stft"]["hop_length"]
+        t0 = time.perf_counter()
+        chunks = []
+        for c in vocoder_stream(mels, vocoder, preprocess_config,
+                                chunk=stream_chunk):
+            if not chunks:
+                print(f"time-to-first-audio: "
+                      f"{(time.perf_counter() - t0) * 1e3:.0f} ms "
+                      f"({stream_chunk * hop} samples/chunk)")
+            chunks.append(c)
+        full = np.concatenate(chunks, axis=1)
+        wavs = [full[i, :int(n) * hop] for i, n in enumerate(mel_lens)]
+    else:
+        wavs = vocoder_infer(mels, vocoder, preprocess_config,
+                             lengths=mel_lens)
     mels = mels.cpu().numpy()
     os.makedirs(result_dir, exist_ok=True)
     sr = preprocess_config["preprocessing"]["audio"]["sampling_rate"]
@@ -151,16 +175,12 @@ def main(argv=None):
     parser.add_argument("--stream_chunk", type=int, default=0)
     args = parser.parse_args(argv)
 
-    if args.mode == "batch":
-        raise NotImplementedError(
-            "batch mode needs the dataset reader, not ported yet "
-            "(ROADMAP.md §1 item 6)")
-    if args.stream_chunk:
-        raise NotImplementedError(
-            "--stream_chunk (the chunked vocoder) is not ported yet "
-            "(ROADMAP.md §1 item 6)")
-    if args.text is None:
-        parser.error("--mode single needs --text")
+    if args.mode == "batch" and (args.source is None
+                                 or args.text is not None):
+        parser.error("--mode batch takes --source and no --text")
+    if args.mode == "single" and (args.text is None
+                                  or args.source is not None):
+        parser.error("--mode single takes --text and no --source")
 
     configs = get_configs_of(args.dataset, args.config_dir)
     preprocess_config, model_config, train_config = configs
@@ -177,15 +197,22 @@ def main(argv=None):
     vocoder = get_vocoder(model_config, args.vocoder_ckpt, device=device)
     if vocoder[0] == "griffin_lim":
         print("NOTE: no vocoder weights found; using griffin-lim fallback")
-    seq = preprocess_english(args.text, preprocess_config)
-    batch = {"ids": [args.text[:100]],
-             "speakers": np.zeros(1, np.int64),
-             "texts": seq[None].astype(np.int64),
-             "src_lens": np.array([len(seq)], np.int64)}
-    synthesize(model, batch, configs, vocoder,
-               (args.pitch_control, args.energy_control,
-                args.duration_control),
-               args.result_dir or train_config["path"]["result_path"])
+    controls = (args.pitch_control, args.energy_control,
+                args.duration_control)
+    result_dir = args.result_dir or train_config["path"]["result_path"]
+    if args.mode == "batch":
+        from ctts_torch.data.dataset import TextDataset
+        dataset = TextDataset(args.source, preprocess_config, model_config)
+        batches = dataset.batches(batch_size=8)
+    else:
+        seq = preprocess_english(args.text, preprocess_config)
+        batches = [{"ids": [args.text[:100]],
+                    "speakers": np.zeros(1, np.int64),
+                    "texts": seq[None].astype(np.int64),
+                    "src_lens": np.array([len(seq)], np.int64)}]
+    for batch in batches:
+        synthesize(model, batch, configs, vocoder, controls, result_dir,
+                   stream_chunk=args.stream_chunk)
 
 
 if __name__ == "__main__":

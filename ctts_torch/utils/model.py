@@ -73,51 +73,91 @@ def get_model(restore_step, configs, packed_ckpt=None, device=None):
 
 def get_vocoder(model_config, ckpt_dir="ckpt", device=None,
                 dtype=torch.bfloat16, seed=None):
-    """The configured vocoder as ``(name, module)``.
+    """The configured vocoder (HiFi-GAN V1 or MelGAN) as ``(name, module)``.
 
-    HiFi-GAN weights are an external download, as upstream: without
-    ``<ckpt_dir>/hifigan/generator_<speaker>.pth.tar`` this returns the
-    griffin-lim fallback ``("griffin_lim", None)``, unless ``seed`` is given,
-    which draws the generator's weights from that seed instead (for smoke
-    runs and timing; the audio is noise)."""
-    from ctts_torch.vocoder.hifigan import (HiFiGANGenerator, V1_CONFIG,
-                                            load_generator)
+    The weights are an external download, as upstream:
+    ``<ckpt_dir>/hifigan/generator_<speaker>.pth.tar`` or
+    ``<ckpt_dir>/melgan/melgan_<speaker>.pt``. Without the file this
+    returns the griffin-lim fallback ``("griffin_lim", None)``, unless
+    ``seed`` is given, which draws the generator's weights from that seed
+    instead (for smoke runs and timing; the audio is noise)."""
     name = model_config["vocoder"]["model"]
-    if name != "HiFi-GAN":
-        raise NotImplementedError(
-            f"vocoder {name!r} is not ported yet (ROADMAP.md §1 item 14)")
+    speaker = model_config["vocoder"]["speaker"]
+    if name == "HiFi-GAN":
+        from ctts_torch.vocoder.hifigan import (HiFiGANGenerator, V1_CONFIG,
+                                                load_generator)
+        path = os.path.join(ckpt_dir, "hifigan",
+                            f"generator_{speaker}.pth.tar")
+        model = HiFiGANGenerator(dict(V1_CONFIG), dtype=dtype)
+        load = load_generator
+    elif name == "MelGAN":
+        from ctts_torch.vocoder.melgan import MelGANGenerator, load_melgan
+        path = os.path.join(ckpt_dir, "melgan", f"melgan_{speaker}.pt")
+        model = MelGANGenerator(dtype=dtype)
+        load = load_melgan
+    else:
+        raise ValueError(f"unknown vocoder {name}")
     dev = resolve_device(device)
-    path = os.path.join(ckpt_dir, "hifigan",
-                        f"generator_{model_config['vocoder']['speaker']}.pth.tar")
-    model = HiFiGANGenerator(dict(V1_CONFIG), dtype=dtype)
     if os.path.exists(path):
-        model.load_state_dict(load_generator(path))
+        model.load_state_dict(load(path))
     elif seed is not None:
         init_weights(model, seed)
     else:
         return ("griffin_lim", None)
-    return ("HiFi-GAN", model.to(dev).eval())
+    return (name, model.to(dev).eval())
+
+
+def _int16(wavs, preprocess_config):
+    max_wav_value = preprocess_config["preprocessing"]["audio"]["max_wav_value"]
+    return (wavs * max_wav_value).clip(-max_wav_value,
+                                       max_wav_value - 1).astype(np.int16)
 
 
 def vocoder_infer(mels, vocoder, preprocess_config, lengths=None):
     """mels [B, T, n_mel] (log, tensor or array) → list of int16 numpy
     wavs, each cut to ``lengths[i]·hop`` samples."""
     name, model = vocoder
-    max_wav_value = preprocess_config["preprocessing"]["audio"]["max_wav_value"]
     hop = preprocess_config["preprocessing"]["stft"]["hop_length"]
-    if name == "HiFi-GAN":
+    if name in ("HiFi-GAN", "MelGAN"):
         device = next(model.parameters()).device
+        mels = torch.as_tensor(mels).to(device)
+        if name == "MelGAN":                   # MelGAN takes log10 mels
+            mels = mels / np.log(10)
         with torch.no_grad():
-            wavs = model(torch.as_tensor(mels).to(device)).cpu().numpy()
+            wavs = model(mels).cpu().numpy()
     else:
         from ctts_torch.audio.tools import inv_mel_spec_batch
         mels = mels.cpu().numpy() if torch.is_tensor(mels) else mels
         wavs = inv_mel_spec_batch(np.asarray(mels, np.float32),
                                   preprocess_config)
-    wavs = (wavs * max_wav_value).clip(-max_wav_value,
-                                       max_wav_value - 1).astype(np.int16)
+    wavs = _int16(wavs, preprocess_config)
     out = []
     for i in range(len(wavs)):
         n = int(lengths[i]) * hop if lengths is not None else wavs.shape[1]
         out.append(wavs[i, :n])
     return out
+
+
+def vocoder_stream(mels, vocoder, preprocess_config, chunk=64):
+    """The streaming form of :func:`vocoder_infer`: yields int16 numpy
+    chunks [B, chunk·hop] as they come off the card
+    (:mod:`ctts_torch.vocoder.streaming`; the last chunk is shorter when T
+    is not a chunk multiple). Concatenated and cut to ``lengths[i]·hop``
+    per row they equal :func:`vocoder_infer`'s output up to the order of
+    float sums."""
+    from ctts_torch.vocoder.streaming import (RF_MEL, RF_MEL_MELGAN,
+                                              make_chunked_vocoder)
+    name, model = vocoder
+    hop = preprocess_config["preprocessing"]["stft"]["hop_length"]
+    mels = torch.as_tensor(mels)
+    if name == "HiFi-GAN":
+        halo = RF_MEL
+    elif name == "MelGAN":
+        halo = RF_MEL_MELGAN
+        mels = mels / np.log(10)
+    else:
+        raise ValueError(f"vocoder {name!r} has no streaming path "
+                         "(griffin-lim runs on the host over the whole mel)")
+    stream = make_chunked_vocoder(model, chunk=chunk, halo=halo, hop=hop)
+    for wav in stream(mels):
+        yield _int16(wav, preprocess_config)

@@ -26,6 +26,8 @@ state_dict straight back. Layout changes:
 test can compare the port's parameters with the JAX tree after a step.
 """
 
+import re
+
 import numpy as np
 import torch
 
@@ -441,4 +443,27 @@ def hifigan_state_dict_from_jax(params):
                 sd[f"resblocks.{r}.convs{n}.{j}.weight"] = _conv(rb[f"w{n}"][j])
                 sd[f"resblocks.{r}.convs{n}.{j}.bias"] = rb[f"b{n}"][j]
         r += 1
+    return _to_tensors(sd)
+
+
+def melgan_state_dict_from_jax(params):
+    """JAX MelGANGenerator params (``{"params": ...}`` or the inner dict) →
+    the port's generator state_dict (upstream Sequential names)."""
+    from ctts_torch.vocoder.melgan import MelGANGenerator, _layout
+    params = params.get("params", params)
+    n_up = sum(1 for k in params if re.fullmatch(r"up_\d+", k))
+    n_res = sum(1 for k in params if re.fullmatch(r"res_0_\d+", k))
+    conv_in, ups, groups, conv_out = _layout(
+        MelGANGenerator((2,) * n_up, 1, n_res, 1).model)
+    sd = {}
+    _conv_params(sd, f"model.{conv_in}", params["conv_in"]["Conv_0"])
+    _conv_params(sd, f"model.{conv_out}", params["conv_out"]["Conv_0"])
+    for u, (up, group) in enumerate(zip(ups, groups)):
+        # flax [k, out, in] → torch ConvTranspose1d [in, out, k]
+        _conv_params(sd, f"model.{up}", params[f"up_{u}"])
+        for j, r in enumerate(group):
+            node = params[f"res_{u}_{j}"]
+            _conv_params(sd, f"model.{r}.block.2", node["block_conv"]["Conv_0"])
+            _conv_params(sd, f"model.{r}.block.4", node["block_out"])
+            _conv_params(sd, f"model.{r}.shortcut", node["shortcut"])
     return _to_tensors(sd)

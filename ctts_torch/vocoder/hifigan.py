@@ -6,13 +6,23 @@ leaky_relu(0.01) → conv_post(k7) → tanh. Plain ``conv1d`` /
 ``conv_transpose1d`` with weight norm folded, so an upstream
 ``generator_*.pth.tar`` loads through :func:`load_generator`. Computes in
 ``dtype`` (bf16 by default in :func:`ctts_torch.utils.model.get_vocoder`)
-and returns float32. The JAX package's opt-in fused resblock
-(``CTTS_FUSE_RESBLOCK=1``) is not on the served path and not ported yet.
+and returns float32.
+
+``CTTS_FUSE_RESBLOCK=1`` (read at every call, as in the JAX package) runs
+each ResBlock1 with C ≤ 128 and T % 128 == 0 as one fused chain
+(:func:`ctts_torch.ops.fused_resblock.fused_resblock1`): the CUDA kernel on
+the card, its plain version on the CPU. HiFi-GAN V1 at the probe's
+[4, 1152] mels takes it at levels 1-3 (C = 128, 64, 32), 9 launches a
+forward; level 0 (C = 256) stays on cuDNN.
 """
+
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ctts_torch.ops.fused_resblock import fused_resblock1, stack_convs
 
 LRELU_SLOPE = 0.1
 
@@ -33,12 +43,36 @@ def _conv(cin, cout, k, d=1):
 class ResBlock1(nn.Module):
     def __init__(self, channels, kernel_size, dilations):
         super().__init__()
+        self.kernel_size = kernel_size
+        self.dilations = tuple(dilations)
         self.convs1 = nn.ModuleList(_conv(channels, channels, kernel_size, d)
                                     for d in dilations)
         self.convs2 = nn.ModuleList(_conv(channels, channels, kernel_size)
                                     for _ in dilations)
+        self._stacked = {}
+
+    def stacked(self, dtype):
+        """``convs1`` and ``convs2`` as the fused chain takes them, weights
+        rounded to ``dtype``: built once per dtype and kept until a
+        parameter is replaced or changed in place."""
+        params = [p for c in (*self.convs1, *self.convs2)
+                  for p in (c.weight, c.bias)]
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        hit = self._stacked.get(dtype)
+        if hit is None or hit[0] != key:
+            hit = (key, (stack_convs(self.convs1, dtype),
+                         stack_convs(self.convs2, dtype)))
+            self._stacked[dtype] = hit
+        return hit[1]
 
     def forward(self, x):
+        if (os.environ.get("CTTS_FUSE_RESBLOCK", "") == "1"
+                and x.shape[1] <= 128 and x.shape[2] % 128 == 0):
+            dev = x.device.type
+            if torch.is_autocast_enabled(dev):
+                x = x.to(torch.get_autocast_dtype(dev))
+            return fused_resblock1(x.contiguous(), *self.stacked(x.dtype),
+                                   self.kernel_size, self.dilations)
         for c1, c2 in zip(self.convs1, self.convs2):
             y = c2(F.leaky_relu(c1(F.leaky_relu(x, LRELU_SLOPE)), LRELU_SLOPE))
             x = x + y

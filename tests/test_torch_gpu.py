@@ -610,3 +610,131 @@ def test_reformer_train_step_on_the_card(fused, monkeypatch):
         want = (4, 4) if fused == "1" else (0, 0)
         assert (counts["lsh_chunk_fwd"], counts["lsh_chunk_bwd"]) == want
     assert all(np.isfinite(v.item()) for v in metrics.values())
+
+
+def _resblock_case(C, T, k, dtype, dev, seed=0):
+    rng = np.random.RandomState(seed + C + T + k)
+    x = torch.from_numpy(rng.randn(1, C, T).astype(np.float32) * 0.5)
+    x = x.repeat(2, 1, 1).to(dev, dtype)
+    x[1] *= -1.5                            # a second row, other values
+    convs = []
+    for _ in range(2):
+        w = rng.randn(3, k, C, C).astype(np.float32) * (C * k) ** -0.5
+        w = torch.from_numpy(w).to(dtype).float().to(dev).contiguous()
+        b = torch.from_numpy(rng.randn(3, C).astype(np.float32) * 0.1)
+        convs.append((w, b.to(dev)))
+    return x, convs
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("C,T,block_t", [(32, 256, 128), (64, 250, 128),
+                                         (128, 1024, 1024)])
+def test_fused_resblock_kernel_matches_plain(C, T, block_t, k, dtype, tol):
+    """The fused chain against its plain version on the card, relative to
+    the largest plain entry: two tiles at T=256 (both sequence edges and a
+    seam), a ragged last tile at T=250, and the tile the wrapper picks at
+    C=128. bf16: the same roundings in another summation order, so a value
+    within float32 rounding of a bf16 boundary may land on its neighbour and
+    carry through the rest of the chain (a few ulps at most)."""
+    dev = _need_card()
+    from ctts_torch.ops import fused_resblock
+    x, (c1, c2) = _resblock_case(C, T, k, dtype, dev)
+    ref = fused_resblock.reference_resblock1(x, c1, c2, k)
+    before = fused_resblock.launches
+    got = fused_resblock.fused_resblock1(x, c1, c2, k, block_t=block_t)
+    torch.cuda.synchronize()
+    assert fused_resblock.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_fused_resblock_wrapper_raises_on_untaken_cuda_input():
+    dev = _need_card()
+    from ctts_torch.ops import fused_resblock
+    x, (c1, c2) = _resblock_case(32, 128, 3, torch.float32, dev)
+    with pytest.raises(TypeError):
+        fused_resblock.fused_resblock1(x.half(), c1, c2, 3)
+    with pytest.raises(ValueError):
+        fused_resblock.fused_resblock1(x[:, :24].contiguous(), c1, c2, 3)
+    with pytest.raises(ValueError):
+        fused_resblock.fused_resblock1(x, c1, c2, 5)
+    with pytest.raises(ValueError):
+        fused_resblock.fused_resblock1(x.transpose(1, 2), c1, c2, 3)
+    with pytest.raises(ValueError):
+        fused_resblock.fused_resblock1(x, (c1[0].cpu(), c1[1]), c2, 3)
+
+
+def _card_hifigan(dev, dtype, channels=512, seed=0):
+    from ctts_torch.utils.model import init_weights
+    from ctts_torch.vocoder.hifigan import HiFiGANGenerator, V1_CONFIG
+    gen = HiFiGANGenerator(dict(V1_CONFIG, upsample_initial_channel=channels),
+                           dtype=dtype)
+    return init_weights(gen, seed).to(dev).eval()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generator_fused_matches_unfused_on_the_card(dtype, monkeypatch):
+    """HiFi-GAN V1 at full width with CTTS_FUSE_RESBLOCK=1 against the same
+    generator on cuDNN: 9 launches at an even mel length (levels 1-3), 6 at
+    an odd one. float32 within 1e-4 on the tanh output; bf16 (where cuDNN
+    adds the bias after rounding the conv) within 5 % in RMS."""
+    dev = _need_card()
+    from ctts_torch.ops import fused_resblock
+    gen = _card_hifigan(dev, dtype)
+    rng = np.random.RandomState(3)
+    for T, launches in ((32, 9), (33, 6)):
+        mel = torch.from_numpy(rng.randn(2, T, 80).astype(np.float32) - 4)
+        mel = mel.to(dev)
+        with torch.no_grad():
+            monkeypatch.delenv("CTTS_FUSE_RESBLOCK", raising=False)
+            want = gen(mel)
+            monkeypatch.setenv("CTTS_FUSE_RESBLOCK", "1")
+            before = fused_resblock.launches
+            got = gen(mel)
+        torch.cuda.synchronize()
+        assert fused_resblock.launches - before == launches
+        diff = got - want
+        if dtype == torch.float32:
+            assert diff.abs().max().item() <= 1e-4
+        else:
+            assert diff.pow(2).mean().sqrt() <= 0.05 * want.pow(2).mean().sqrt()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_vocode_equals_full_on_the_card(dtype):
+    """The chunked vocoder on the card against the full pass, full-width
+    HiFi-GAN: float32 within 1e-5 (the order of sums only: cuDNN may choose
+    other algorithms for the window's shape); bf16 within 5 % in RMS."""
+    dev = _need_card()
+    from ctts_torch.vocoder.streaming import RF_MEL, make_chunked_vocoder
+    gen = _card_hifigan(dev, dtype)
+    mel = np.random.RandomState(4).randn(1, 150, 80).astype(np.float32) - 4
+    with torch.no_grad():
+        want = gen(torch.from_numpy(mel).to(dev)).cpu().numpy()
+    chunks = list(make_chunked_vocoder(gen, chunk=64, halo=RF_MEL)(mel))
+    assert [c.shape[1] for c in chunks] == [64 * 256, 64 * 256, 22 * 256]
+    got = np.concatenate(chunks, axis=1)
+    if dtype == torch.float32:
+        assert np.abs(got - want).max() <= 1e-5
+    else:
+        assert np.sqrt(np.mean((got - want) ** 2)) <= \
+            0.05 * np.sqrt(np.mean(want ** 2))
+
+
+@pytest.mark.parametrize("variant", ["baseline", "row_flip", "lane_rev",
+                                     "ladder"])
+@pytest.mark.parametrize("N,T,BQ", [(3, 256, 128), (2, 896, 128), (2, 40, 8)])
+def test_flip_kernel_bit_exact(N, T, BQ, variant):
+    dev = _need_card()
+    from ctts_torch.ops import flip
+    rng = np.random.RandomState(T + BQ)
+    x = torch.from_numpy(rng.randn(N, T, T).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    before = flip.launches
+    got = flip.flip(x, variant, BQ)
+    torch.cuda.synchronize()
+    assert flip.launches == before + 1
+    assert torch.equal(got, flip.flip_plain(x, variant, BQ))

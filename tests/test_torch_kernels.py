@@ -208,7 +208,8 @@ def test_kernel_build_is_lazy_and_named_by_content():
                                "scatter_rows.cu", "mas.cu", "forward_sum.cu",
                                "relpos_attention.cu",
                                "local_window_attention.cu",
-                               "lsh_chunk_attention.cu", "barrier_chain.cu")
+                               "lsh_chunk_attention.cu", "fused_resblock.cu",
+                               "bench_flip.cu", "barrier_chain.cu")
     assert kernels.HEADERS == ("window_attention.cuh",)
     for src in kernels.SOURCES + kernels.HEADERS:
         assert os.path.isfile(os.path.join(repo, "ctts_torch", "csrc", src))

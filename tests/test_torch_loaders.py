@@ -92,7 +92,8 @@ def test_text_frontend_matches_jax_package():
 
 def test_imports_need_no_jax_yaml_or_ml_dtypes():
     """Every ctts_torch module (the conformer, the reformer and its two ops,
-    the data pipeline and the train CLI included) and chip_smoke.py import
+    the data pipeline, the train CLI, the server, the streaming vocoder,
+    MelGAN and the flip tool included) and chip_smoke.py import
     with jax, ctts_tpu, yaml, ml_dtypes, matplotlib, flax and orbax
     blocked."""
     code = r"""
@@ -122,7 +123,9 @@ print(" ".join(mods), len(mods))
                 "ops.relpos_attention", "models.conformer", "data.dataset",
                 "data.device_cache", "utils.checkpoint", "utils.logging",
                 "train", "models.reformer", "ops.local_window_attention",
-                "ops.lsh_chunk_attention"):
+                "ops.lsh_chunk_attention", "ops.fused_resblock", "serve",
+                "vocoder.streaming", "vocoder.melgan", "ops.flip",
+                "tools.bench_flip"):
         assert f"ctts_torch.{new}" in names, new
 
 
@@ -216,6 +219,6 @@ def test_synthesize_cli_on_cpu(tmp_path, capsys):
     mel = np.load(tmp_path / "Hello world..npy")
     assert wav.stat().st_size > 44 + 2 * 256 * 20
     assert mel.ndim == 2 and mel.shape[1] == 80 and np.isfinite(mel).all()
-    with pytest.raises(NotImplementedError):
-        synthesize.main(["--mode", "batch", "--source", "x",
+    with pytest.raises(SystemExit):            # batch mode needs --source
+        synthesize.main(["--mode", "batch", "--text", "x",
                          "--dataset", "LJSpeech", "--device", "cpu"])
