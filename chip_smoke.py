@@ -32,10 +32,12 @@ suppresses the final line:
    ``var_start_steps``, then timed steps and one under ``torch.profiler``;
 7. the relative-position attention kernels (the conformer's) against
    their plain version at the decoder's and the encoder's training shapes,
-   the probe's budget and text lengths (96 padded, 87 unpadded), bf16 and
-   f32, masked and not, dropout off and on, with their times, the plain
-   version's, SDPA's with the shifted positional score as its mask, and the
-   bounds;
+   the probe's budget and text lengths (96 padded, 87 unpadded), and at
+   heads of 16 and 64, bf16 and f32, masked and not, dropout off and on;
+   two backward runs bit-identical; their times beside the plain
+   version's, SDPA's with the shifted positional score as its mask, the
+   bounds, and the times PERF.md records (those before the redesign for
+   the tensor cores in brackets);
 8. the conformer (``block_type: conformer``, full width and depth, seeded
    weights) on the probe texts at budget 1152: launch counters zeroed just
    before the forward and read just after, latency, and the same model with
@@ -154,6 +156,32 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def demangled(names):
+    """The kernels' names without their parameters, through the CUDA
+    toolkit's cu++filt; as ptxas gives them where it cannot run."""
+    from ctts_torch.ops.kernels import _nvcc
+    try:
+        out = subprocess.run(
+            [os.path.join(os.path.dirname(_nvcc()), "cu++filt"), "-p",
+             *names], capture_output=True, text=True, check=True,
+            timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return list(names)
+    return out if len(out) == len(names) else list(names)
+
+
+def recorded_ms(row):
+    """The device-ms cell of a row of PERF.md's kernel table, as written."""
+    try:
+        with open(os.path.join(REPO, "PERF.md")) as f:
+            for ln in f:
+                if ln.startswith(f"| {row} | `"):
+                    return ln.split("|")[5].strip()
+    except OSError:
+        pass
+    return "not found"
 
 
 def cuda_ms(fn, warmup=10, iters=100):
@@ -284,9 +312,22 @@ class Smoke:
         LIBRARY.get()
         print(f"kernel build: {LIBRARY.build_seconds:.2f} s (nvcc -c per "
               f"source in parallel, one link) → {LIBRARY.target()}")
+        # one line per kernel entry: its registers and spills (ptxas -v)
+        lines, entry, spill = [], None, None
         for ln in LIBRARY.ptxas_log.splitlines():
-            if ln.startswith("---") or "Used" in ln:
-                print(f"  {ln.split('info    : ')[-1]}")
+            if ln.startswith("---"):
+                lines.append((None, ln))
+            elif "Compiling entry function" in ln:
+                entry = ln.split("'")[1]
+            elif "spill stores" in ln:
+                spill = ", ".join(x.strip() for x in ln.split(",")[1:])
+            elif "Used" in ln and entry is not None:
+                regs = ln.split("info    : ")[-1].split(",")[0]
+                lines.append((entry, f"{regs}; {spill}"))
+                entry = None
+        names = iter(demangled([e for e, _ in lines if e is not None]))
+        for e, text in lines:
+            print(f"  {text}" if e is None else f"    {next(names)}: {text}")
 
     # ---- phase 2 ----------------------------------------------------- #
     def attention(self):
@@ -952,8 +993,10 @@ class Smoke:
         budget (B=4, T=1152) and its padded text length (T=96), and the
         longest probe text's own length (T=87, as the synthesize CLI's single
         mode gives it; not a multiple of any tile): bf16 and f32, unmasked
-        and masked, dropout off and on (one seed for both sides). Then times
-        at the decoder's training shape."""
+        and masked, dropout off and on (one seed for both sides); the same
+        at heads of 16 and 64 (B=4, T=87 and 200). Then two backward runs
+        at the decoder's training shape, which must agree bit for bit, and
+        the times there."""
         from ctts_torch.ops import relpos_attention as ra
         dev = torch.device("cuda")
         gen = torch.Generator().manual_seed(7)
@@ -963,8 +1006,13 @@ class Smoke:
         man = json.load(open(MANIFEST))["probe"]
         B_P, T_P = np.asarray(man["texts"]).shape
         worst = {"fwd": 0.0, "bwd": 0.0, "rel": 0.0}
-        for B, T in ((B_TRAIN, T_M), (B_TRAIN, T_S), (B_P, man["budget"]),
-                     (B_P, T_P), (B_P, max(man["src_lens"]))):
+        # the main path's shapes (heads of 32), then the other head widths
+        # the kernels take (d_model 256 in 16 heads of 16 or 4 of 64)
+        shapes = [(B, T, H, Dh) for B, T in (
+            (B_TRAIN, T_M), (B_TRAIN, T_S), (B_P, man["budget"]), (B_P, T_P),
+            (B_P, max(man["src_lens"])))]
+        shapes += [(B_P, T, 256 // d, d) for d in (16, 64) for T in (87, 200)]
+        for B, T, H, Dh in shapes:
             q, k, v, cot = (randn(gen, B, T, H, Dh).to(dev) for _ in range(4))
             pos = randn(gen, H, T, Dh).to(dev)
             ub, vb = (randn(gen, H, Dh).to(dev) * 0.1 for _ in range(2))
@@ -996,22 +1044,24 @@ class Smoke:
                                 for d, (_, y) in zip(absd, pairs)]
                         ok = max(errs) <= tol and all(
                             bool(torch.isfinite(s.grad).all()) for s in a)
-                        print(f"relpos B={B} T={T} {str(dtype)[6:]} "
+                        print(f"relpos B={B} T={T} Dh={Dh} {str(dtype)[6:]} "
                               f"{'masked' if masked else 'unmasked'} p={p}: "
                               f"max|kernel - plain f32| / max|plain| of o, dq, "
                               f"dk, dv, dpos, du, dv_bias = "
                               + ", ".join(f"{e:.2e}" for e in errs)
                               + f" (tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
                         if not ok:
-                            raise AssertionError(f"relpos B={B} T={T} {dtype} "
-                                                 f"masked={masked} p={p}")
+                            raise AssertionError(f"relpos B={B} T={T} Dh={Dh} "
+                                                 f"{dtype} masked={masked} p={p}")
                         if dtype == torch.bfloat16 and T == T_M:
                             worst["fwd"] = max(worst["fwd"], absd[0])
                             worst["bwd"] = max(worst["bwd"], max(absd[1:]))
                             worst["rel"] = max(worst["rel"], max(errs))
 
         # times: bf16 at the decoder's training shape, dropout on (the path)
+        H, Dh = 8, 32
         B, T, N = B_TRAIN, T_M, B_TRAIN * H
+        shape = f"bf16 B={B} H={H} T={T} Dh={Dh}, dropout 0.1"
         q, k, v, cot = (randn(gen, B, T, H, Dh).to(dev, torch.bfloat16)
                         for _ in range(4))
         pos = randn(gen, H, T, Dh).to(dev, torch.bfloat16)
@@ -1021,6 +1071,16 @@ class Smoke:
         qf, kf, vf, gf = fold
         o, m, l = ra._launch_fwd(qf, kf, vf, pos, ub, vb, seed, None, scale,
                                  0.1)
+        # the backward takes no float atomics: two runs, the same bits
+        km = (torch.arange(T, device=dev)[None] < torch.tensor(
+            np.linspace(T, T // 2, B).astype(np.int64), device=dev)[:, None]
+              ).to(torch.int32).contiguous()
+        runs = [ra._launch_bwd(qf, kf, vf, pos, ub, vb, seed, km, gf, o, m, l,
+                               scale, 0.1) for _ in range(2)]
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            raise AssertionError("relpos backward: two runs differ")
+        print(f"relpos backward {shape}, masked: two runs bit-identical")
+        del runs
         ms_f, ev_f = timings(lambda: ra._launch_fwd(
             qf, kf, vf, pos, ub, vb, seed, None, scale, 0.1),
             only="relpos_fwd")
@@ -1070,7 +1130,7 @@ class Smoke:
         bytes_b = 4 * e2 + p2 + 2 * N * T * 4 + 3 * e2 + p2
         b_f, by_f = bound(6 * N * T * T * Dh, bytes_f, PEAK_BF16_FLOPS)
         b_b, by_b = bound(16 * N * T * T * Dh, bytes_b, PEAK_BF16_FLOPS)
-        shape = f"bf16 B={B} H={H} T={T} Dh={Dh}, unmasked, dropout 0.1"
+        shape += ", unmasked"
         self.kernels["relpos_fwd"] = {
             "name": "relpos_fwd", "route": "cuda",
             "source": "ctts_torch/csrc/relpos_attention.cu",
@@ -1098,6 +1158,8 @@ class Smoke:
               f"shape in bf16 the largest absolute errors: output "
               f"{worst['fwd']:.2e}, gradients {worst['bwd']:.2e}; relative "
               f"to the largest entry {worst['rel']:.2e}")
+        print(f"relpos times recorded in PERF.md (§6 row 6; the times "
+              f"before the redesign in brackets): {recorded_ms(6)}")
 
     # ---- phase 8: the conformer forward ------------------------------------ #
     @staticmethod
@@ -1333,7 +1395,7 @@ class Smoke:
             counts = {k: v for k, v in launch_counts().items() if v}
             print(f"conformer train step [{len(idx)}, {t_s} tokens, {t_m} "
                   f"frames], counted in process: launches {counts}")
-            want = {"relpos_fwd": 10, "relpos_bwd": 10, "gather_rows": 1,
+            want = {"relpos_fwd": 10, "relpos_bwd": 20, "gather_rows": 1,
                     "scatter_rows": 1, "b_mas": 1, "ctc_alpha": 1,
                     "ctc_grad": 1}
             if counts != want:

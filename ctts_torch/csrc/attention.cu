@@ -71,9 +71,12 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const int* __restrict__ lengths,
          T* __restrict__ o, int seq, float scale) {
   constexpr int kCols = D / 32;                 // output columns per lane
-  __shared__ __align__(16) float sQ[kBq][D];    // scaled queries
-  __shared__ float sKt[D][kBk + 1];             // keys, transposed + padded
-  __shared__ float sV[kBk][D];
+  // dynamic: at D = 256 the tiles take 81 KB, past the 48 KB of static
+  // shared memory
+  extern __shared__ __align__(16) float smem[];
+  float (*sQ)[D] = reinterpret_cast<float (*)[D]>(smem);                 // [kBq][D] scaled queries
+  float (*sKt)[kBk + 1] = reinterpret_cast<float (*)[kBk + 1]>(smem + kBq * D);  // [D][kBk+1] keys, transposed
+  float (*sV)[D] = reinterpret_cast<float (*)[D]>(smem + kBq * D + D * (kBk + 1));  // [kBk][D]
 
   const int n = blockIdx.y;
   const int q0 = blockIdx.x * kBq;
@@ -172,8 +175,14 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, void* o, int n, int seq, float scale,
                    cudaStream_t stream) {
+  constexpr int smem = (kBq * D + D * (kBk + 1) + kBk * D) * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {  // past the default limit (D = 256): opt in
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
   const dim3 grid((seq + kBq - 1) / kBq, n);
-  attn_fwd<T, D><<<grid, kWarps * 32, 0, stream>>>(
+  attn_fwd<T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(o), seq, scale);
   return cudaGetLastError();
@@ -181,7 +190,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched),
+// dtype: 0 = float32, 1 = bfloat16; d = 64, 128 or 256. Returns a cudaError_t (0 = launched),
 // or cudaErrorInvalidValue for a shape or dtype this kernel does not take.
 extern "C" int ctts_fused_attention(const void* q, const void* k,
                                     const void* v, const int* lengths,
@@ -193,6 +202,8 @@ extern "C" int ctts_fused_attention(const void* q, const void* k,
   if (dtype == 0 && d == 128) return launch<float, 128>(q, k, v, lengths, o, n, seq, scale, s);
   if (dtype == 1 && d == 64) return launch<__nv_bfloat16, 64>(q, k, v, lengths, o, n, seq, scale, s);
   if (dtype == 1 && d == 128) return launch<__nv_bfloat16, 128>(q, k, v, lengths, o, n, seq, scale, s);
+  if (dtype == 0 && d == 256) return launch<float, 256>(q, k, v, lengths, o, n, seq, scale, s);
+  if (dtype == 1 && d == 256) return launch<__nv_bfloat16, 256>(q, k, v, lengths, o, n, seq, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -39,14 +39,14 @@ Args<T> make_args(const void* qk, const void* v, const int* valid, int n,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d must be 128. Returns a cudaError_t
+// dtype: 0 = float32, 1 = bfloat16; d = 64 or 128. Returns a cudaError_t
 // (0 = launched), or cudaErrorInvalidValue for a shape or dtype the kernels
 // do not take.
 extern "C" int ctts_local_window_fwd(const void* qk, const void* v,
                                      const int* valid, void* o, float* m,
                                      float* l, int g, int n, int d, int win,
                                      float scale, int dtype, void* stream) {
-  if (d != 128 || ctts_window::bad_shape(g, n, win, n))
+  if ((d != 64 && d != 128) || ctts_window::bad_shape(g, n, win, n))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -54,14 +54,16 @@ extern "C" int ctts_local_window_fwd(const void* qk, const void* v,
     a.o = static_cast<float*>(o);
     a.m = m;
     a.l = l;
-    return ctts_window::launch_fwd<float, 128, false>(a, g, s);
+    return d == 64 ? ctts_window::launch_fwd<float, 64, false>(a, g, s)
+                   : ctts_window::launch_fwd<float, 128, false>(a, g, s);
   }
   if (dtype == 1) {
     Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(qk, v, valid, n, win, scale);
     a.o = static_cast<__nv_bfloat16*>(o);
     a.m = m;
     a.l = l;
-    return ctts_window::launch_fwd<__nv_bfloat16, 128, false>(a, g, s);
+    return d == 64 ? ctts_window::launch_fwd<__nv_bfloat16, 64, false>(a, g, s)
+                   : ctts_window::launch_fwd<__nv_bfloat16, 128, false>(a, g, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -73,7 +75,7 @@ extern "C" int ctts_local_window_bwd(const void* qk, const void* v,
                                      float* dk, float* dv, int g, int n,
                                      int d, int win, float scale, int dtype,
                                      void* stream) {
-  if (d != 128 || ctts_window::bad_shape(g, n, win, n))
+  if ((d != 64 && d != 128) || ctts_window::bad_shape(g, n, win, n))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CTTS_LOCAL_BWD(T)                                        \
@@ -86,7 +88,8 @@ extern "C" int ctts_local_window_bwd(const void* qk, const void* v,
     a.dq = dq;                                                   \
     a.dk = dk;                                                   \
     a.dv = dv;                                                   \
-    return ctts_window::launch_bwd<T, 128, false>(a, g, s);      \
+    return d == 64 ? ctts_window::launch_bwd<T, 64, false>(a, g, s)    \
+                   : ctts_window::launch_bwd<T, 128, false>(a, g, s);\
   }
   if (dtype == 0) CTTS_LOCAL_BWD(float)
   if (dtype == 1) CTTS_LOCAL_BWD(__nv_bfloat16)

@@ -42,7 +42,7 @@ Args<T> make_args(const void* qk, const void* v, const int* st,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d must be 128 and every st in [0, n).
+// dtype: 0 = float32, 1 = bfloat16; d = 64 or 128 and every st in [0, n).
 // Returns a cudaError_t (0 = launched), or cudaErrorInvalidValue for a shape
 // or dtype the kernels do not take.
 extern "C" int ctts_lsh_chunk_fwd(const void* qk, const void* v,
@@ -50,19 +50,21 @@ extern "C" int ctts_lsh_chunk_fwd(const void* qk, const void* v,
                                   float* out, int g, int n, int m, int d,
                                   int cs, int causal, float scale, int dtype,
                                   void* stream) {
-  if (d != 128 || ctts_window::bad_shape(g, m, cs, n))
+  if ((d != 64 && d != 128) || ctts_window::bad_shape(g, m, cs, n))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     Args<float> a = make_args<float>(qk, v, st, svalid, n, m, cs, causal, scale);
     a.ol = out;
-    return ctts_window::launch_fwd<float, 128, true>(a, g, s);
+    return d == 64 ? ctts_window::launch_fwd<float, 64, true>(a, g, s)
+                   : ctts_window::launch_fwd<float, 128, true>(a, g, s);
   }
   if (dtype == 1) {
     Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(qk, v, st, svalid, n, m,
                                                      cs, causal, scale);
     a.ol = out;
-    return ctts_window::launch_fwd<__nv_bfloat16, 128, true>(a, g, s);
+    return d == 64 ? ctts_window::launch_fwd<__nv_bfloat16, 64, true>(a, g, s)
+                   : ctts_window::launch_fwd<__nv_bfloat16, 128, true>(a, g, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -74,7 +76,7 @@ extern "C" int ctts_lsh_chunk_bwd(const void* qk, const void* v,
                                   float* dq, float* dk, float* dv, int g,
                                   int n, int m, int d, int cs, int causal,
                                   float scale, int dtype, void* stream) {
-  if (d != 128 || ctts_window::bad_shape(g, m, cs, n))
+  if ((d != 64 && d != 128) || ctts_window::bad_shape(g, m, cs, n))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CTTS_LSH_BWD(T)                                                     \
@@ -88,7 +90,8 @@ extern "C" int ctts_lsh_chunk_bwd(const void* qk, const void* v,
     a.dq = dq;                                                              \
     a.dk = dk;                                                              \
     a.dv = dv;                                                              \
-    return ctts_window::launch_bwd<T, 128, true>(a, g, s);                  \
+    return d == 64 ? ctts_window::launch_bwd<T, 64, true>(a, g, s)     \
+                   : ctts_window::launch_bwd<T, 128, true>(a, g, s); \
   }
   if (dtype == 0) CTTS_LSH_BWD(float)
   if (dtype == 1) CTTS_LSH_BWD(__nv_bfloat16)

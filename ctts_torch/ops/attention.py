@@ -26,7 +26,7 @@ NEG = -1e9
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 
 
 def attention_plain(q, k, v, lengths, scale):
@@ -59,7 +59,7 @@ def _check(q, k, v, lengths):
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"fused_attention kernel takes d in {_HEAD_DIMS}, "
-                         f"got {d}")
+                         f"got {d} (see ROADMAP.md §3 F1)")
     if lengths.shape != (N,) or lengths.dtype != torch.int32:
         raise TypeError(f"lengths must be int32 [{N}], got {lengths.dtype} "
                         f"{tuple(lengths.shape)}")

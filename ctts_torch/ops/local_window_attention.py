@@ -38,7 +38,7 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIM = 128                 # the reformer's heads at full width
+_HEAD_DIMS = (64, 128)          # the reformer's heads: 128 at full width
 
 
 def _look_back_padded(x, pad_value):
@@ -99,9 +99,9 @@ def _check(qk, v, valid, window):
     if qk.dtype not in _DTYPES or v.dtype != qk.dtype:
         raise TypeError(f"local_window_attention takes float32 or bfloat16 "
                         f"qk and v of one dtype, got {qk.dtype}, {v.dtype}")
-    if d != _HEAD_DIM:
-        raise ValueError(f"local_window_attention kernels take d = "
-                         f"{_HEAD_DIM}, got {d}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"local_window_attention kernels take d in "
+                         f"{_HEAD_DIMS}, got {d} (see ROADMAP.md §3 F1)")
     if window % 32 or N % window or N // window > 65535 or G > 65535:
         raise ValueError(f"local_window_attention kernels take a window "
                          f"that is a multiple of 32 and divides N; got "

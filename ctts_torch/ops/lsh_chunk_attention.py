@@ -40,7 +40,7 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIM = 128                 # the reformer's heads at full width
+_HEAD_DIMS = (64, 128)          # the reformer's heads: 128 at full width
 
 
 def supported():
@@ -116,9 +116,9 @@ def _check(qk, v, st, svalid, cs):
                         f"v of one dtype, got {qk.dtype}, {v.dtype}")
     if st.dtype != torch.int32 or svalid.dtype != torch.int32:
         raise TypeError("chunk_attention takes int32 st and svalid")
-    if d != _HEAD_DIM:
-        raise ValueError(f"chunk_attention kernels take d = {_HEAD_DIM}, "
-                         f"got {d}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"chunk_attention kernels take d in {_HEAD_DIMS}, "
+                         f"got {d} (see ROADMAP.md §3 F1)")
     M = st.shape[1]
     if cs % 32 or M % cs or M // cs > 65535 or G > 65535:
         raise ValueError(f"chunk_attention kernels take a chunk that is a "

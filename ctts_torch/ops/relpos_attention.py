@@ -14,8 +14,9 @@ read the next query row right of the diagonal:
 
 ``relpos_attention`` launches the CUDA kernels of
 ``csrc/relpos_attention.cu`` for tensors on the card (a forward kernel, and
-a backward kernel that recomputes the scores and writes every gradient) and
-runs :func:`relpos_attention_plain` for tensors on the CPU. There is no
+two backward kernels: one recomputes the scores once and writes dq
+through Q+u, dS and the dropped P, the other takes dk, dv and the shift's
+gradients as products over those two) and runs :func:`relpos_attention_plain` for tensors on the CPU. There is no
 other path: a CUDA tensor the kernels do not take raises.
 
 Dropout cannot reproduce JAX's masks (the TPU's in-kernel PRNG). Its mask
@@ -42,7 +43,7 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIM = 32                  # the conformer's: 8 heads of 32 in 256
+_HEAD_DIMS = (16, 32, 64)       # the conformer's: 8 heads of 32 in 256
 
 
 def relative_shift(pos_score):
@@ -115,8 +116,8 @@ def _lib():
             ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         # q k v pos ub vb seed kmask g m l delta | dqu dqv dqv_next dk dv
-        # dpos | N H T d scale p_thresh inv_keep dtype stream
-        bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [
+        # dpos ds pd | N H T d scale p_thresh inv_keep dtype stream
+        bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
             ctypes.c_void_p]
         bwd.restype = ctypes.c_int
@@ -136,9 +137,9 @@ def _check(q, k, v, pos, ub, vb, seed, kmask):
         raise TypeError(f"relpos_attention takes float32 or bfloat16 q/k/v/"
                         f"pos of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}, {pos.dtype}")
-    if d != _HEAD_DIM:
-        raise ValueError(f"relpos_attention kernels take d = {_HEAD_DIM}, "
-                         f"got {d}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"relpos_attention kernels take d in {_HEAD_DIMS}, "
+                         f"got {d} (see ROADMAP.md §3 F1)")
     if N * T >= 2 ** 31:
         raise ValueError("relpos_attention: N·T must stay below 2^31")
     if seed.shape != (2,) or seed.dtype != torch.int64:
@@ -178,9 +179,13 @@ def _launch_fwd(q, k, v, pos, ub, vb, seed, kmask, scale, p):
 
 
 def _launch_bwd(q, k, v, pos, ub, vb, seed, kmask, g, o, m, l, scale, p):
-    """dq, dk, dv, dpos, du, dv_bias. The kernel writes float32 per-row
-    partials; the sums over the batch and over rows are torch reductions
-    in a fixed order (no float atomics)."""
+    """dq, dk, dv, dpos, du, dv_bias. The kernels (two launches) write
+    float32 per-row partials; the sums over the batch and over rows are
+    torch reductions in a fixed order (no float atomics). Between the
+    launches dS and the dropped P live in scratch, [N, T, ceil8(T)] each in
+    q's dtype: each call allocates about 2·N·T²·itemsize bytes, which grows
+    with T² (410 MB at bf16 B=16 H=8 T=896, 820 MB in float32), where the
+    forward and the wrapper's other buffers take O(N·T·d)."""
     global bwd_launches
     N, T, d = q.shape
     H = pos.shape[0]
@@ -190,16 +195,19 @@ def _launch_bwd(q, k, v, pos, ub, vb, seed, kmask, g, o, m, l, scale, p):
     f32 = dict(device=q.device, dtype=torch.float32)
     dqu, dqv, dqv_next, dk, dv, dpos = (torch.empty(N, T, d, **f32)
                                         for _ in range(6))
+    ds, pd = (torch.empty(N, T, (T + 7) // 8 * 8, device=q.device,
+                          dtype=q.dtype) for _ in range(2))
     err = lib.ctts_relpos_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         ub.data_ptr(), vb.data_ptr(), seed.data_ptr(), _ptr(kmask),
         g.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
         dqu.data_ptr(), dqv.data_ptr(), dqv_next.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dpos.data_ptr(), N, H, T, d, float(scale),
+        dv.data_ptr(), dpos.data_ptr(), ds.data_ptr(), pd.data_ptr(), N, H, T,
+        d, float(scale),
         _threshold(p), 1.0 / (1.0 - p), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, lib, "relpos_attention backward")
-    bwd_launches += 1
+    bwd_launches += 2
     # row q+1 takes what row q's right-of-diagonal scores sent it
     dqv_all = dqv.clone()
     dqv_all[:, 1:] += dqv_next[:, :-1]
@@ -247,8 +255,10 @@ def relpos_attention(q, k, v, pos, u_bias, v_bias, scale, dropout_p=0.0,
     projection); u_bias/v_bias: [H, Dh]; key_padding_mask: optional [B, T]
     bool, True AT PADDING. With ``dropout_p > 0`` the seed comes from
     ``draw_seed(generator, q.device)``. Returns [B, T, H, Dh] in q's dtype.
-    On the card the bias is added in float32 and every product accumulates
-    in float32."""
+    On the card the bias is added in float32, every product runs on the
+    tensor cores in bf16 (float32 operands split into bf16 hi + lo) and
+    accumulates in float32; d is 16, 32 or 64. The backward on the card
+    takes two [N, T, T] scratch tensors in q's dtype (see ``_launch_bwd``)."""
     B, T, H, d = q.shape
     seed = draw_seed(generator, q.device) if dropout_p > 0.0 else None
     if q.device.type == "cpu":

@@ -25,7 +25,7 @@ def _need_card():
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("T,d", [(96, 128), (1152, 128), (200, 64)])
+@pytest.mark.parametrize("T,d", [(96, 128), (1152, 128), (200, 64), (200, 256)])
 def test_attention_kernel_matches_plain(T, d, dtype, tol):
     dev = _need_card()
     from ctts_torch.ops import attention
@@ -83,8 +83,8 @@ def test_gather_kernel_out_of_range_rows_are_zero():
 def test_wrappers_raise_on_untaken_cuda_input():
     dev = _need_card()
     from ctts_torch.ops import attention, sort_gather
-    q = torch.zeros(2, 16, 32, device=dev)
-    with pytest.raises(ValueError):
+    q = torch.zeros(2, 16, 32, device=dev)                 # d=32: no kernel
+    with pytest.raises(ValueError, match="F1"):
         attention.fused_attention(q, q, q, torch.full((2,), 16, dtype=torch.int32,
                                                       device=dev))
     with pytest.raises(TypeError):
@@ -323,12 +323,14 @@ def _relpos_case(dev, B, H, T, d, seed):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("B,H,T,d", [(2, 8, 96, 32), (1, 2, 200, 32),
-                                     (4, 8, 87, 32)])
+                                     (4, 8, 87, 32), (2, 4, 87, 16),
+                                     (1, 4, 200, 16), (2, 2, 87, 64),
+                                     (1, 4, 200, 64)])
 def test_relpos_kernels_match_plain(B, H, T, d, dtype, tol, masked, dropout):
     """Forward and backward kernels against the plain version in float32 on
     the same (rounded) inputs and the same dropout seed: the output and each
-    of the six gradients within ``tol`` of its largest entry; one launch of
-    each kernel."""
+    of the six gradients within ``tol`` of its largest entry; one forward
+    launch and two backward launches."""
     dev = _need_card()
     from ctts_torch.ops import relpos_attention as ra
     args, cot, mask = _relpos_case(dev, B, H, T, d, T + d)
@@ -341,7 +343,7 @@ def test_relpos_kernels_match_plain(B, H, T, d, dtype, tol, masked, dropout):
         dev).manual_seed(5), mask)
     out.backward(cot.to(dtype))
     torch.cuda.synchronize()
-    assert (ra.launches, ra.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (ra.launches, ra.bwd_launches) == (before[0] + 1, before[1] + 2)
     b = [x.detach().clone().requires_grad_(True) for x in args]
     seed = ra.draw_seed(torch.Generator(dev).manual_seed(5), dev)
     ref = ra.relpos_attention_plain(*b, 0.0625, dropout, seed, mask)
@@ -352,23 +354,44 @@ def test_relpos_kernels_match_plain(B, H, T, d, dtype, tol, masked, dropout):
         assert err <= tol * want.abs().max().item(), err
 
 
+def test_relpos_backward_is_deterministic():
+    """Two backward launches on the same inputs (bf16, masked, dropout 0.1)
+    give the same bits: every sum is taken in a fixed order, no float
+    atomics."""
+    dev = _need_card()
+    from ctts_torch.ops import relpos_attention as ra
+    (q, k, v, pos, ub, vb), cot, mask = _relpos_case(dev, 2, 8, 200, 32, 3)
+    fold = [x.permute(0, 2, 1, 3).reshape(16, 200, 32).to(torch.bfloat16)
+            .contiguous() for x in (q, k, v, cot)]
+    pos = pos.to(torch.bfloat16).contiguous()
+    kmask = (~mask).to(torch.int32).contiguous()
+    seed = torch.tensor([11, 12], dtype=torch.int64, device=dev)
+    args = (*fold[:3], pos, ub, vb, seed, kmask)
+    o, m, l = ra._launch_fwd(*args, 0.0625, 0.1)
+    first = ra._launch_bwd(*args, fold[3], o, m, l, 0.0625, 0.1)
+    second = ra._launch_bwd(*args, fold[3], o, m, l, 0.0625, 0.1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
 def test_relpos_wrapper_raises_on_untaken_cuda_input():
     dev = _need_card()
     from ctts_torch.ops import relpos_attention as ra
     args, _, _ = _relpos_case(dev, 1, 2, 40, 8, 0)       # d=8: no kernel
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="F1"):
         ra.relpos_attention(*args, 0.1)
     args, _, _ = _relpos_case(dev, 1, 2, 40, 32, 0)
     with pytest.raises(TypeError):
         ra.relpos_attention(*(a.half() for a in args), 0.1)
 
 
-def _conformer_configs():
+def _conformer_configs(hidden=64, heads=2):
     from ctts_torch.utils.testing import tiny_configs
     pre, mc, tr = tiny_configs()
     mc["block_type"] = "conformer"
-    mc["conformer"].update(encoder_layer=2, decoder_layer=2, encoder_hidden=64,
-                           decoder_hidden=64, encoder_head=2, decoder_head=2)
+    mc["conformer"].update(encoder_layer=2, decoder_layer=2,
+                           encoder_hidden=hidden, decoder_hidden=hidden,
+                           encoder_head=heads, decoder_head=heads)
     return pre, mc, tr
 
 
@@ -376,12 +399,23 @@ def test_conformer_forward_on_the_card():
     """The conformer model in infer mode on the card (heads of 32) against
     the same weights on the CPU: mel within 1e-3; one forward launches the
     relpos kernel once per layer."""
+    _conformer_forward_matches_cpu(64, 2)
+
+
+@pytest.mark.parametrize("hidden,heads", [(64, 4), (128, 2)])
+def test_conformer_forward_other_head_dims_on_the_card(hidden, heads):
+    """The same with heads of 16 (64 in 4) and of 64 (128 in 2), the relpos
+    kernels' other widths."""
+    _conformer_forward_matches_cpu(hidden, heads)
+
+
+def _conformer_forward_matches_cpu(hidden, heads):
     dev = _need_card()
     from ctts_torch.models.comp_trans_tts import CompTransTTS
     from ctts_torch.ops import relpos_attention as ra
     from ctts_torch.utils.model import init_weights
     from ctts_torch.utils.testing import synth_batch
-    pre, mc, tr = _conformer_configs()
+    pre, mc, tr = _conformer_configs(hidden, heads)
     model = init_weights(CompTransTTS(pre, mc, tr), 1).eval()
     b = synth_batch()
     inputs = [torch.from_numpy(b[k]).long() for k in ("speakers", "texts",
@@ -402,7 +436,8 @@ def test_conformer_forward_on_the_card():
 
 def test_conformer_train_step_on_the_card():
     """Two train steps of the tiny conformer on the card, dropout on:
-    finite losses, relpos forward and backward 4 launches each per step."""
+    finite losses, 4 relpos forward launches and 8 backward ones (two a
+    layer) per step."""
     dev = _need_card()
     from ctts_torch.models.comp_trans_tts import CompTransTTS
     from ctts_torch.ops import relpos_attention as ra
@@ -421,7 +456,7 @@ def test_conformer_train_step_on_the_card():
     for _ in range(2):
         before = (ra.launches, ra.bwd_launches)
         metrics = step(state, batch)
-        assert (ra.launches - before[0], ra.bwd_launches - before[1]) == (4, 4)
+        assert (ra.launches - before[0], ra.bwd_launches - before[1]) == (4, 8)
     assert all(np.isfinite(v.item()) for v in metrics.values())
 
 
@@ -447,24 +482,24 @@ def _assert_close(pairs, tol):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("G,N", [(3, 128), (3, 256)])
-def test_local_window_kernels_match_plain(G, N, dtype, tol):
+@pytest.mark.parametrize("G,N,d", [(3, 128, 128), (3, 256, 128), (3, 256, 64)])
+def test_local_window_kernels_match_plain(G, N, d, dtype, tol):
     """Forward and backward against the plain version in float32 on the same
     (rounded) inputs, window 128: output, dqk and dv within ``tol`` of their
     largest entries (bf16: one rounding of each result); one launch of
     each kernel."""
     dev = _need_card()
     from ctts_torch.ops import local_window_attention as lw
-    qk, v, cot, valid = _window_case(dev, G, N, 128, N)
+    qk, v, cot, valid = _window_case(dev, G, N, d, N)
     qk, v = qk.to(dtype).float(), v.to(dtype).float()
     a = [x.to(dtype).requires_grad_(True) for x in (qk, v)]
     before = (lw.launches, lw.bwd_launches)
-    out = lw.local_window_attention(*a, valid, 128, 128 ** -0.5)
+    out = lw.local_window_attention(*a, valid, 128, d ** -0.5)
     out.backward(cot.to(dtype))
     torch.cuda.synchronize()
     assert (lw.launches, lw.bwd_launches) == (before[0] + 1, before[1] + 1)
     b = [x.detach().clone().requires_grad_(True) for x in (qk, v)]
-    ref = lw.local_window_attention_plain(*b, valid, 128, 128 ** -0.5)
+    ref = lw.local_window_attention_plain(*b, valid, 128, d ** -0.5)
     ref.backward(cot.to(dtype).float())
     assert out.dtype == dtype and out.shape == ref.shape
     _assert_close([(out, ref)] + [(x.grad, y.grad) for x, y in zip(a, b)], tol)
@@ -483,8 +518,8 @@ def _lsh_sort_case(dev, G, N, d, seed, n_hashes=4, bucket=64):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("G,N", [(2, 128), (2, 256)])
-def test_lsh_chunk_kernels_match_plain(G, N, dtype, tol, causal):
+@pytest.mark.parametrize("G,N,d", [(2, 128, 128), (2, 256, 128), (2, 256, 64)])
+def test_lsh_chunk_kernels_match_plain(G, N, d, dtype, tol, causal):
     """Forward (output ‖ logsumexp, float32) and backward with a random
     cotangent on both against the plain version in float32 on the same
     (rounded) inputs and the same sort, chunks of 64 over 4 hash rounds (at
@@ -494,23 +529,23 @@ def test_lsh_chunk_kernels_match_plain(G, N, dtype, tol, causal):
     dev = _need_card()
     from ctts_torch.ops import lsh_chunk_attention as lc
     from ctts_torch.ops import sort_gather
-    qk, v, st, svalid = _lsh_sort_case(dev, G, N, 128, N)
+    qk, v, st, svalid = _lsh_sort_case(dev, G, N, d, N)
     qk, v = qk.to(dtype).float(), v.to(dtype).float()
     cot = torch.from_numpy(np.random.RandomState(3).randn(
-        G, 4 * N, 129).astype(np.float32)).to(dev)
+        G, 4 * N, d + 1).astype(np.float32)).to(dev)
     a = [x.to(dtype).requires_grad_(True) for x in (qk, v)]
     before = (lc.launches, lc.bwd_launches, sort_gather.scatter_launches)
-    out = lc.chunk_attention(*a, st, svalid, 64, causal, 128 ** -0.5)
+    out = lc.chunk_attention(*a, st, svalid, 64, causal, d ** -0.5)
     out.backward(cot)
     torch.cuda.synchronize()
     assert (lc.launches, lc.bwd_launches, sort_gather.scatter_launches) == (
         before[0] + 1, before[1] + 1, before[2] + 1)
     b = [x.detach().clone().requires_grad_(True) for x in (qk, v)]
-    ref = lc.chunk_attention_plain(*b, st, svalid, 64, causal, 128 ** -0.5)
+    ref = lc.chunk_attention_plain(*b, st, svalid, 64, causal, d ** -0.5)
     ref.backward(cot)
     assert out.dtype == torch.float32 and out.shape == ref.shape
-    _assert_close([(out[..., :128], ref[..., :128])], 1e-4)
-    assert (out[..., 128] - ref[..., 128]).abs().max().item() <= 1e-3
+    _assert_close([(out[..., :d], ref[..., :d])], 1e-4)
+    assert (out[..., d] - ref[..., d]).abs().max().item() <= 1e-3
     _assert_close([(x.grad, y.grad) for x, y in zip(a, b)], tol)
 
 
@@ -518,11 +553,11 @@ def test_reformer_wrappers_raise_on_untaken_cuda_input():
     dev = _need_card()
     from ctts_torch.ops import local_window_attention as lw
     from ctts_torch.ops import lsh_chunk_attention as lc
-    qk, v, _, valid = _window_case(dev, 2, 128, 64, 0)       # d=64: no kernel
-    with pytest.raises(ValueError):
+    qk, v, _, valid = _window_case(dev, 2, 128, 32, 0)       # d=32: no kernel
+    with pytest.raises(ValueError, match="F1"):
         lw.local_window_attention(qk, v, valid, 128, 0.1)
     st = torch.zeros(2, 512, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="F1"):
         lc.chunk_attention(qk, v, st, st, 64, True, 0.1)
     qk, v, _, valid = _window_case(dev, 2, 128, 128, 0)
     with pytest.raises(TypeError):
