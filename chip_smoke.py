@@ -23,7 +23,8 @@ suppresses the final line:
    scatter, MAS (bit-exact), the CTC alpha lattice and the CTC gradient,
    and the attention backward; each with its time, its bound, the
    barrier-chain floor where the work is a chain of frames, and one library
-   call as a yardstick;
+   call as a yardstick; the scatter also at the reformer's un-sort and LSH
+   chunk-backward shapes;
 6. the ``train_unsup`` step of ``ctts_torch.parallel.train_step`` at full
    width and depth in bf16, from ``assets/ljdemo_ckpt.npz`` (step 13301, the
    hard-upsample regime): three steps on one seeded batch with the launch
@@ -64,7 +65,8 @@ suppresses the final line:
    at levels 1-3 of the probe (C = 128, 64, 32; k = 3, 7, 11; bf16 and
    f32; the generator's own weights and inputs) plus two and ragged tiles,
    with its times beside the plain version's, the unfused cuDNN block's and
-   the bound; HiFi-GAN on the probe mels with ``CTTS_FUSE_RESBLOCK=1``
+   the bound, and at level 1, k=11, beside the tile lengths the wrapper
+   passed over; HiFi-GAN on the probe mels with ``CTTS_FUSE_RESBLOCK=1``
    against unfused (9 launches); ``ctts_torch.serve`` in a thread with the
    trained weights (/healthz, the 4 probe texts as 4 concurrent requests,
    one streamed request, and the same streamed with the fused resblocks,
@@ -207,14 +209,15 @@ LEADS = (8, 64, 512)
 PROFILES = {"whole": 0, "lost_lead": 0, "most_lost": 0, "rejected": 0}
 
 
-def profiled(body, cpu=False):
+def profiled(body, cpu=False, inner=0):
     """Run ``body()`` under torch.profiler between marker kernels, a run of
     leading ones before it and one after. In a process that has taken many
     profiles, each profile loses its first records (PERF.md §7); the
     leading markers are those records, so a profile is kept while at least
-    one of them and the closing one came back. Returns (the device events
-    other than the markers, host ms of ``body``), or None when every try
-    lost more."""
+    one of them, the ``inner`` markers that ``body`` launches itself and
+    the closing one came back. Returns (the device events other than the
+    markers, host ms of ``body``, those events cut at the inner markers),
+    or None when every try lost more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
@@ -233,13 +236,19 @@ def profiled(body, cpu=False):
                         key=lambda e: e.time_range.start)
         marks = [MARKER in e.name for e in events]
         lead = marks.index(False) if False in marks else len(marks)
-        if lead >= 1 and marks[-1] and sum(marks) == lead + 1:
+        if lead >= 1 and marks[-1] and sum(marks) == lead + 1 + inner:
             PROFILES["whole"] += 1
             if lead < n_lead:
                 PROFILES["lost_lead"] += 1
                 PROFILES["most_lost"] = max(PROFILES["most_lost"],
                                             n_lead - lead)
-            return [e for e, m in zip(events, marks) if not m], wall_ms
+            parts = [[]]
+            for e, m in zip(events[lead:-1], marks[lead:-1]):
+                if m:
+                    parts.append([])
+                else:
+                    parts[-1].append(e)
+            return [e for e, m in zip(events, marks) if not m], wall_ms, parts
         print(f"  (the profile lost {n_lead - lead} of its {n_lead} leading "
               f"markers{'' if marks and marks[-1] else ' and the closing one'}"
               f")")
@@ -252,22 +261,27 @@ def device_ms(fn, iters=50, only=None):
     profiler (CUPTI) records over ``iters`` calls (of those whose name
     contains ``only``, when given), divided by ``iters``. Unlike CUDA events
     around a stream of calls, it leaves out the gaps in which the device
-    waits for the host to launch. None unless the profile is whole (see
-    :func:`profiled`) and holds a positive multiple of ``iters`` kernels."""
+    waits for the host to launch. A marker kernel follows each call but the
+    last, so a record lost inside the run shows: None unless the profile is
+    whole (see :func:`profiled`) and every call holds the same positive
+    number of kernels."""
     fn()
 
     def body():
-        for _ in range(iters):
+        for i in range(iters):
             fn()
+            if i < iters - 1:
+                torch.cuda._sleep(1000)
 
-    got = profiled(body)
+    got = profiled(body, inner=iters - 1)
     if got is None:
         return None
-    kernels = [e for e in got[0] if only is None or only in e.name]
-    if not kernels or len(kernels) % iters:
-        print(f"  (the profile holds {len(kernels)} kernels for {iters} "
-              f"calls)")
+    counts = {len([e for e in part if only is None or only in e.name])
+              for part in got[2]}
+    if len(counts) != 1 or 0 in counts:
+        print(f"  (the profile holds {sorted(counts)} kernels a call)")
         return None
+    kernels = [e for e in got[0] if only is None or only in e.name]
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
 
 
@@ -513,7 +527,7 @@ class Smoke:
             print(f"{what} under the profiler: no whole profile, device busy "
                   f"not measured")
             return float("nan"), float("nan"), float("nan")
-        events, wall = got
+        events, wall, _ = got
         per = {}
         for e in events:
             n, us = per.get(e.name, (0, 0.0))
@@ -656,8 +670,36 @@ class Smoke:
             raise AssertionError("scatter: an out-of-range index added a row")
         print("scatter out-of-range indices: add nothing, bit-exact")
 
-        idx = torch.from_numpy(sorted_idx).to(dev)
-        n_out, F = T_S + 1, 256
+        # the reformer's shapes: the un-sort (a permutation of M rows,
+        # F = d + 1) and the LSH chunk backward's sum (each of N rows 4
+        # times, F = 2d), at the train step's G = 64, N = 896, M = 3584
+        extra = {}
+        G4, N4 = 4 * B_TRAIN, T_M
+        for where, idx_np, n_out, F in (
+                ("unsort", np.stack([rng.permutation(4 * N4)
+                                     for _ in range(G4)]), 4 * N4, 129),
+                ("chunk_sum", np.stack([rng.permutation(4 * N4) % N4
+                                        for _ in range(G4)]), N4, 256)):
+            t = self.scatter_timing(f"the {where} shape", idx_np, n_out, F,
+                                    rng)
+            extra.update({f"{where}_{key}": v for key, v in t.items()
+                          if key != "nbytes"})
+        t = self.scatter_timing("the train step's length regulator",
+                                sorted_idx, T_S + 1, 256, rng)
+        self.record(
+            "scatter_rows", "ctts_torch/csrc/scatter_rows.cu",
+            "ctts_tpu/ops/sort_gather.py:92", worst, t["ms"], t["plain_ms"],
+            t["nbytes"], t["library_ms"],
+            f"f32 G={G} M={M} n_out={T_S + 1} F=256, sorted idx", **extra)
+
+    @staticmethod
+    def scatter_timing(what, idx_np, n_out, F, rng):
+        """The scatter kernel, its plain version and zeros + index_add_ on
+        float32 values at one shape, timed; the byte bound beside them."""
+        from ctts_torch.ops import sort_gather
+        dev = torch.device("cuda")
+        G, M = idx_np.shape
+        idx = torch.from_numpy(idx_np.astype(np.int32)).to(dev)
         vals = torch.from_numpy(rng.randn(G, M, F).astype(np.float32)).to(dev)
         flat = (idx.long() + n_out * torch.arange(G, device=dev)[:, None]
                 ).reshape(-1)
@@ -667,15 +709,15 @@ class Smoke:
         lib_ms, ev_lib = timings(lambda: torch.zeros(
             G * n_out, F, device=dev).index_add_(0, flat, vals.view(-1, F)))
         nbytes = G * M * F * 4 + G * M * 4 + G * n_out * F * 4
-        b_ms = self.record(
-            "scatter_rows", "ctts_torch/csrc/scatter_rows.cu",
-            "ctts_tpu/ops/sort_gather.py:92", worst, ms, plain_ms, nbytes,
-            lib_ms, f"f32 G={G} M={M} n_out={n_out} F={F}, sorted idx")
-        print(f"scatter timing f32 G={G} M={M} n_out={n_out} F={F}: device ms "
-              f"kernel {ms:.4f}, plain {plain_ms:.4f}, zeros+index_add_ "
-              f"{lib_ms:.4f}; event ms (launch gaps included) kernel "
-              f"{ev_ms:.4f}, plain {ev_plain:.4f}, index_add_ {ev_lib:.4f}; "
-              f"bound {b_ms:.5f} ms (bytes)")
+        b_ms, _ = bound(0, nbytes, PEAK_BF16_FLOPS)
+        print(f"scatter timing, {what}, f32 G={G} M={M} n_out={n_out} F={F}: "
+              f"device ms kernel {ms:.4f}, plain {plain_ms:.4f}, "
+              f"zeros+index_add_ {lib_ms:.4f}; event ms (launch gaps "
+              f"included) kernel {ev_ms:.4f}, plain {ev_plain:.4f}, "
+              f"index_add_ {ev_lib:.4f}; bound {b_ms:.5f} ms (bytes)",
+              flush=True)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": b_ms, "nbytes": nbytes}
 
     def mas(self):
         from ctts_torch.ops import kernels, mas
@@ -1631,7 +1673,8 @@ class Smoke:
         M=4608), the train step's frames (G=64, N=896, M=3584) and N=128
         (8 chunks: chunk 0 wraps to the last); bf16 and f32, causal, prefix
         validity; out ‖ lse, then dqk and dv from a random cotangent on both.
-        Then times in bf16, and the un-sort scatter's."""
+        Then times in bf16, and the un-sort and chunk-sum scatters' beside
+        zeros + index_add_ on the same indices."""
         from ctts_torch.models.reformer import lsh_sort
         from ctts_torch.ops import lsh_chunk_attention as lc
         from ctts_torch.ops import sort_gather
@@ -1713,10 +1756,22 @@ class Smoke:
             grows = torch.cat([out[..., :d], out[..., :d]], -1)
             sc_bwd, _ = timings(lambda: sort_gather.scatter_rows(
                 grows, st, N))
+            # zeros + index_add_ on this sort's indices, the library call
+            # for the same two scatters
+            base = torch.arange(G, device=dev)[:, None]
+            flat_un = (sticker.long() + M * base).reshape(-1)
+            flat_bwd = (st.long() + N * base).reshape(-1)
+            lib_un, _ = timings(lambda: torch.zeros(
+                G * M, d + 1, device=dev).index_add_(
+                    0, flat_un, out.reshape(-1, d + 1)))
+            lib_bwd, _ = timings(lambda: torch.zeros(
+                G * N, 2 * d, device=dev).index_add_(
+                    0, flat_bwd, grows.reshape(-1, 2 * d)))
             print(f"  scatter_rows at this shape: the un-sort [G={G}, M={M}, "
-                  f"F={d + 1}] f32 → {M} rows {sc_un:.4f} ms; the chunk "
-                  f"backward's sum [G={G}, M={M}, F={2 * d}] f32 → {N} rows "
-                  f"{sc_bwd:.4f} ms")
+                  f"F={d + 1}] f32 → {M} rows {sc_un:.4f} ms (zeros + "
+                  f"index_add_ {lib_un:.4f}); the chunk backward's sum "
+                  f"[G={G}, M={M}, F={2 * d}] f32 → {N} rows {sc_bwd:.4f} ms "
+                  f"(zeros + index_add_ {lib_bwd:.4f})")
             # the work the function needs: per valid sorted query the valid
             # keys of its chunk and the one before at or before it (self and
             # duplicates included); a padded query keeps its own key
@@ -1741,7 +1796,9 @@ class Smoke:
                     worst, t, bounds,
                     f"bf16 G={G} N={N} M={M} d={d} chunks of {cs}, causal, "
                     f"prefix validity {lens.min()}-{lens.max()}",
-                    scatter_unsort_ms=sc_un, scatter_bwd_sum_ms=sc_bwd)
+                    scatter_unsort_ms=sc_un, scatter_bwd_sum_ms=sc_bwd,
+                    scatter_unsort_library_ms=lib_un,
+                    scatter_bwd_sum_library_ms=lib_bwd)
         self.kernels["lsh_chunk_fwd"]["max_abs_err"] = worst["fwd"]
         self.kernels["lsh_chunk_bwd"]["max_abs_err"] = worst["bwd"]
 
@@ -2078,11 +2135,12 @@ class Smoke:
         1-3 of the probe (C = 128, 64, 32 at T = 73728, 147456, 294912,
         N=4; k = 3, 7, 11; the generator's own weights and inputs), bf16
         and f32, plus two tiles (T=256) and a ragged tile (T=250) at C=32;
-        the bf16 times beside the plain version's, the port's unfused
-        ResBlock1 (six cuDNN convs and the leaky ReLUs) and the bound."""
+        the bf16 times (CUDA events) beside the plain version's, the port's
+        unfused ResBlock1 (six cuDNN convs and the leaky ReLUs) and the
+        bound."""
         from ctts_torch.ops import fused_resblock as fr
         gen, inputs = self.resblock_inputs()
-        rows, worst_abs, worst_rel = [], 0.0, 0.0
+        rows, worst_abs, worst_rel, sweep = [], 0.0, 0.0, {}
 
         def check(what, x, blk, dtype, block_t=1024):
             nonlocal worst_abs, worst_rel
@@ -2117,17 +2175,36 @@ class Smoke:
             k = blk.kernel_size
             check(f"C={C} T={T}", x16, blk, torch.float32)
             x, convs = check(f"C={C} T={T}", x16, blk, torch.bfloat16)
-            ms, ev_ms = timings(lambda: fr.fused_resblock1(
-                x, *convs, k, blk.dilations), iters=3)
-            plain_ms, _ = timings(lambda: fr.reference_resblock1(
-                x, *convs, k, blk.dilations), iters=2)
+            # CUDA event times: every call here is milliseconds long, so
+            # launch gaps do not count, and late in this process the
+            # profiler has read the cuDNN block at half its time (PERF.md
+            # §7)
+            packed = blk.packed(torch.bfloat16)
+            ms = cuda_ms(lambda: fr.fused_resblock1(
+                x, *convs, k, blk.dilations, packed=packed), warmup=2,
+                iters=10)
+            plain_ms = cuda_ms(lambda: fr.reference_resblock1(
+                x, *convs, k, blk.dilations), warmup=1, iters=3)
+            if C == 128 and k == 11:
+                # the tile length against the ones the wrapper passed over
+                for cap in (128, 192, 1024):
+                    bt = fr.block_t_for(C, x.dtype, k, blk.dilations, cap)
+                    sweep[bt] = cuda_ms(lambda: fr.fused_resblock1(
+                        x, *convs, k, blk.dilations, block_t=cap,
+                        packed=packed), warmup=2, iters=10)
+                print(f"  block_t at C={C} k={k} bf16: " + ", ".join(
+                    f"{bt} → {t:.4f} ms" for bt, t in sorted(sweep.items()))
+                    + f" (the wrapper's choice: "
+                    f"{fr.block_t_for(C, x.dtype, k, blk.dilations)})",
+                    flush=True)
 
             def library():
                 with torch.no_grad(), torch.autocast("cuda",
                                                      dtype=torch.bfloat16):
                     blk(x)
 
-            lib_ms, _ = timings(library, iters=5)
+            lib_ms = cuda_ms(library, warmup=2, iters=10)
+            lib_prof = device_ms(library, iters=5)
             flops = 12 * k * C * C * T * N
             nbytes = 2 * N * C * T * 2 + 6 * k * C * C * 2 + 6 * C * 4
             b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
@@ -2135,8 +2212,10 @@ class Smoke:
             print(f"  timing bf16 N={N} C={C} T={T} k={k} (block_t "
                   f"{fr.block_t_for(C, x.dtype, k, blk.dilations)}): ms "
                   f"kernel {ms:.4f}, plain {plain_ms:.4f}, unfused "
-                  f"ResBlock1 (cuDNN) {lib_ms:.4f}; bound {b_ms:.5f} ms "
-                  f"({b_by}); event ms kernel {ev_ms:.4f}", flush=True)
+                  f"ResBlock1 (cuDNN) {lib_ms:.4f} (CUDA events; the "
+                  f"profiler reads the cuDNN block at "
+                  f"{'-' if lib_prof is None else f'{lib_prof:.4f}'} ms); "
+                  f"bound {b_ms:.5f} ms ({b_by})", flush=True)
             if C == 32:
                 gen_ = torch.Generator().manual_seed(i)
                 for T_small in (256, 250):
@@ -2161,7 +2240,8 @@ class Smoke:
             "max_rel_err": worst_rel, "per_forward_ms": tot[0],
             "per_forward_plain_ms": tot[1],
             "per_forward_library_ms": tot[2],
-            "per_forward_bound_ms": tot[3]}
+            "per_forward_bound_ms": tot[3],
+            "block_t_ms": {str(bt): t for bt, t in sorted(sweep.items())}}
 
     def vocoder_fused(self):
         """HiFi-GAN V1 on the probe mels with CTTS_FUSE_RESBLOCK=1 against

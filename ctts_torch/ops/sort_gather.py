@@ -2,12 +2,15 @@
 ``gather_rows`` and ``scatter_rows``).
 
 On the card ``gather_rows`` launches ``csrc/gather_rows.cu`` and
-``scatter_rows`` launches ``csrc/scatter_rows.cu``; on the CPU they run
+``scatter_rows`` launches ``csrc/scatter_rows.cu`` (a plan of each row's
+sources, then a walk of the rows); on the CPU they run
 :func:`gather_rows_plain` and :func:`scatter_rows_plain`. The gather is
-exact; the scatter accumulates in float32 in ascending source order, so it
-is exact for a permutation and deterministic for any index. Each is the
-other's backward (two ``torch.autograd.Function``s), so the length
-regulator's upsample back-propagates through the scatter kernel.
+exact; the scatter accumulates in float32 in a fixed order (a row's sources
+in ascending source order; a long row is cut into parts, one per warp of
+a block, added in warp order), so it is exact for a permutation and
+deterministic for any index. Each is the other's backward (two
+``torch.autograd.Function``s), so the length regulator's upsample
+back-propagates through the scatter kernel.
 """
 
 import ctypes
@@ -22,6 +25,18 @@ launches = 0
 scatter_launches = 0
 
 _SCATTER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the walk's warps a block (csrc/scatter_rows.cu kWalkWarps), and the
+# sources a warp of it should hold on average: a block takes that many
+# output rows' worth of sources
+WALK_WARPS = 16
+SOURCES_PER_WARP = 2
+
+
+def walk_rows_per_block(m, n_out):
+    """Output rows of one walk block: about ``WALK_WARPS ·
+    SOURCES_PER_WARP`` sources at the mean ``m / n_out`` a row."""
+    return max(1, min(n_out, round(WALK_WARPS * SOURCES_PER_WARP * n_out
+                                   / max(m, 1))))
 
 
 def gather_rows_plain(values, idx):
@@ -57,7 +72,7 @@ def _lib():
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.ctts_scatter_rows
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 5 + [
             ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -109,8 +124,12 @@ def _scatter(values, idx, n_out):
     G, M, F = values.shape
     lib = _lib()
     out = values.new_empty((G, n_out, F))
+    # the plan's scratch: each row's first source, and the sources by row
+    starts = idx.new_empty((G, n_out + 1))
+    src = idx.new_empty((G, M))
     err = lib.ctts_scatter_rows(
-        values.data_ptr(), idx.data_ptr(), out.data_ptr(), G, M, n_out, F,
+        values.data_ptr(), idx.data_ptr(), out.data_ptr(), starts.data_ptr(),
+        src.data_ptr(), G, M, n_out, F, walk_rows_per_block(M, n_out),
         _SCATTER_DTYPES[values.dtype],
         torch.cuda.current_stream(values.device).cuda_stream)
     kernels.check(err, lib, "scatter_rows")

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ctts_torch.ops.fused_resblock import fused_resblock1, stack_convs
+from ctts_torch.ops.fused_resblock import (fused_resblock1, pack_weights,
+                                           stack_convs)
 
 LRELU_SLOPE = 0.1
 
@@ -51,19 +52,30 @@ class ResBlock1(nn.Module):
                                     for _ in dilations)
         self._stacked = {}
 
-    def stacked(self, dtype):
-        """``convs1`` and ``convs2`` as the fused chain takes them, weights
-        rounded to ``dtype``: built once per dtype and kept until a
-        parameter is replaced or changed in place."""
+    def _cached(self, dtype):
         params = [p for c in (*self.convs1, *self.convs2)
                   for p in (c.weight, c.bias)]
         key = tuple((p.data_ptr(), p._version) for p in params)
         hit = self._stacked.get(dtype)
         if hit is None or hit[0] != key:
-            hit = (key, (stack_convs(self.convs1, dtype),
-                         stack_convs(self.convs2, dtype)))
+            hit = [key, (stack_convs(self.convs1, dtype),
+                         stack_convs(self.convs2, dtype)), None]
             self._stacked[dtype] = hit
-        return hit[1]
+        return hit
+
+    def stacked(self, dtype):
+        """``convs1`` and ``convs2`` as the fused chain takes them, weights
+        rounded to ``dtype``: built once per dtype and kept until a
+        parameter is replaced or changed in place."""
+        return self._cached(dtype)[1]
+
+    def packed(self, dtype):
+        """:func:`~ctts_torch.ops.fused_resblock.pack_weights` of
+        :meth:`stacked`, the kernel's layout, kept beside it."""
+        hit = self._cached(dtype)
+        if hit[2] is None:
+            hit[2] = pack_weights(*hit[1], dtype)
+        return hit[2]
 
     def forward(self, x):
         if (os.environ.get("CTTS_FUSE_RESBLOCK", "") == "1"
@@ -72,7 +84,9 @@ class ResBlock1(nn.Module):
             if torch.is_autocast_enabled(dev):
                 x = x.to(torch.get_autocast_dtype(dev))
             return fused_resblock1(x.contiguous(), *self.stacked(x.dtype),
-                                   self.kernel_size, self.dilations)
+                                   self.kernel_size, self.dilations,
+                                   packed=self.packed(x.dtype)
+                                   if x.is_cuda else None)
         for c1, c2 in zip(self.convs1, self.convs2):
             y = c2(F.leaky_relu(c1(F.leaky_relu(x, LRELU_SLOPE)), LRELU_SLOPE))
             x = x + y

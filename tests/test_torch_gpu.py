@@ -136,6 +136,52 @@ def test_scatter_kernel_matches_plain(G, M, n_out, F, kind, dtype, rel):
     assert torch.equal(got, sort_gather.scatter_rows(vals, idx, n_out))
 
 
+def _scatter_caller_case(rng, where):
+    """(idx [G, M], n_out, F) of the scatter's callers at their shapes."""
+    if where == "unsort":              # the reformer's un-sort: a permutation
+        G, M = 64, 3584
+        return np.stack([rng.permutation(M) for _ in range(G)]), M, 129
+    if where == "chunk_sum":           # the LSH chunk backward: 4 a row
+        G, N = 64, 896
+        return np.stack([rng.permutation(4 * N) % N for _ in range(G)]), N, 256
+    G, M, n_src = 16, 896, 129         # the length regulator, row 0 heavy
+    idx = np.zeros((G, M), np.int64)
+    for g in range(G):
+        frames = M - (700 if g == 0 else rng.randint(0, 397))
+        cuts = np.sort(rng.choice(np.arange(1, frames), n_src - 2,
+                                  replace=False))
+        idx[g, :frames] = np.searchsorted(cuts, np.arange(frames),
+                                          side="right") + 1
+    return idx, n_src, 256
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("where", ["unsort", "chunk_sum", "length_regulator"])
+def test_scatter_kernel_at_the_callers_shapes(where, dtype, rel):
+    """The reformer's un-sort (a permutation, F=129: exact), the LSH chunk
+    backward's sum (each row 4 times) and a length-regulator map with 700
+    padded frames in row 0 (one row spread over a block's warps): within
+    SCATTER_TOL of the plain version, and two runs give the same bits."""
+    dev = _need_card()
+    from ctts_torch.ops import sort_gather
+    rng = np.random.RandomState(len(where))
+    idx, n_out, F = _scatter_caller_case(rng, where)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.randn(*idx.shape, F).astype(np.float32)).to(
+        dev, dtype)
+    got = sort_gather.scatter_rows(vals, idx, n_out)
+    again = sort_gather.scatter_rows(vals, idx, n_out)
+    ref = sort_gather.scatter_rows_plain(vals, idx, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if where == "unsort":
+        assert torch.equal(got, ref)
+    else:
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= rel * ref.float().abs().max().item(), err
+
+
 def test_scatter_kernel_out_of_range_index_adds_nothing():
     dev = _need_card()
     from ctts_torch.ops import sort_gather
@@ -665,14 +711,15 @@ def _resblock_case(C, T, k, dtype, dev, seed=0):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("k", [3, 7, 11])
 @pytest.mark.parametrize("C,T,block_t", [(32, 256, 128), (64, 250, 128),
-                                         (128, 1024, 1024)])
+                                         (128, 1024, 1024), (16, 700, 1024)])
 def test_fused_resblock_kernel_matches_plain(C, T, block_t, k, dtype, tol):
     """The fused chain against its plain version on the card, relative to
     the largest plain entry: two tiles at T=256 (both sequence edges and a
-    seam), a ragged last tile at T=250, and the tile the wrapper picks at
-    C=128. bf16: the same roundings in another summation order, so a value
-    within float32 rounding of a bf16 boundary may land on its neighbour and
-    carry through the rest of the chain (a few ulps at most)."""
+    seam), a ragged last tile at T=250, the tile the wrapper picks at
+    C=128, and C=16 (two n-tiles a warp; float32 there in rounds). bf16:
+    the same roundings in another summation order, so a value within
+    float32 rounding of a bf16 boundary may land on its neighbour and carry
+    through the rest of the chain (a few ulps at most)."""
     dev = _need_card()
     from ctts_torch.ops import fused_resblock
     x, (c1, c2) = _resblock_case(C, T, k, dtype, dev)
