@@ -51,9 +51,12 @@ suppresses the final line:
    just after, and one step under ``torch.profiler``;
 10. the reformer's kernels (local window; LSH chunk, fused route) against
    their plain versions at the shapes its heads give them (d=128, bf16 and
-   f32, ragged validity, the chunk-0 wrap), with their times, the plain
-   versions', SDPA's on the windowed or chunked tensors with a float mask,
-   and the bounds;
+   f32, ragged validity, the chunk-0 wrap); two backward runs bit-identical
+   at the train shape; the registers and spills nvcc reported for each
+   instance; their times beside the plain versions', SDPA's on the
+   windowed or chunked tensors with a float mask, the bounds and each
+   kernel's fraction of its bound, and the times PERF.md records (those
+   before the redesign for the tensor cores in brackets);
 11. the reformer (``block_type: reformer``, full width and depth, seeded
    weights) on the probe texts at budget 1152 on both LSH routes (default,
    and ``CTTS_FUSED_LSH=1``): counted forward, latency, profile, and the
@@ -172,6 +175,31 @@ def demangled(names):
     except (OSError, subprocess.SubprocessError):
         return list(names)
     return out if len(out) == len(names) else list(names)
+
+
+def ptxas_entries():
+    """{source: [(kernel, "N registers; spills")]} from the build's ptxas
+    report, the kernels named through cu++filt."""
+    from ctts_torch.ops.kernels import LIBRARY
+    out, src, entry, spill, names = {}, None, None, None, []
+    for ln in LIBRARY.ptxas_log.splitlines():
+        if ln.startswith("--- "):
+            src = ln[4:].strip()
+            out[src] = []
+        elif "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = ", ".join(x.strip() for x in ln.split(",")[1:])
+        elif "Used" in ln and entry is not None:
+            regs = ln.split("info    : ")[-1].split(",")[0]
+            out[src].append([entry, f"{regs}; {spill}"])
+            names.append(entry)
+            entry = None
+    plain = iter(demangled(names))
+    for entries in out.values():
+        for e in entries:
+            e[0] = next(plain)
+    return {k: [tuple(e) for e in v] for k, v in out.items()}
 
 
 def recorded_ms(row):
@@ -327,21 +355,22 @@ class Smoke:
         print(f"kernel build: {LIBRARY.build_seconds:.2f} s (nvcc -c per "
               f"source in parallel, one link) → {LIBRARY.target()}")
         # one line per kernel entry: its registers and spills (ptxas -v)
-        lines, entry, spill = [], None, None
-        for ln in LIBRARY.ptxas_log.splitlines():
-            if ln.startswith("---"):
-                lines.append((None, ln))
-            elif "Compiling entry function" in ln:
-                entry = ln.split("'")[1]
-            elif "spill stores" in ln:
-                spill = ", ".join(x.strip() for x in ln.split(",")[1:])
-            elif "Used" in ln and entry is not None:
-                regs = ln.split("info    : ")[-1].split(",")[0]
-                lines.append((entry, f"{regs}; {spill}"))
-                entry = None
-        names = iter(demangled([e for e, _ in lines if e is not None]))
-        for e, text in lines:
-            print(f"  {text}" if e is None else f"    {next(names)}: {text}")
+        for src, entries in ptxas_entries().items():
+            print(f"  --- {src}")
+            for name, text in entries:
+                print(f"    {name}: {text}")
+
+    @staticmethod
+    def instances(src):
+        """Print and return the registers and spills nvcc reported for each
+        kernel instance of one source."""
+        entries = ptxas_entries().get(src, [])
+        for name, text in entries:
+            print(f"  nvcc {name}: {text}")
+        if not entries:
+            print(f"  nvcc: no report for {src} (the library was not built "
+                  f"by this process)")
+        return {name: text for name, text in entries}
 
     # ---- phase 2 ----------------------------------------------------- #
     def attention(self):
@@ -1530,12 +1559,24 @@ class Smoke:
                     mask_ms=mask_ms)
 
     @staticmethod
-    def window_bounds(flops, nbytes):
-        """(ms, bound_by) of the forward and the backward, printed."""
+    def window_bounds(flops, nbytes, t):
+        """(ms, bound_by) of the forward and the backward, printed with
+        each kernel's fraction of its bound (bound / device time)."""
         bounds = [bound(f, n, PEAK_BF16_FLOPS) for f, n in zip(flops, nbytes)]
         print(f"  bound forward {bounds[0][0]:.5f} ms ({bounds[0][1]}), "
-              f"backward {bounds[1][0]:.5f} ms ({bounds[1][1]})")
+              f"backward {bounds[1][0]:.5f} ms ({bounds[1][1]}); fraction "
+              f"of the bound: forward {bounds[0][0] / t['ms_f']:.4f}, "
+              f"backward {bounds[1][0] / t['ms_b']:.4f}")
         return bounds
+
+    @staticmethod
+    def identical_runs(what, run):
+        """Two backward runs must agree bit for bit (no float atomics)."""
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"{what}: two backward runs differ")
+        print(f"{what}: two backward runs bit-identical")
 
     def record_window(self, name, source, replaces, err, t, bounds, shape,
                       **extra):
@@ -1563,7 +1604,8 @@ class Smoke:
         the train step (G=64, N=128 and 896), and N=1152 with a ragged tail
         of random lengths; bf16 and f32; prefix validity, which leaves whole
         windows padded (at N=128 one row is all padding). Times in bf16 at
-        each shape."""
+        each shape; at the train shape two backward runs, which must agree
+        bit for bit."""
         from ctts_torch.ops import local_window_attention as lw
         dev = torch.device("cuda")
         gen = torch.Generator().manual_seed(11)
@@ -1654,8 +1696,11 @@ class Smoke:
             # qk, v, valid and the bf16 cotangent in, dqk and dv out in f32
             e2, f4, r4 = G * N * d * 2, G * N * d * 4, G * N * 4
             nbytes = (3 * e2 + r4, 3 * e2 + r4 + 2 * f4)
-            bounds = self.window_bounds(flops, nbytes)
+            bounds = self.window_bounds(flops, nbytes, t)
             if (G, N) == (B_TRAIN * 4, T_M):
+                self.identical_runs(
+                    f"local window bf16 G={G} N={N}",
+                    lambda: lw._launch_bwd(qkb, vb, vi, g, o, m, l, win, scale))
                 self.record_window(
                     "local_window", "ctts_torch/csrc/local_window_attention.cu",
                     {"fwd": "ctts_tpu/ops/local_window_attention.py:85",
@@ -1665,6 +1710,12 @@ class Smoke:
                     f"{lens.min()}-{lens.max()}")
         self.kernels["local_window_fwd"]["max_abs_err"] = worst["fwd"]
         self.kernels["local_window_bwd"]["max_abs_err"] = worst["bwd"]
+        nvcc = self.instances("local_window_attention.cu")
+        for kind in ("fwd", "bwd"):
+            self.kernels[f"local_window_{kind}"]["nvcc"] = {
+                k: v for k, v in nvcc.items() if f"window_{kind}" in k}
+        print(f"local window times recorded in PERF.md (§6 row 7; the times "
+              f"before the redesign in brackets): {recorded_ms(7)}")
 
     def lsh_chunk(self):
         """The LSH chunk kernels against the plain version on one hash sort
@@ -1674,7 +1725,8 @@ class Smoke:
         (8 chunks: chunk 0 wraps to the last); bf16 and f32, causal, prefix
         validity; out ‖ lse, then dqk and dv from a random cotangent on both.
         Then times in bf16, and the un-sort and chunk-sum scatters' beside
-        zeros + index_add_ on the same indices."""
+        zeros + index_add_ on the same indices; at the train shape two
+        backward runs, which must agree bit for bit."""
         from ctts_torch.models.reformer import lsh_sort
         from ctts_torch.ops import lsh_chunk_attention as lc
         from ctts_torch.ops import sort_gather
@@ -1787,8 +1839,12 @@ class Smoke:
             e2, f4, m4 = G * N * d * 2, G * N * d * 4, G * M * 4
             nbytes = (2 * e2 + 2 * m4 + m4 * (d + 1),
                       2 * e2 + 2 * m4 + m4 * (d + 1) + m4 + 2 * f4)
-            bounds = self.window_bounds(flops, nbytes)
+            bounds = self.window_bounds(flops, nbytes, t)
             if (G, N) == (B_TRAIN * 4, T_M):
+                self.identical_runs(
+                    f"LSH chunk bf16 G={G} N={N} M={M}",
+                    lambda: lc._launch_bwd(qkb, vb, st, svalid, cot, out, cs,
+                                           True, scale))
                 self.record_window(
                     "lsh_chunk", "ctts_torch/csrc/lsh_chunk_attention.cu",
                     {"fwd": "ctts_tpu/ops/lsh_chunk_attention.py:144",
@@ -1801,6 +1857,12 @@ class Smoke:
                     scatter_bwd_sum_library_ms=lib_bwd)
         self.kernels["lsh_chunk_fwd"]["max_abs_err"] = worst["fwd"]
         self.kernels["lsh_chunk_bwd"]["max_abs_err"] = worst["bwd"]
+        nvcc = self.instances("lsh_chunk_attention.cu")
+        for kind in ("fwd", "bwd"):
+            self.kernels[f"lsh_chunk_{kind}"]["nvcc"] = {
+                k: v for k, v in nvcc.items() if f"window_{kind}" in k}
+        print(f"LSH chunk times recorded in PERF.md (§6 row 8; the times "
+              f"before the redesign in brackets): {recorded_ms(8)}")
 
     # ---- phase 11: the reformer forward ----------------------------------- #
     @staticmethod

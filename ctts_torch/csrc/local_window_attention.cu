@@ -1,5 +1,5 @@
-// Windowed shared-QK local attention, forward and backward, for Hopper
-// (sm_90a): the reformer's local heads.
+// Windowed shared-QK local attention, forward and backward, on Hopper's
+// tensor cores (sm_90a): the reformer's local heads.
 //
 // Replaces the Pallas kernels ctts_tpu/ops/local_window_attention.py:85
 // (_fwd_kernel, launched by _fused at :149) and :97 (_bwd_kernel, launched
@@ -9,11 +9,13 @@
 // L2-normalised qk, and the mask order is self pinned to -5e4, then causal
 // (-1e9), then validity (-1e9), so an invalid query row goes uniform over
 // all 2 * win slots. The TPU kernel unrolled the window loop over a whole
-// batch row in VMEM; here one block takes 16 queries of one window, and the
-// engine in window_attention.cuh (its header says what bounds it and how it
-// is laid out) loads the rows by index. The forward writes o in the input
-// dtype and each row's softmax max and sum (f32); the backward writes dq,
-// dk and dv per row in f32, and the caller adds dq and dk.
+// batch row in VMEM; here a block takes 64 queries of one window (32 where
+// win is an odd multiple of 32) and the engine in window_attention.cuh
+// streams the window's 2 * win key slots through shared memory in tiles of
+// 64, every product on mma.sync (its header says what bounds it on the
+// H100 and what the design does about that). The forward writes o in the
+// input dtype and each row's softmax max and sum (f32); the backward reads
+// dO in the input dtype and writes dq + dk and dv per row in f32.
 
 #include "window_attention.cuh"
 
@@ -68,26 +70,27 @@ extern "C" int ctts_local_window_fwd(const void* qk, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// dout is in the input dtype; dqk and dv [G, N, d] f32 take dq + dk and dv.
 extern "C" int ctts_local_window_bwd(const void* qk, const void* v,
-                                     const int* valid, const float* dout,
+                                     const int* valid, const void* dout,
                                      const float* m, const float* l,
-                                     const float* delta, float* dq,
-                                     float* dk, float* dv, int g, int n,
-                                     int d, int win, float scale, int dtype,
-                                     void* stream) {
+                                     const float* delta, float* dqk,
+                                     float* dv, int g, int n, int d, int win,
+                                     float scale, int dtype, void* stream) {
   if ((d != 64 && d != 128) || ctts_window::bad_shape(g, n, win, n))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CTTS_LOCAL_BWD(T)                                        \
   {                                                              \
     Args<T> a = make_args<T>(qk, v, valid, n, win, scale);       \
-    a.dout = dout;                                               \
+    a.dout = static_cast<const T*>(dout);                        \
     a.stat_m = m;                                                \
     a.stat_l = l;                                                \
+    a.sstride = 1;                                               \
     a.delta = delta;                                             \
-    a.dq = dq;                                                   \
-    a.dk = dk;                                                   \
+    a.dq = dqk;                                                  \
     a.dv = dv;                                                   \
+    a.gstride = d;                                               \
     return d == 64 ? ctts_window::launch_bwd<T, 64, false>(a, g, s)    \
                    : ctts_window::launch_bwd<T, 128, false>(a, g, s);\
   }

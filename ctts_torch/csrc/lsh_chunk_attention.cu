@@ -1,5 +1,6 @@
-// LSH chunk attention in the hash-sorted domain, forward and backward, for
-// Hopper (sm_90a): the reformer's hashed heads under CTTS_FUSED_LSH=1.
+// LSH chunk attention in the hash-sorted domain, forward and backward, on
+// Hopper's tensor cores (sm_90a): the reformer's hashed heads under
+// CTTS_FUSED_LSH=1.
 //
 // Replaces the Pallas kernels ctts_tpu/ops/lsh_chunk_attention.py:144
 // (_fwd_kernel, launched by _fused at :232) and :158 (_bwd_kernel, launched
@@ -9,13 +10,15 @@
 // 0 to the last chunk, across hash rounds), keys are the L2-normalised qk,
 // and the mask order is validity, then causal, then self pinned to -5e4
 // last. The forward writes [G, M, D + 1] f32, the output and its logsumexp
-// per sorted row; the backward takes the cotangents of both and writes dq,
-// dk and dv per sorted row in f32, which the caller sums into the N source
-// rows with the scatter kernel (scatter_rows.cu) by st. The TPU kernel
-// gathered each chunk with a one-hot matrix product on the MXU (re-paying
-// O(N * 2cs * 2D) per chunk); here the engine in window_attention.cuh (its
-// header says what bounds it and how it is laid out) loads the sorted rows
-// straight by index, one block for 16 queries of one chunk.
+// per sorted row; the backward takes the cotangents of both and writes one
+// [G, M, 2D] f32 buffer, dq + dk || dv per sorted row, which the caller
+// sums into the N source rows with the scatter kernel (scatter_rows.cu) by
+// st. The TPU kernel gathered each chunk with a one-hot matrix product on
+// the MXU (re-paying O(N * 2cs * 2D) per chunk); here the engine in
+// window_attention.cuh loads the sorted rows straight by index with
+// cp.async, a block for 64 queries of one chunk (32 where cs is an odd
+// multiple of 32), every product on mma.sync (its header says what bounds
+// it on the H100 and what the design does about that).
 
 #include "window_attention.cuh"
 
@@ -69,27 +72,31 @@ extern "C" int ctts_lsh_chunk_fwd(const void* qk, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// dout [G, M, d] is in the input dtype; dlse and lse are the last column
+// of [G, M, d + 1] f32 arrays (row stride d + 1); grads [G, M, 2d] f32
+// takes dq + dk || dv.
 extern "C" int ctts_lsh_chunk_bwd(const void* qk, const void* v,
                                   const int* st, const int* svalid,
-                                  const float* dout, const float* dlse,
+                                  const void* dout, const float* dlse,
                                   const float* lse, const float* delta,
-                                  float* dq, float* dk, float* dv, int g,
-                                  int n, int m, int d, int cs, int causal,
-                                  float scale, int dtype, void* stream) {
+                                  float* grads, int g, int n, int m, int d,
+                                  int cs, int causal, float scale, int dtype,
+                                  void* stream) {
   if ((d != 64 && d != 128) || ctts_window::bad_shape(g, m, cs, n))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CTTS_LSH_BWD(T)                                                     \
   {                                                                         \
     Args<T> a = make_args<T>(qk, v, st, svalid, n, m, cs, causal, scale);   \
-    a.dout = dout;                                                          \
+    a.dout = static_cast<const T*>(dout);                                   \
     a.dlse = dlse;                                                          \
     a.stat_m = lse;                                                         \
     a.stat_l = nullptr;                                                     \
+    a.sstride = d + 1;                                                      \
     a.delta = delta;                                                        \
-    a.dq = dq;                                                              \
-    a.dk = dk;                                                              \
-    a.dv = dv;                                                              \
+    a.dq = grads;                                                           \
+    a.dv = grads + d;                                                       \
+    a.gstride = 2 * d;                                                      \
     return d == 64 ? ctts_window::launch_bwd<T, 64, true>(a, g, s)     \
                    : ctts_window::launch_bwd<T, 128, true>(a, g, s); \
   }

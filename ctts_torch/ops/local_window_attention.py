@@ -17,8 +17,11 @@ also writes each row's softmax max and sum, and a backward that recomputes
 the probabilities) and runs :func:`local_window_attention_plain` for tensors
 on the CPU. A CUDA tensor the kernels do not take raises.
 
-Both versions compute in float32 and return the input's dtype. The
-gradient is the plain version's autograd gradient: the masked and pinned
+The plain version computes in float32; the kernels multiply bf16
+operands on the tensor cores with float32 sums (float32 inputs split into
+bf16 hi + lo, within ~1e-5 of float32), rounding P and dS as the TPU
+kernels do. Both return the input's dtype. The gradient is the plain
+version's autograd gradient: the masked and pinned
 logits are constants, so no gradient reaches q or k through them. (The
 Pallas backward leaks a small dq, dk through the uniform probabilities of
 a padded query row; the port does not.)
@@ -83,8 +86,8 @@ def _lib():
         fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fwd.restype = ctypes.c_int
-        # qk v valid dout m l delta | dq dk dv | G N d win scale dtype stream
-        bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        # qk v valid dout m l delta | dqk dv | G N d win scale dtype stream
+        bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         bwd.restype = ctypes.c_int
     return lib
@@ -138,25 +141,25 @@ def _launch_fwd(qk, v, valid, window, scale):
 
 
 def _launch_bwd(qk, v, valid, g, o, m, l, window, scale):
-    """dqk and dv in float32. The kernel writes, for every row, its
-    query part and its key part (the current-window and the look-back
-    uses, summed in that order) apart; their sum is a torch add, so no
-    float atomics."""
+    """dqk and dv [G, N, d] in float32. The kernel reads dO in its own
+    dtype and writes, for every row, dq + dk (its query part, then its key
+    part: the current-window and the look-back uses, in that order) and
+    dv, so there are no float atomics and no sums left to the caller."""
     global bwd_launches
     G, N, d = qk.shape
     lib = _lib()
-    dout = g.float().contiguous()
-    delta = (dout * o.float()).sum(-1).contiguous()          # rowsum(dO∘O)
-    dq, dk, dv = (torch.empty(G, N, d, device=qk.device, dtype=torch.float32)
-                  for _ in range(3))
+    g = g.to(qk.dtype).contiguous()
+    delta = (g.float() * o.float()).sum(-1)                  # rowsum(dO∘O)
+    dqk, dv = (torch.empty(G, N, d, device=qk.device, dtype=torch.float32)
+               for _ in range(2))
     err = lib.ctts_local_window_bwd(
-        qk.data_ptr(), v.data_ptr(), valid.data_ptr(), dout.data_ptr(),
-        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), G, N, d, window, float(scale),
-        _DTYPES[qk.dtype], _stream(qk))
+        qk.data_ptr(), v.data_ptr(), valid.data_ptr(), g.data_ptr(),
+        m.data_ptr(), l.data_ptr(), delta.data_ptr(), dqk.data_ptr(),
+        dv.data_ptr(), G, N, d, window, float(scale), _DTYPES[qk.dtype],
+        _stream(qk))
     kernels.check(err, lib, "local_window_attention backward")
     bwd_launches += 1
-    return dq + dk, dv
+    return dqk, dv
 
 
 class _LocalWindowAttention(torch.autograd.Function):

@@ -17,7 +17,9 @@ round combine of ``models/reformer.py`` take next.
 
 ``chunk_attention`` launches the two kernels of
 ``csrc/lsh_chunk_attention.cu`` for tensors on the card (they load the
-sorted rows straight by index) and runs :func:`chunk_attention_plain` (a
+sorted rows straight by index and multiply on the tensor cores with
+float32 sums; the forward keeps its output and logsumexp within ~1e-5 of
+float32) and runs :func:`chunk_attention_plain` (a
 row gather, then :func:`chunk_core`) for tensors on the CPU. Its backward
 takes the logsumexp's own cotangent, which the round combine sends. The
 reformer takes this route under ``CTTS_FUSED_LSH=1`` (:func:`supported`,
@@ -95,9 +97,9 @@ def _lib():
         fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fwd.restype = ctypes.c_int
-        # qk v st svalid dout dlse lse delta | dq dk dv | G N M d cs causal
+        # qk v st svalid dout dlse lse delta | grads | G N M d cs causal
         # scale dtype stream
-        bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+        bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         bwd.restype = ctypes.c_int
     return lib
@@ -151,30 +153,31 @@ def _launch_fwd(qk, v, st, svalid, cs, causal, scale):
 
 
 def _launch_bwd(qk, v, st, svalid, g, out, cs, causal, scale):
-    """dqk and dv [G, N, d] float32. The kernel writes each sorted row's
-    query part, key part (its own chunk's and the next chunk's look-back
-    uses, summed in that order) and value part; the rows are summed into
-    their source positions by ``sort_gather.scatter_rows`` by ``st``
-    (float32, ascending sorted order), so there are no float atomics."""
+    """dqk and dv [G, N, d] float32. The kernel writes one [G, M, 2d]
+    float32 buffer, each sorted row's dq + dk (its query part, then its key
+    part: its own chunk's and the next chunk's look-back uses, in that
+    order) and dv; ``sort_gather.scatter_rows`` sums the rows into their
+    source positions by ``st`` (float32, ascending sorted order), so there
+    are no float atomics. The output cotangent goes to the kernel in qk's
+    dtype (bf16 rounds it for the products, as the TPU kernel does); lse
+    and its cotangent are read in place, the last column of ``out`` and
+    ``g``."""
     global bwd_launches
     G, N, d = qk.shape
     M = st.shape[1]
     lib = _lib()
-    g = g.float()
-    dout = g[..., :d].contiguous()
-    dlse = g[..., d].contiguous()
-    lse = out[..., d].contiguous()
-    delta = (dout * out[..., :d]).sum(-1).contiguous()      # rowsum(dO∘O)
-    dq, dk, dv = (torch.empty(G, M, d, device=qk.device, dtype=torch.float32)
-                  for _ in range(3))
+    g = g.float().contiguous()
+    dout = g[..., :d].to(qk.dtype).contiguous()
+    delta = (g[..., :d] * out[..., :d]).sum(-1)             # rowsum(dO∘O)
+    grads = torch.empty(G, M, 2 * d, device=qk.device, dtype=torch.float32)
     err = lib.ctts_lsh_chunk_bwd(
         qk.data_ptr(), v.data_ptr(), st.data_ptr(), svalid.data_ptr(),
-        dout.data_ptr(), dlse.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), G, N, M, d, cs,
-        int(causal), float(scale), _DTYPES[qk.dtype], _stream(qk))
+        dout.data_ptr(), g[..., d:].data_ptr(), out[..., d:].data_ptr(),
+        delta.data_ptr(), grads.data_ptr(), G, N, M, d, cs, int(causal),
+        float(scale), _DTYPES[qk.dtype], _stream(qk))
     kernels.check(err, lib, "chunk_attention backward")
     bwd_launches += 1
-    grads = sort_gather.scatter_rows(torch.cat([dq + dk, dv], dim=-1), st, N)
+    grads = sort_gather.scatter_rows(grads, st, N)
     return grads[..., :d], grads[..., d:]
 
 

@@ -595,6 +595,123 @@ def test_lsh_chunk_kernels_match_plain(G, N, d, dtype, tol, causal):
     _assert_close([(x.grad, y.grad) for x, y in zip(a, b)], tol)
 
 
+def _check_local(qk, v, cot, valid, window, dtype, tol):
+    """The local-window kernels on qk, v (rounded to dtype) against the
+    plain version in float32: output and gradients within ``tol`` of their
+    largest entries, one launch of each kernel."""
+    from ctts_torch.ops import local_window_attention as lw
+    d = qk.shape[-1]
+    qk, v = qk.to(dtype).float(), v.to(dtype).float()
+    a = [x.to(dtype).requires_grad_(True) for x in (qk, v)]
+    before = (lw.launches, lw.bwd_launches)
+    out = lw.local_window_attention(*a, valid, window, d ** -0.5)
+    out.backward(cot.to(dtype))
+    torch.cuda.synchronize()
+    assert (lw.launches, lw.bwd_launches) == (before[0] + 1, before[1] + 1)
+    b = [x.detach().clone().requires_grad_(True) for x in (qk, v)]
+    ref = lw.local_window_attention_plain(*b, valid, window, d ** -0.5)
+    ref.backward(cot.to(dtype).float())
+    _assert_close([(out, ref)] + [(x.grad, y.grad) for x, y in zip(a, b)], tol)
+
+
+@pytest.mark.parametrize("dtype,tol,d", [(torch.float32, 1e-4, 128),
+                                         (torch.bfloat16, 1e-2, 128),
+                                         (torch.float32, 1e-4, 64)])
+@pytest.mark.parametrize("case", ["padded windows", "ragged tail"])
+def test_local_window_kernels_edge_cases(case, dtype, tol, d):
+    """Windows of 128 over N=384: wholly padded windows (the middle window
+    of one row, the first of another, a whole row: uniform over all 256
+    slots, window 0's synthetic ones included), or ragged tails (lengths
+    300, 257 and 1); against the plain version as above."""
+    dev = _need_card()
+    G, N = 4, 384
+    rng = np.random.RandomState(len(case) + d)
+    qk, v, cot = (torch.from_numpy(rng.randn(G, N, d).astype(np.float32)).to(
+        dev) for _ in range(3))
+    if case == "padded windows":
+        valid = np.ones((G, N), bool)
+        valid[0, 128:256] = False
+        valid[1] = False
+        valid[2, :128] = False
+    else:
+        valid = np.arange(N)[None] < np.array([N, 300, 257, 1])[:, None]
+    _check_local(qk, v, cot, torch.from_numpy(valid).to(dev), 128, dtype, tol)
+
+
+def _check_lsh(qk, v, st, svalid, cs, causal, dtype, tol):
+    """The LSH chunk kernels against the plain version in float32 on the
+    same (rounded) inputs and rows, as test_lsh_chunk_kernels_match_plain."""
+    from ctts_torch.ops import lsh_chunk_attention as lc
+    G, N, d = qk.shape
+    qk, v = qk.to(dtype).float(), v.to(dtype).float()
+    cot = torch.from_numpy(np.random.RandomState(3).randn(
+        G, st.shape[1], d + 1).astype(np.float32)).to(qk.device)
+    a = [x.to(dtype).requires_grad_(True) for x in (qk, v)]
+    before = (lc.launches, lc.bwd_launches)
+    out = lc.chunk_attention(*a, st, svalid, cs, causal, d ** -0.5)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert (lc.launches, lc.bwd_launches) == (before[0] + 1, before[1] + 1)
+    b = [x.detach().clone().requires_grad_(True) for x in (qk, v)]
+    ref = lc.chunk_attention_plain(*b, st, svalid, cs, causal, d ** -0.5)
+    ref.backward(cot)
+    _assert_close([(out[..., :d], ref[..., :d])], 1e-4)
+    assert (out[..., d] - ref[..., d]).abs().max().item() <= 1e-3
+    _assert_close([(x.grad, y.grad) for x, y in zip(a, b)], tol)
+
+
+@pytest.mark.parametrize("dtype,tol,d", [(torch.float32, 1e-4, 128),
+                                         (torch.bfloat16, 1e-2, 128),
+                                         (torch.float32, 1e-4, 64)])
+@pytest.mark.parametrize("case", ["duplicate across rounds", "chunk 0 wraps",
+                                  "one chunk"])
+def test_lsh_chunk_kernels_edge_cases(case, dtype, tol, d):
+    """Sorted rows built by hand, chunks of 64: two hash rounds over N=128
+    whose boundary puts position 127 at the end of chunk 1 and the start of
+    chunk 2, so chunk 2's look-back holds it twice (and chunk 0 wraps to
+    chunk 3); one round of N=128 (chunk 0 looks back at chunk 1, the last);
+    one chunk (chunk 0 looks back at itself: every position twice). Some
+    positions invalid; against the plain version as above."""
+    dev = _need_card()
+    rng = np.random.RandomState(len(case) + d)
+    N = 64 if case == "one chunk" else 128
+    G = 2
+    qk, v = (torch.from_numpy(rng.randn(G, N, d).astype(np.float32)).to(dev)
+             for _ in range(2))
+    st = np.arange(N)
+    if case == "duplicate across rounds":
+        st = np.concatenate([st, np.roll(st, 1)])
+    st = np.tile(st, (G, 1)).astype(np.int32)
+    valid = rng.rand(G, N) > 0.2
+    svalid = np.take_along_axis(valid, st, 1).astype(np.int32)
+    _check_lsh(qk, v, torch.from_numpy(st).to(dev),
+               torch.from_numpy(svalid).to(dev), 64, True, dtype, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_backward_runs_are_bit_identical(dtype):
+    """No float atomics: two backward runs of each kernel, on the same
+    inputs and forward results, give the same bits."""
+    dev = _need_card()
+    from ctts_torch.ops import local_window_attention as lw
+    from ctts_torch.ops import lsh_chunk_attention as lc
+    qk, v, cot, valid = _window_case(dev, 3, 384, 128, 5)
+    qk, v = qk.to(dtype), v.to(dtype)
+    vi = valid.to(torch.int32)
+    o, m, l = lw._launch_fwd(qk, v, vi, 128, 0.1)
+    runs = [lw._launch_bwd(qk, v, vi, cot.to(dtype), o, m, l, 128, 0.1)
+            for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    qk, v, st, svalid = _lsh_sort_case(dev, 2, 256, 128, 6)
+    qk, v = qk.to(dtype), v.to(dtype)
+    out = lc._launch_fwd(qk, v, st, svalid, 64, True, 0.1)
+    g = torch.from_numpy(np.random.RandomState(7).randn(
+        2, st.shape[1], 129).astype(np.float32)).to(dev)
+    runs = [lc._launch_bwd(qk, v, st, svalid, g, out, 64, True, 0.1)
+            for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
 def test_reformer_wrappers_raise_on_untaken_cuda_input():
     dev = _need_card()
     from ctts_torch.ops import local_window_attention as lw
