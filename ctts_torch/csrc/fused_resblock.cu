@@ -76,6 +76,8 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "window_attention.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -136,12 +138,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(smem_addr(dst)), "l"(src));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+using ctts_window::cp_async_commit;
 // every group but the newest kStages - 2 has landed
 __device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2) : "memory");
+  ctts_window::cp_async_wait_group<kStages - 2>();
 }
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {

@@ -1,7 +1,8 @@
 // Windowed shared-QK attention, forward and backward, on Hopper's tensor
 // cores (sm_90a): the engine that local_window_attention.cu (the reformer's
 // local heads) and lsh_chunk_attention.cu (its hashed heads, in the sorted
-// domain) instantiate. Included by those two sources only.
+// domain) instantiate. attention.cu takes its PTX wrappers and fragment
+// helpers, fused_resblock.cu its cp.async group wrappers.
 //
 // The problem. The rows of a row space [G, R] fall into units of Q rows: a
 // window of the sequence (local, R = N) or a chunk of the hash-sorted
@@ -136,6 +137,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
 }
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every committed group but the newest N has landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {

@@ -69,6 +69,10 @@ def _check(q, k, v, lengths):
     for t in (q, k, v, lengths):
         if not t.is_contiguous():
             raise ValueError("fused_attention takes contiguous tensors")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("fused_attention takes q, k and v 16-byte "
+                             "aligned (its rows are copied in 16-byte chunks)")
 
 
 class _FusedAttention(torch.autograd.Function):

@@ -8,9 +8,11 @@ by its target length (torch ``CTCLoss(reduction="mean")`` semantics). The
 log-softmax, the interleave into S = 2*T_s + 1 lattice states, the finals'
 logsumexp and the normalisation are torch ops; the lattice itself is
 :func:`ctc_state_nll`, a ``torch.autograd.Function`` over two kernels of
-``csrc/forward_sum.cu`` on the card (the alpha recursion forward, the beta
-recursion emitting the gradient backward) and over their plain versions,
-:func:`ctc_alpha_plain` and :func:`ctc_grad_plain`, on the CPU.
+``csrc/forward_sum.cu`` on the card (forward: the alpha and beta recursions
+in one launch, both saved, or alpha alone where no gradient is wanted;
+backward: the gradient, elementwise from them)
+and over their plain versions, :func:`ctc_alpha_plain`,
+:func:`ctc_beta_plain` and :func:`ctc_grad_plain`, on the CPU.
 """
 
 import ctypes
@@ -23,7 +25,7 @@ BLANK_LOGPROB = -1.0
 NEG = -1e9
 
 # kernel launches since the last reset (read by chip_smoke.py)
-alpha_launches = 0
+lattice_launches = 0
 grad_launches = 0
 
 
@@ -72,9 +74,10 @@ def ctc_alpha_plain(em, out_lens):
     return torch.stack(rows, dim=1)
 
 
-def ctc_grad_plain(em, alpha, log_l, g, in_lens, out_lens):
-    """d(-logL)/d em · g by the beta recursion: -exp(alpha + beta - logL)·g
-    below out_len, zero at or past it."""
+def ctc_beta_plain(em, in_lens, out_lens):
+    """The beta lattice [B, T_m, S]: the final row (0 at states 2·in_len
+    and 2·in_len - 1, the sentinel elsewhere) at frames at or past
+    out_len - 1, the recursion over em[t + 1] + beta[t + 1] below."""
     B, T_m, S = em.shape
     state = torch.arange(S, device=em.device)[None, :]
     i2 = (2 * in_lens.long())[:, None]
@@ -86,8 +89,6 @@ def ctc_grad_plain(em, alpha, log_l, g, in_lens, out_lens):
     pad1 = em.new_full((B, 1), NEG)
     pad2 = em.new_full((B, 2), NEG)
     em_next = em.new_full((B, S), NEG)
-    z = log_l[:, None]
-    gc = g[:, None]
     rows = []
     for t in range(T_m - 1, -1, -1):
         q = em_next + beta
@@ -95,22 +96,29 @@ def ctc_grad_plain(em, alpha, log_l, g, in_lens, out_lens):
         s2 = torch.where(can2, torch.cat([q[:, 2:], pad2], dim=1), neg)
         beta = torch.where((t + 1 < out_lens)[:, None], _lse3(q, s1, s2),
                            beta)
-        rows.append(torch.where((t < out_lens)[:, None],
-                                -torch.exp(alpha[:, t] + beta - z) * gc,
-                                torch.zeros_like(q)))
+        rows.append(beta)
         em_next = em[:, t]
     return torch.stack(rows[::-1], dim=1)
 
 
+def ctc_grad_plain(alpha, beta, log_l, g, out_lens):
+    """d(-logL)/d em · g: -exp(alpha + beta - logL)·g below out_len, zero
+    at or past it."""
+    live = (torch.arange(alpha.shape[1], device=alpha.device)[None, :]
+            < out_lens[:, None])[:, :, None]
+    return torch.where(live, -torch.exp(alpha + beta - log_l[:, None, None])
+                       * g[:, None, None], torch.zeros_like(alpha))
+
+
 def _lib():
     lib = kernels.LIBRARY.get()
-    fn = lib.ctts_ctc_alpha
+    fn = lib.ctts_ctc_lattice
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.ctts_ctc_grad
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -121,7 +129,7 @@ def _check(em, floats, lens):
         raise ValueError(f"the CTC lattice runs on cpu or cuda, not "
                          f"{em.device}")
     if em.dim() != 3 or em.shape[2] > 1024:
-        raise ValueError(f"the CTC kernels take em [B, T_m, S <= 1024], got "
+        raise ValueError(f"the CTC kernels take [B, T_m, S <= 1024], got "
                          f"{tuple(em.shape)}")
     B = em.shape[0]
     for t in (em, *floats):
@@ -137,40 +145,45 @@ def _check(em, floats, lens):
                              "one device")
 
 
-def ctc_alpha(em, out_lens):
-    """em [B, T_m, S] float32 state log-emissions, out_lens [B] int32 →
-    the alpha lattice [B, T_m, S]."""
-    global alpha_launches
+def ctc_lattice(em, in_lens, out_lens, with_beta=True):
+    """em [B, T_m, S] float32 state log-emissions, in_lens and out_lens [B]
+    int32 → the alpha and beta lattices, each [B, T_m, S], in one launch;
+    beta is None when ``with_beta`` is false."""
+    global lattice_launches
     if em.device.type == "cpu":
-        return ctc_alpha_plain(em, out_lens)
-    _check(em, (), (out_lens,))
+        return (ctc_alpha_plain(em, out_lens),
+                ctc_beta_plain(em, in_lens, out_lens) if with_beta else None)
+    _check(em, (), (in_lens, out_lens))
     B, T_m, S = em.shape
     lib = _lib()
     alpha = torch.empty_like(em)
-    err = lib.ctts_ctc_alpha(
-        em.data_ptr(), out_lens.data_ptr(), alpha.data_ptr(), B, T_m, S,
+    beta = torch.empty_like(em) if with_beta else None
+    err = lib.ctts_ctc_lattice(
+        em.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
+        alpha.data_ptr(), beta.data_ptr() if with_beta else None, B, T_m, S,
         torch.cuda.current_stream(em.device).cuda_stream)
-    kernels.check(err, lib, "ctc_alpha")
-    alpha_launches += 1
-    return alpha
+    kernels.check(err, lib, "ctc_lattice")
+    lattice_launches += 1
+    return alpha, beta
 
 
-def ctc_grad(em, alpha, log_l, g, in_lens, out_lens):
-    """The gradient of ``-logL · g`` with respect to ``em`` [B, T_m, S]."""
+def ctc_grad(alpha, beta, log_l, g, out_lens):
+    """The gradient of ``-logL · g`` with respect to the state emissions
+    [B, T_m, S], elementwise from the two lattices."""
     global grad_launches
-    if em.device.type == "cpu":
-        return ctc_grad_plain(em, alpha, log_l, g, in_lens, out_lens)
-    _check(em, (alpha, log_l, g), (in_lens, out_lens))
-    if alpha.shape != em.shape or log_l.shape != em.shape[:1] \
-            or g.shape != em.shape[:1]:
-        raise ValueError("ctc_grad takes alpha like em and logL, g [B]")
-    B, T_m, S = em.shape
+    if alpha.device.type == "cpu":
+        return ctc_grad_plain(alpha, beta, log_l, g, out_lens)
+    _check(alpha, (beta, log_l, g), (out_lens,))
+    if beta.shape != alpha.shape or log_l.shape != alpha.shape[:1] \
+            or g.shape != alpha.shape[:1]:
+        raise ValueError("ctc_grad takes beta like alpha and logL, g [B]")
+    B, T_m, S = alpha.shape
     lib = _lib()
-    dem = torch.empty_like(em)
+    dem = torch.empty_like(alpha)
     err = lib.ctts_ctc_grad(
-        em.data_ptr(), alpha.data_ptr(), log_l.data_ptr(), g.data_ptr(),
-        in_lens.data_ptr(), out_lens.data_ptr(), dem.data_ptr(), B, T_m, S,
-        torch.cuda.current_stream(em.device).cuda_stream)
+        alpha.data_ptr(), beta.data_ptr(), log_l.data_ptr(), g.data_ptr(),
+        out_lens.data_ptr(), dem.data_ptr(), B, T_m, S,
+        torch.cuda.current_stream(alpha.device).cuda_stream)
     kernels.check(err, lib, "ctc_grad")
     grad_launches += 1
     return dem
@@ -178,27 +191,30 @@ def ctc_grad(em, alpha, log_l, g, in_lens, out_lens):
 
 class _CtcStateNll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, em, in_lens, out_lens):
-        em = em.contiguous()
-        alpha = ctc_alpha(em, out_lens)
+    def forward(ctx, em, in_lens, out_lens, with_beta):
+        alpha, beta = ctc_lattice(em.contiguous(), in_lens, out_lens,
+                                  with_beta)
         # frames past out_len freeze alpha, so the last row holds the finals
         i2 = 2 * in_lens.long()
         idx = torch.stack([i2, (i2 - 1).clamp(min=0)], dim=1)
         log_l = torch.logsumexp(alpha[:, -1].gather(1, idx), dim=-1)
-        ctx.save_for_backward(em, alpha, log_l, in_lens, out_lens)
+        ctx.save_for_backward(alpha, beta, log_l, out_lens)
         return -log_l
 
     @staticmethod
     def backward(ctx, g):
-        em, alpha, log_l, in_lens, out_lens = ctx.saved_tensors
-        return (ctc_grad(em, alpha, log_l, g.contiguous(), in_lens, out_lens),
-                None, None)
+        alpha, beta, log_l, out_lens = ctx.saved_tensors
+        return ctc_grad(alpha, beta, log_l, g.contiguous(), out_lens), \
+            None, None, None
 
 
 def ctc_state_nll(em, in_lens, out_lens):
     """Per-utterance CTC negative log-likelihood [B] of labels 1..in_len
-    over state log-emissions em [B, T_m, S] (float32; lengths int32)."""
-    return _CtcStateNll.apply(em, in_lens, out_lens)
+    over state log-emissions em [B, T_m, S] (float32; lengths int32).
+    Beta, which only the gradient reads, is computed only where one can be
+    asked for (validation runs alpha alone)."""
+    return _CtcStateNll.apply(em, in_lens, out_lens,
+                              torch.is_grad_enabled() and em.requires_grad)
 
 
 def forward_sum_loss(attn_logprob, in_lens, out_lens):

@@ -142,7 +142,7 @@ def launch_counts():
             "gather_rows": sort_gather.launches,
             "scatter_rows": sort_gather.scatter_launches,
             "b_mas": mas.launches,
-            "ctc_alpha": forward_sum.alpha_launches,
+            "ctc_lattice": forward_sum.lattice_launches,
             "ctc_grad": forward_sum.grad_launches,
             "relpos_fwd": relpos_attention.launches,
             "relpos_bwd": relpos_attention.bwd_launches,
@@ -160,7 +160,7 @@ def reset_launch_counts():
                                 mas, relpos_attention, sort_gather)
     attention.launches = sort_gather.launches = 0
     sort_gather.scatter_launches = mas.launches = 0
-    forward_sum.alpha_launches = forward_sum.grad_launches = 0
+    forward_sum.lattice_launches = forward_sum.grad_launches = 0
     relpos_attention.launches = relpos_attention.bwd_launches = 0
     local_window_attention.launches = local_window_attention.bwd_launches = 0
     lsh_chunk_attention.launches = lsh_chunk_attention.bwd_launches = 0

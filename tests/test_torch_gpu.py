@@ -12,6 +12,31 @@ import torch
 
 pytestmark = pytest.mark.gpu
 
+# bf16 attention, row by row: max|kernel - plain f32 on the same bf16
+# inputs| of a query row over the row's largest |plain| (the kernel rounds P
+# and the output to bf16; its numpy model in
+# tests/test_torch_attention_tiles.py reaches 5.9e-3 on these cases, a wrong
+# or stale K/V tile 0.28 and more)
+ATTN_ROW_TOL_BF16 = 1e-2
+
+
+def _row_err(got, ref):
+    return ((got.float() - ref).abs().amax(-1)
+            / ref.abs().amax(-1).clamp(min=1e-30)).max().item()
+
+
+def _check_attention(got, ref, args, lens, scale, tol):
+    """The absolute tolerance on every entry against ``ref``; in bf16 also
+    the row tolerance against the plain version on the kernel's own inputs
+    ``args``, which a fault confined to the long rows' small outputs cannot
+    pass."""
+    from ctts_torch.ops import attention
+    assert (got.float() - ref).abs().max().item() <= tol
+    if got.dtype == torch.bfloat16:
+        same = attention.attention_plain(*(a.float() for a in args), lens,
+                                         scale)
+        assert _row_err(got, same) <= ATTN_ROW_TOL_BF16
+
 
 def _need_card():
     if not torch.cuda.is_available():
@@ -39,13 +64,12 @@ def test_attention_kernel_matches_plain(T, d, dtype, tol):
     ref = attention.attention_plain(q.to(dev), k.to(dev), v.to(dev),
                                     lens.to(dev), scale)
     before = attention.launches
-    got = attention.fused_attention(q.to(dev, dtype), k.to(dev, dtype),
-                                    v.to(dev, dtype), lens.to(dev), scale)
+    args = [t.to(dev, dtype) for t in (q, k, v)]
+    got = attention.fused_attention(*args, lens.to(dev), scale)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
     assert got.dtype == dtype and got.shape == (N, T, d)
-    err = (got.float() - ref).abs().max().item()
-    assert err <= tol, err
+    _check_attention(got, ref, args, lens.to(dev), scale, tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -237,43 +261,177 @@ def test_mas_kernel_bit_exact(B, T_m, T_s, kind):
     assert not got.requires_grad
 
 
-@pytest.mark.parametrize("B,T_m,T_s", [(16, 896, 128), (3, 70, 45), (2, 20, 1)])
-def test_ctc_kernels_match_plain(B, T_m, T_s):
-    """alpha ≤ 2e-5 of max(1, |alpha|) on reachable entries (the sentinels
-    agree in place); gradient ≤ 5e-3 of its largest entry; both through the
-    autograd.Function, against plain run on the card."""
-    dev = _need_card()
+def _ctc_em(rng, dev, B, T_m, T_s, in_lens, out_lens):
     from ctts_torch.ops import forward_sum as fs
-    rng = np.random.RandomState(B + T_m)
-    in_lens = torch.from_numpy(_ragged(rng, B, max(T_s // 2, 1), T_s)).to(dev)
-    out_lens = torch.from_numpy(_ragged(rng, B, T_m - T_m // 3, T_m)).to(dev)
     logits = torch.from_numpy(rng.randn(B, T_m, T_s + 1).astype(
         np.float32)).to(dev)
     key = torch.arange(T_s + 1, device=dev)[None, None, :]
-    em = fs._interleave(fs._log_softmax(torch.where(
+    return fs._interleave(fs._log_softmax(torch.where(
         key <= in_lens[:, None, None], logits,
         logits.new_full((), fs.NEG)))).contiguous()
-    before = fs.alpha_launches, fs.grad_launches
+
+
+def _lattice_err(got, ref):
+    """max |got - ref| / max(1, |ref|) over reachable entries; the
+    sentinels must agree in place."""
+    live = ref > -1e8
+    assert torch.equal(live, got > -1e8)
+    return ((got - ref).abs() / ref.abs().clamp(min=1.0))[live].max().item()
+
+
+def _check_ctc(em, in_lens, out_lens, cot):
+    """alpha and beta ≤ 2e-5 of max(1, |ref|) on reachable entries, and
+    bit-exact; the NLL to 2e-5 of max |logL|; the gradient ≤ 5e-3 of
+    its largest entry where the end is reachable (out_len >= in_len; elsewhere the
+    gradient is ill-conditioned, ROADMAP.md §3, and only finite), and zero
+    at or past out_len; one lattice and one gradient launch through the
+    autograd.Function; each kernel against its plain version run on the
+    card."""
+    from ctts_torch.ops import forward_sum as fs
+    before = fs.lattice_launches, fs.grad_launches
     e = em.clone().requires_grad_(True)
     nll = fs.ctc_state_nll(e, in_lens, out_lens)
-    cot = torch.from_numpy(rng.rand(B).astype(np.float32) + 0.5).to(dev)
     (nll * cot).sum().backward()
     torch.cuda.synchronize()
-    assert (fs.alpha_launches, fs.grad_launches) == (before[0] + 1,
-                                                     before[1] + 1)
-    alpha = fs.ctc_alpha(em, out_lens)
-    ref = fs.ctc_alpha_plain(em, out_lens)
-    live = ref > -1e8
-    assert torch.equal(live, alpha > -1e8)
-    err = ((alpha - ref).abs() / ref.abs().clamp(min=1.0))[live].max().item()
-    assert err <= 2e-5, err
+    assert (fs.lattice_launches, fs.grad_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    alpha, beta = fs.ctc_lattice(em, in_lens, out_lens)
+    ref_a = fs.ctc_alpha_plain(em, out_lens)
+    ref_b = fs.ctc_beta_plain(em, in_lens, out_lens)
+    assert _lattice_err(alpha, ref_a) <= 2e-5
+    assert _lattice_err(beta, ref_b) <= 2e-5
+    # the kernels' log-sum-exps are the plain version's, term for term
+    assert torch.equal(alpha, ref_a) and torch.equal(beta, ref_b)
     i2 = 2 * in_lens.long()
-    log_l = torch.logsumexp(ref[:, -1].gather(
-        1, torch.stack([i2, i2 - 1], 1)), -1)
-    assert (nll + log_l).abs().max().item() <= 2e-5 * log_l.abs().max().item()
-    want = fs.ctc_grad_plain(em, ref, log_l, cot, in_lens, out_lens)
-    gerr = (e.grad - want).abs().max().item() / want.abs().max().item()
-    assert gerr <= 5e-3, gerr
+    log_l = torch.logsumexp(ref_a[:, -1].gather(
+        1, torch.stack([i2, (i2 - 1).clamp(min=0)], 1)), -1)
+    assert (nll + log_l).abs().max().item() <= \
+        2e-5 * log_l.abs().max().item()
+    want = fs.ctc_grad_plain(ref_a, ref_b, log_l, cot, out_lens)
+    reach = out_lens >= in_lens
+    scale = want[reach].abs().max().item()
+    assert (e.grad - want)[reach].abs().max().item() <= 5e-3 * scale
+    assert bool(torch.isfinite(e.grad).all())
+    got = fs.ctc_grad(ref_a, ref_b, log_l, cot, out_lens)
+    assert (got - want)[reach].abs().max().item() <= 1e-6 * scale
+    assert torch.equal(got, want)
+    for b, n in enumerate(out_lens.tolist()):
+        assert not e.grad[b, max(n, 0):].any()
+
+
+@pytest.mark.parametrize("B,T_m,T_s", [(16, 896, 128), (3, 70, 45), (2, 20, 1)])
+def test_ctc_kernels_match_plain(B, T_m, T_s):
+    """The lattice (alpha and beta) and the gradient at the train shape and
+    small ones, ragged lengths."""
+    dev = _need_card()
+    rng = np.random.RandomState(B + T_m)
+    in_lens = torch.from_numpy(_ragged(rng, B, max(T_s // 2, 1), T_s)).to(dev)
+    out_lens = torch.from_numpy(_ragged(rng, B, T_m - T_m // 3, T_m)).to(dev)
+    em = _ctc_em(rng, dev, B, T_m, T_s, in_lens, out_lens)
+    cot = torch.from_numpy(rng.rand(B).astype(np.float32) + 0.5).to(dev)
+    _check_ctc(em, in_lens, out_lens, cot)
+
+
+def test_ctc_kernels_edge_lengths():
+    """out_len 0, 1 and 2, out_len < in_len (the end unreachable), out_len
+    = in_len, in_len 1, and S = 513 (a block of 544 threads, one a state:
+    17 warps, the last one partly idle)."""
+    dev = _need_card()
+    rng = np.random.RandomState(11)
+    B, T_m, T_s = 8, 300, 256
+    in_lens = torch.tensor([256, 1, 200, 40, 3, 256, 128, 1],
+                           dtype=torch.int32, device=dev)
+    out_lens = torch.tensor([300, 0, 1, 2, 299, 100, 128, 5],
+                            dtype=torch.int32, device=dev)
+    em = _ctc_em(rng, dev, B, T_m, T_s, in_lens, out_lens)
+    cot = torch.from_numpy(rng.rand(B).astype(np.float32) + 0.5).to(dev)
+    _check_ctc(em, in_lens, out_lens, cot)
+
+
+def test_ctc_lattice_runs_are_bit_identical():
+    dev = _need_card()
+    from ctts_torch.ops import forward_sum as fs
+    rng = np.random.RandomState(12)
+    B, T_m, T_s = 4, 300, 100
+    in_lens = torch.from_numpy(_ragged(rng, B, 50, T_s)).to(dev)
+    out_lens = torch.from_numpy(_ragged(rng, B, 200, T_m)).to(dev)
+    em = _ctc_em(rng, dev, B, T_m, T_s, in_lens, out_lens)
+    one = fs.ctc_lattice(em, in_lens, out_lens)
+    two = fs.ctc_lattice(em, in_lens, out_lens)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_ctc_lattice_alpha_alone_without_a_gradient():
+    """With no gradient to come (validation) the lattice launches the
+    alpha blocks alone: one launch, the same alpha bits, no beta, and the
+    NLL under no_grad equals the NLL with a gradient."""
+    dev = _need_card()
+    from ctts_torch.ops import forward_sum as fs
+    rng = np.random.RandomState(13)
+    B, T_m, T_s = 16, 896, 128
+    in_lens = torch.from_numpy(_ragged(rng, B, 64, T_s)).to(dev)
+    out_lens = torch.from_numpy(_ragged(rng, B, 600, T_m)).to(dev)
+    em = _ctc_em(rng, dev, B, T_m, T_s, in_lens, out_lens)
+    both, _ = fs.ctc_lattice(em, in_lens, out_lens)
+    before = fs.lattice_launches
+    alone, beta = fs.ctc_lattice(em, in_lens, out_lens, False)
+    assert fs.lattice_launches == before + 1 and beta is None
+    assert torch.equal(alone, both)
+    e = em.clone().requires_grad_(True)
+    with_grad = fs.ctc_state_nll(e, in_lens, out_lens)
+    with torch.no_grad():
+        without = fs.ctc_state_nll(e, in_lens, out_lens)
+    assert torch.equal(with_grad.detach(), without)
+
+
+def _attention_case(rng, dev, N, T, d, lens):
+    q, k, v = (torch.from_numpy(rng.randn(N, T, d).astype(np.float32)).to(dev)
+               for _ in range(3))
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,d", [(97, 64), (97, 256), (1152, 64),
+                                 (1152, 256)])
+def test_attention_kernel_other_widths_bit_identical(T, d, dtype, tol):
+    """Lengths of 0 and 1, a ragged last query block and key tile; one
+    launch a call; two runs give the same bits."""
+    dev = _need_card()
+    from ctts_torch.ops import attention
+    rng = np.random.RandomState(T * d)
+    q, k, v, lens = _attention_case(rng, dev, 6, T, d,
+                                    [0, 1, T, T - 1, 65, T // 2])
+    scale = d ** -0.5
+    ref = attention.attention_plain(q, k, v, lens, scale)
+    args = [t.to(dtype) for t in (q, k, v)]
+    before = attention.launches
+    one = attention.fused_attention(*args, lens, scale)
+    two = attention.fused_attention(*args, lens, scale)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 2
+    assert torch.equal(one, two)
+    _check_attention(one, ref, args, lens, scale, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_attention_kernel_at_the_decoder_train_shape(dtype, tol):
+    """N = 32 (16 utterances, 2 heads), T = 896, d = 128, the train step's
+    ragged mel lengths."""
+    dev = _need_card()
+    from ctts_torch.ops import attention
+    rng = np.random.RandomState(896)
+    mel = _ragged(rng, 16, 500, 896)
+    q, k, v, lens = _attention_case(rng, dev, 32, 896, 128,
+                                    np.repeat(mel, 2).tolist())
+    ref = attention.attention_plain(q, k, v, lens, 128 ** -0.5)
+    before = attention.launches
+    args = [t.to(dtype) for t in (q, k, v)]
+    got = attention.fused_attention(*args, lens)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    _check_attention(got, ref, args, lens, 128 ** -0.5, tol)
 
 
 def test_attention_function_backward_on_the_card():
@@ -306,10 +464,14 @@ def test_training_wrappers_raise_on_untaken_cuda_input():
     with pytest.raises(ValueError):
         mas.b_mas(torch.rand(2, 6, 1030, device=dev), lens, lens)
     with pytest.raises(ValueError):
-        fs.ctc_alpha(torch.zeros(2, 6, 1025, device=dev), lens)
+        fs.ctc_lattice(torch.zeros(2, 6, 1025, device=dev), lens, lens)
     with pytest.raises(TypeError):
-        fs.ctc_alpha(torch.zeros(2, 6, 7, device=dev, dtype=torch.float64),
-                     lens)
+        fs.ctc_lattice(torch.zeros(2, 6, 7, device=dev, dtype=torch.float64),
+                       lens, lens)
+    with pytest.raises(ValueError):
+        z = torch.zeros(2, device=dev)
+        fs.ctc_grad(torch.zeros(2, 6, 7, device=dev),
+                    torch.zeros(2, 6, 8, device=dev), z, z, lens)
     with pytest.raises(TypeError):
         sort_gather.scatter_rows(torch.zeros(2, 3, 4, device=dev,
                                              dtype=torch.float16),
@@ -338,12 +500,12 @@ def test_train_step_on_the_card_tiny():
     state = create_train_state(model, opt, step=7000)
     step = make_train_step(pre, mc, tr, "train_unsup")
     batch = batch_to_device(synth_batch(prior=False), dev)
-    before = (sort_gather.scatter_launches, mas.launches, fs.alpha_launches,
+    before = (sort_gather.scatter_launches, mas.launches, fs.lattice_launches,
               fs.grad_launches)
     for _ in range(3):
         metrics = step(state, batch)
     assert all(np.isfinite(v.item()) for v in metrics.values())
-    after = (sort_gather.scatter_launches, mas.launches, fs.alpha_launches,
+    after = (sort_gather.scatter_launches, mas.launches, fs.lattice_launches,
              fs.grad_launches)
     assert [a - b for a, b in zip(after, before)] == [6, 3, 3, 3]
 

@@ -160,7 +160,8 @@ def test_cuda_inputs_of_the_training_kernels_never_reach_plain(monkeypatch):
     from ctts_torch.ops import mas as t_mas
     for mod, plains in ((t_sg, ("scatter_rows_plain",)),
                         (t_mas, ("b_mas_plain", "_mas_from_log")),
-                        (t_fs, ("ctc_alpha_plain", "ctc_grad_plain"))):
+                        (t_fs, ("ctc_alpha_plain", "ctc_beta_plain",
+                                "ctc_grad_plain"))):
         for name in plains:
             monkeypatch.setattr(mod, name, _no_plain)
         monkeypatch.setattr(mod, "_lib", _to_kernel)
@@ -174,21 +175,21 @@ def test_cuda_inputs_of_the_training_kernels_never_reach_plain(monkeypatch):
         t_mas.b_mas(attn, lens, lens)
     em = _OnCuda(torch.zeros(2, 6, 7))
     with pytest.raises(_KernelReached):
-        t_fs.ctc_alpha(em, lens)
+        t_fs.ctc_lattice(em, lens, lens)
     z = _OnCuda(torch.zeros(2))
     with pytest.raises(_KernelReached):
-        t_fs.ctc_grad(em, em, z, z, lens, lens)
+        t_fs.ctc_grad(em, em, z, z, lens)
     # dtypes and shapes the kernels do not take raise before any launch
     long_lens = _OnCuda(torch.tensor([3, 2]))
     with pytest.raises(TypeError):
         t_mas.b_mas(attn, long_lens, lens)
     with pytest.raises(TypeError):
-        t_fs.ctc_alpha(em, long_lens)
+        t_fs.ctc_lattice(em, lens, long_lens)
     with pytest.raises(TypeError):
-        t_fs.ctc_alpha(_OnCuda(torch.zeros(2, 6, 7, dtype=torch.bfloat16)),
-                       lens)
+        t_fs.ctc_lattice(_OnCuda(torch.zeros(2, 6, 7, dtype=torch.bfloat16)),
+                         lens, lens)
     with pytest.raises(ValueError):
-        t_fs.ctc_alpha(_OnCuda(torch.zeros(2, 6, 1025)), lens)
+        t_fs.ctc_lattice(_OnCuda(torch.zeros(2, 6, 1025)), lens, lens)
     with pytest.raises(TypeError):
         t_sg.scatter_rows(_OnCuda(torch.zeros(2, 3, 8, dtype=torch.float16)),
                           idx, 5)
