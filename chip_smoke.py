@@ -12,7 +12,9 @@ suppresses the final line:
    with the tolerance stated, and its time beside the plain version's, one
    library call's and the bound computed from the shapes; the attention
    also at the train step's decoder and encoder shapes, with the registers
-   and spills of its instances and its fraction of the bound;
+   and spills of its instances and its fraction of the bound; the row
+   gather also at the train step's upsample and the reformer's sorted-row
+   shapes, each with its fraction of the bound;
 3. the trained-weights probe: ``assets/ljdemo_ckpt.npz`` with the
    ``configs/LJSpeech.yaml`` defaults (bf16 stacks) on the 4 texts of
    ``assets/ljdemo_ckpt_manifest.json`` at the 1152-frame budget, held to
@@ -25,7 +27,10 @@ suppresses the final line:
    scatter, MAS (bit-exact), the CTC lattice (alpha and beta in one
    launch) and the elementwise CTC gradient, and the attention backward;
    each with its time, its bound, the barrier-chain floor where the work is
-   a chain of frames, and one library call as a yardstick; the scatter also
+   a chain of frames (for MAS also the warp-chain floor of its one-warp
+   chain, its wrapper's time, and its logarithm held bit for bit to the
+   wrapper's torch expression), and one library call as a yardstick; the
+   scatter also
    at the reformer's un-sort and LSH chunk-backward shapes;
 6. the ``train_unsup`` step of ``ctts_torch.parallel.train_step`` at full
    width and depth in bf16, from ``assets/ljdemo_ckpt.npz`` (step 13301, the
@@ -504,26 +509,47 @@ class Smoke:
                 and not bool(got[:, :3].any())):
             raise AssertionError("gather: out-of-range rows are not zero")
         print("gather out-of-range indices: zero rows, bit-exact")
-        vals = randn(gen, G, N, F).to(dev)
-        idx_full = idx.long()[..., None].expand(G, M, F).contiguous()
-        ms, ev_ms = timings(lambda: sort_gather.gather_rows(vals, idx))
-        plain_ms, ev_plain = timings(
-            lambda: sort_gather.gather_rows_plain(vals, idx))
-        lib_ms, ev_lib = timings(lambda: torch.gather(vals, 1, idx_full))
-        nbytes = G * N * F * 4 + G * M * 4 + G * M * F * 4
-        b_ms, b_by = bound(0, nbytes, PEAK_BF16_FLOPS)
-        print(f"gather timing f32 G={G} N={N} M={M} F={F}: device ms kernel "
-              f"{ms:.4f}, plain {plain_ms:.4f}, torch.gather {lib_ms:.4f}; event ms "
-              f"(launch gaps included) kernel {ev_ms:.4f}, plain "
-              f"{ev_plain:.4f}, torch.gather {ev_lib:.4f}; bound {b_ms:.5f} "
-              f"ms ({b_by})")
+        # the probe's upsample, the fs2 train step's (x_up and the energy
+        # embedding), the reformer default route's sorted-row gather
+        per_shape = {}
+        for what, dtype, (G, N, M, F) in (
+                ("probe", torch.float32, (4, 97, 1152, 256)),
+                ("fs2 train step", torch.bfloat16, (16, 129, 896, 256)),
+                ("reformer sorted rows", torch.bfloat16, (64, 896, 3584, 256))):
+            vals = randn(gen, G, N, F).to(dev, dtype)
+            idx = torch.randint(0, N, (G, M), generator=gen,
+                                dtype=torch.int32).to(dev)
+            if not torch.equal(sort_gather.gather_rows(vals, idx),
+                               sort_gather.gather_rows_plain(vals, idx)):
+                raise AssertionError(f"gather {what} differs from plain")
+            idx_full = idx.long()[..., None].expand(G, M, F).contiguous()
+            ms, ev_ms = timings(lambda: sort_gather.gather_rows(vals, idx))
+            plain_ms, ev_plain = timings(
+                lambda: sort_gather.gather_rows_plain(vals, idx))
+            lib_ms, ev_lib = timings(lambda: torch.gather(vals, 1, idx_full))
+            nbytes = (G * N * F + G * M * F) * vals.element_size() + G * M * 4
+            b_ms, b_by = bound(0, nbytes, PEAK_BF16_FLOPS)
+            per_shape[what] = (ms, ev_ms, plain_ms, lib_ms, b_ms, b_by)
+            print(f"gather timing, {what}, {str(dtype)[6:]} G={G} N={N} M={M} "
+                  f"F={F}: bit-exact; device ms kernel {ms:.4f}, plain "
+                  f"{plain_ms:.4f}, torch.gather {lib_ms:.4f}; event ms "
+                  f"(launch gaps included) kernel {ev_ms:.4f}, plain "
+                  f"{ev_plain:.4f}, torch.gather {ev_lib:.4f}; bound "
+                  f"{b_ms:.5f} ms ({b_by}), the kernel at {b_ms / ms:.3f} of "
+                  f"it")
+        print(f"gather: PERF.md row 2 records {recorded_ms(2)}")
+        ms, ev_ms, plain_ms, lib_ms, b_ms, b_by = per_shape["probe"]
         self.kernels["gather_rows"] = {
             "name": "gather_rows", "route": "cuda",
             "source": "ctts_torch/csrc/gather_rows.cu",
             "replaces": "ctts_tpu/ops/sort_gather.py:84", "launches": None,
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "shape": "f32 G=4 N=97 M=1152 F=256"}
+            "shape": "f32 G=4 N=97 M=1152 F=256",
+            "other_shapes": {k: {"ms": v[0], "event_ms": v[1],
+                                 "plain_ms": v[2], "library_ms": v[3],
+                                 "bound_ms": v[4]}
+                             for k, v in per_shape.items() if k != "probe"}}
 
     # ---- phase 3 ----------------------------------------------------- #
     def probe(self):
@@ -819,24 +845,44 @@ class Smoke:
                   f"({frames} path cells, {int(olens.sum())} frames)")
             if not exact:
                 raise AssertionError(f"MAS {name} differs from plain")
-        ms, ev_ms = timings(lambda: mas.b_mas(seeded, il, ol), only="mas_kernel")
-        whole_ms, _ = timings(lambda: mas.b_mas(seeded, il, ol))
+        # the kernel's logarithm against the wrapper's torch expression
+        p = seeded.reshape(-1)
+        if not torch.equal(mas.kernel_log(p).view(torch.int32), torch.log(
+                torch.clamp(p, min=1e-12)).view(torch.int32)):
+            raise AssertionError("MAS: the kernel's log differs from torch's")
+        print("MAS log: the kernel's logf(max(p, eps)) is "
+              "torch.log(torch.clamp(p, eps)) bit for bit")
+        frames = int(mel_lens.max())
+        K = mas._lib().ctts_mas_cols_per_lane(T_S)
+        ms, ev_ms = timings(lambda: mas.b_mas(seeded, il, ol),
+                            only="mas_kernel")
+        whole_ms, ev_whole = timings(lambda: mas.b_mas(seeded, il, ol))
         plain_ms, _ = timings(lambda: mas.b_mas_plain(seeded, il, ol), iters=2)
+        out_b = torch.empty(B_TRAIN, T_S, device=dev)
+        chain_ms, ev_chain = timings(lambda: kernels.barrier_chain(
+            out_b, B_TRAIN, T_S, frames))
+        out_w = torch.empty(B_TRAIN, 32, device=dev)
+        warp_ms, ev_warp = timings(lambda: kernels.warp_chain(
+            out_w, B_TRAIN, frames, K))
         # rows at or past out_len are never read; every output row is written
         nbytes = int(mel_lens.sum()) * T_S * 4 + B_TRAIN * T_M * T_S * 4 \
             + 2 * B_TRAIN * 4
-        chain_ms = kernels.barrier_chain_ms(B_TRAIN, T_S, int(mel_lens.max()))
         b_ms = self.record(
             "b_mas", "ctts_torch/csrc/mas.cu",
             "ctts_tpu/ops/mas.py:131,174", 0.0, ms, plain_ms, nbytes, None,
             f"f32 B={B_TRAIN} T_m={T_M} T_s={T_S}, ragged lengths",
-            chain_floor_ms=chain_ms)
-        print(f"MAS timing B={B_TRAIN} T_m={T_M} T_s={T_S}: device ms kernel "
-              f"{ms:.4f} (with the wrapper's log and clamp {whole_ms:.4f}), "
-              f"plain {plain_ms:.3f}; event ms of the wrapper {ev_ms:.4f}; "
-              f"bound {b_ms:.5f} ms (bytes); barrier-chain floor "
-              f"{chain_ms:.4f} ms ({int(mel_lens.max())} frames, {T_S} "
-              f"threads); no library call computes it")
+            event_ms=ev_ms, wrapper_ms=whole_ms, barrier_floor_ms=chain_ms,
+            warp_floor_ms=warp_ms)
+        print(f"MAS timing B={B_TRAIN} T_m={T_M} T_s={T_S} (K={K}): device ms "
+              f"kernel {ms:.4f}, the wrapper {whole_ms:.4f}, plain "
+              f"{plain_ms:.3f}; event ms kernel {ev_ms:.4f}, the wrapper "
+              f"{ev_whole:.4f}; bound {b_ms:.5f} ms (bytes); barrier-chain "
+              f"floor {chain_ms:.4f} (events {ev_chain:.4f}; {frames} frames, "
+              f"{T_S} threads); warp-chain floor {warp_ms:.4f} (events "
+              f"{ev_warp:.4f}; {frames} frames, one warp, K={K}); the kernel "
+              f"{'under' if ms < chain_ms else 'over'} the barrier floor; no "
+              f"library call computes it")
+        print(f"MAS: PERF.md row 4 records {recorded_ms(4)}")
 
     def ctc(self):
         import torch.nn.functional as F

@@ -101,28 +101,58 @@ class KernelLibrary:
 LIBRARY = KernelLibrary()
 
 
-def barrier_chain_ms(blocks, threads, frames, iters=20):
-    """Device milliseconds of ``csrc/barrier_chain.cu``: ``frames``
-    dependent frames of one block-wide barrier and a shared-memory round
-    trip, on ``blocks`` blocks of ``threads`` threads. The floor that the
-    sequential chain sets for the MAS and CTC kernels at that shape."""
+def barrier_chain(out, blocks, threads, frames):
+    """One launch of ``csrc/barrier_chain.cu``'s barrier chain into ``out``
+    [blocks, threads] float32 on the card: ``frames`` dependent frames of
+    one block-wide barrier and a shared-memory round trip. The floor that
+    one barrier a frame sets for a chain kernel at that shape."""
     import torch
     lib = LIBRARY.get()
     fn = lib.ctts_barrier_chain
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty(blocks, threads, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    check(fn(out.data_ptr(), blocks, threads, frames,
+             torch.cuda.current_stream().cuda_stream), lib, "barrier_chain")
+
+
+def warp_chain(out, blocks, frames, k):
+    """One launch of ``csrc/barrier_chain.cu``'s warp chain into ``out``
+    [blocks, 32] float32 on the card: one warp a block, ``k`` columns a
+    lane, ``frames`` + 31 skewed steps of one shuffle and compare, select
+    and add on each column. The floor that the chain warp of
+    ``csrc/mas.cu`` sets at that shape."""
+    import torch
+    lib = LIBRARY.get()
+    fn = lib.ctts_warp_chain
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    check(fn(out.data_ptr(), blocks, frames, k,
+             torch.cuda.current_stream().cuda_stream), lib, "warp_chain")
+
+
+def _event_ms(launch, iters):
+    import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for i in range(iters + 3):
         if i == 3:
             start.record()
-        check(fn(out.data_ptr(), blocks, threads, frames, stream), lib,
-              "barrier_chain")
+        launch()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def barrier_chain_ms(blocks, threads, frames, iters=20):
+    """CUDA-event milliseconds of one :func:`barrier_chain` launch."""
+    import torch
+    out = torch.empty(blocks, threads, device="cuda")
+    return _event_ms(lambda: barrier_chain(out, blocks, threads, frames),
+                     iters)
 
 
 def check(err, lib, what):

@@ -3,11 +3,13 @@
 ``b_mas`` binarizes the aligner's soft attention: a Viterbi pass over mel
 frames (a path starts at (0, 0), moves down or diagonally, and ends at
 (mel_len-1, text_len-1)) and a backtrack to a {0, 1} alignment. On the card
-it launches ``csrc/mas.cu``; on the CPU it runs :func:`b_mas_plain`, the
-semantics of ``_mas_single`` / ``b_mas_scan``. Both take the
-log-probabilities that the wrapper computes with one torch expression and
-do float32 adds and compares only, so they agree bit for bit. No gradient
-flows through either.
+it launches ``csrc/mas.cu`` on the probabilities, which computes their
+logarithm itself, as the Pallas forward does; on the CPU it runs
+:func:`b_mas_plain`, the semantics of ``_mas_single`` / ``b_mas_scan``, on
+the logarithm of one torch expression. The kernel's logarithm is that
+expression's bits (``logf`` at full precision, the clamp keeping a NaN), and
+both do float32 adds and compares only after it, so they agree bit for bit.
+No gradient flows through either.
 """
 
 import ctypes
@@ -70,12 +72,24 @@ def _lib():
     lib = kernels.LIBRARY.get()
     fn = lib.ctts_mas
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ctts_mas_shared_bytes.argtypes = [ctypes.c_longlong] * 2
         lib.ctts_mas_shared_bytes.restype = ctypes.c_longlong
+        lib.ctts_mas_scratch_bytes.argtypes = [ctypes.c_longlong] * 3
+        lib.ctts_mas_scratch_bytes.restype = ctypes.c_longlong
+        lib.ctts_mas_log.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+        lib.ctts_mas_log.restype = ctypes.c_int
     return lib
+
+
+def shared_bytes(T_m, T_s):
+    """Bytes of shared memory one block of the kernel needs at [T_m, T_s]
+    (its ring of step rows and its move bits), as ``csrc/mas.cu``
+    computes them."""
+    return _lib().ctts_mas_shared_bytes(T_m, T_s)
 
 
 def b_mas(attn_soft, in_lens, out_lens, eps=1e-12):
@@ -103,17 +117,36 @@ def b_mas(attn_soft, in_lens, out_lens, eps=1e-12):
     need = lib.ctts_mas_shared_bytes(T_m, T_s)
     if T_s > 1024 or need > _MAX_SHARED:
         raise ValueError(
-            f"the MAS kernel takes T_s <= 1024 and a [T_m, T_s/32] move "
-            f"bitmap within {_MAX_SHARED} bytes of shared memory; "
-            f"[{T_m}, {T_s}] needs {need}")
-    log_attn = _log_attn(attn_soft, eps).contiguous()
-    out = torch.empty_like(log_attn)
+            f"the MAS kernel takes T_s <= 1024 and a ring of step rows plus "
+            f"the move bits of T_m + 62 frames within {_MAX_SHARED} bytes of "
+            f"shared memory; [{T_m}, {T_s}] needs {need}")
+    probs = attn_soft.detach().float().contiguous()
+    out = torch.empty_like(probs)
+    # the kernel's log blocks write the logarithms here and flag each chunk
+    scratch = torch.empty(lib.ctts_mas_scratch_bytes(B, T_m, T_s),
+                          dtype=torch.uint8, device=attn_soft.device)
     err = lib.ctts_mas(
-        log_attn.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
-        out.data_ptr(), B, T_m, T_s,
+        probs.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), B, T_m, T_s, eps,
         torch.cuda.current_stream(attn_soft.device).cuda_stream)
     kernels.check(err, lib, "b_mas")
     launches += 1
+    return out
+
+
+def kernel_log(probs, eps=1e-12):
+    """The MAS kernel's logarithm, ``logf(max(p, eps))``, applied to a
+    float32 tensor on the card by the kernel's own device function; for
+    holding it against :func:`_log_attn`'s torch expression. Not a launch
+    of the main path, so not counted."""
+    if probs.device.type != "cuda" or probs.dtype != torch.float32 \
+            or not probs.is_contiguous():
+        raise ValueError("kernel_log takes a contiguous float32 cuda tensor")
+    lib = _lib()
+    out = torch.empty_like(probs)
+    kernels.check(lib.ctts_mas_log(
+        probs.data_ptr(), out.data_ptr(), probs.numel(), eps,
+        torch.cuda.current_stream(probs.device).cuda_stream), lib, "mas_log")
     return out
 
 

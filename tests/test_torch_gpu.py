@@ -73,9 +73,13 @@ def test_attention_kernel_matches_plain(T, d, dtype, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,N,M,F", [(4, 97, 1152, 256), (2, 13, 50, 1),
-                                     (3, 9, 17, 3)])
+@pytest.mark.parametrize("G,N,M,F", [(4, 97, 1152, 256), (16, 129, 896, 256),
+                                     (64, 896, 3584, 256), (2, 13, 50, 1),
+                                     (3, 9, 17, 3), (2, 7, 33, 129)])
 def test_gather_kernel_bit_exact(G, N, M, F, dtype):
+    """The timed shapes (the probe's, the fs2 train step's upsample, the
+    reformer default route's sorted gather) and rows of 1, 3 and 129
+    elements, whose bytes are not a multiple of 16."""
     dev = _need_card()
     from ctts_torch.ops import sort_gather
     rng = np.random.RandomState(G * N + F)
@@ -88,6 +92,38 @@ def test_gather_kernel_bit_exact(G, N, M, F, dtype):
     assert sort_gather.launches == before + 1
     ref = sort_gather.gather_rows_plain(vals, idx)
     assert torch.equal(got, ref)
+
+
+def test_gather_kernel_unaligned_pointers():
+    """Views that start 4 and 2 bytes into their storage take the narrower
+    words and are still exact."""
+    dev = _need_card()
+    from ctts_torch.ops import sort_gather
+    rng = np.random.RandomState(6)
+    idx = torch.from_numpy(rng.randint(-1, 12, (2, 30)).astype(np.int32)).to(dev)
+    for dtype, shift in ((torch.float32, 1), (torch.bfloat16, 1)):
+        flat = torch.from_numpy(rng.randn(2 * 11 * 64 + shift).astype(
+            np.float32)).to(dev, dtype)
+        vals = flat[shift:].view(2, 11, 64)
+        got = sort_gather.gather_rows(vals, idx)
+        assert torch.equal(got, sort_gather.gather_rows_plain(vals, idx))
+
+
+@pytest.mark.parametrize("G,M", [(2, 300_000), (1, 600_000)])
+def test_gather_kernel_past_two_to_the_31_words(G, M):
+    """Rows of 4001 bytes (one-byte words) and an output of 2.4 GB, past
+    the 2^31 words one launch takes: cut into launches of whole groups, or
+    of rows of the one group; exact, with zero rows for indices outside."""
+    dev = _need_card()
+    from ctts_torch.ops import sort_gather
+    N, F = 8, 4001
+    gen = torch.Generator(device=dev).manual_seed(G)
+    vals = torch.randint(0, 256, (G, N, F), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    idx = torch.randint(-1, N + 1, (G, M), dtype=torch.int32, device=dev,
+                        generator=gen)
+    got = sort_gather.gather_rows(vals, idx)
+    assert torch.equal(got, sort_gather.gather_rows_plain(vals, idx))
 
 
 def test_gather_kernel_out_of_range_rows_are_zero():
@@ -235,30 +271,112 @@ def test_gather_and_scatter_kernels_are_each_others_backward():
     assert (v.grad - w.grad).abs().max().item() <= 1e-5 * w.grad.abs().max().item()
 
 
-@pytest.mark.parametrize("kind", ["seeded", "ties", "short"])
-@pytest.mark.parametrize("B,T_m,T_s", [(16, 896, 128), (3, 70, 45), (2, 33, 1)])
-def test_mas_kernel_bit_exact(B, T_m, T_s, kind):
-    """Equal bit for bit to ``b_mas_plain``: seeded inputs, an all-ties
-    input (uniform attention) and utterances with out_len < in_len."""
-    dev = _need_card()
-    from ctts_torch.ops import mas
-    rng = np.random.RandomState(B + T_s)
+def _mas_case(rng, B, T_m, T_s, kind):
     attn = rng.rand(B, T_m, T_s).astype(np.float32) ** 4 + 1e-9
     attn /= attn.sum(-1, keepdims=True)
     if kind == "ties":
         attn[:] = 1.0 / T_s
     in_lens = _ragged(rng, B, max(T_s // 2, 1), T_s)
-    out_lens = _ragged(rng, B, T_m // 2, T_m)
+    out_lens = _ragged(rng, B, max(T_m // 2, 1), T_m)
     if kind == "short":
         out_lens[1:] = np.maximum(in_lens[1:] // 3, 1)
-    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev)
-                               for a in (attn, in_lens, out_lens))
+    return attn, in_lens, out_lens
+
+
+@pytest.mark.parametrize("kind", ["seeded", "ties", "short"])
+@pytest.mark.parametrize("B,T_m,T_s", [(16, 896, 128), (3, 70, 45), (2, 33, 1),
+                                       (3, 120, 33), (3, 120, 129),
+                                       (2, 90, 257), (2, 70, 1024),
+                                       (2, 1100, 1024)])
+def test_mas_kernel_bit_exact(B, T_m, T_s, kind):
+    """Equal bit for bit to ``b_mas_plain``: seeded inputs, an all-ties
+    input (uniform attention) and utterances with out_len < in_len, at the
+    train shape and at T_s = 1, 33, 129, 257 and 1024 (K = 1 to 32
+    columns a lane; at 1024 also with paths of over 1024 frames), with one
+    launch a call."""
+    dev = _need_card()
+    from ctts_torch.ops import mas
+    rng = np.random.RandomState(B + T_s)
+    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
+                               _mas_case(rng, B, T_m, T_s, kind))
     before = mas.launches
     got = mas.b_mas(attn, in_lens, out_lens)
     torch.cuda.synchronize()
     assert mas.launches == before + 1
     assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
     assert not got.requires_grad
+
+
+def test_mas_kernel_edge_lengths():
+    """mel_len 0 and 1, text_len 0 and 1, lengths past the axes (clamped)
+    and negative ones."""
+    dev = _need_card()
+    from ctts_torch.ops import mas
+    rng = np.random.RandomState(8)
+    attn, _, _ = _mas_case(rng, 8, 60, 40, "seeded")
+    in_lens = np.array([0, 1, 40, 39, 25, 99, 40, -2], np.int32)
+    out_lens = np.array([60, 60, 0, 1, 9, 60, 200, 60], np.int32)
+    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev)
+                               for a in (attn, in_lens, out_lens))
+    got = mas.b_mas(attn, in_lens, out_lens)
+    assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
+
+
+@pytest.mark.parametrize("T_s", [128, 1024])
+def test_mas_kernel_near_its_shared_memory_limit(T_s):
+    """The longest T_m whose ring and move bits fit a block runs
+    bit-exact; one frame past the fit raises, naming the limit. At
+    T_s = 1024 that T_m is past T_s."""
+    dev = _need_card()
+    from ctts_torch.ops import mas
+    T_m = 1024
+    while mas.shared_bytes(T_m + 32, T_s) <= mas._MAX_SHARED:
+        T_m += 32
+    while mas.shared_bytes(T_m + 1, T_s) <= mas._MAX_SHARED:
+        T_m += 1
+    rng = np.random.RandomState(9)
+    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
+                               _mas_case(rng, 2, T_m, T_s, "seeded"))
+    assert T_m > T_s
+    got = mas.b_mas(attn, in_lens, out_lens)
+    assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
+    with pytest.raises(ValueError, match="shared"):
+        mas.b_mas(torch.rand(1, T_m + 1, T_s, device=dev), in_lens[:1],
+                  out_lens[:1])
+
+
+def test_mas_kernel_beside_a_busy_stream():
+    """While another stream holds most SMs with long-running blocks, the
+    kernel (whose blocks wait on no other block) still ends and is exact."""
+    dev = _need_card()
+    from ctts_torch.ops import kernels, mas
+    rng = np.random.RandomState(12)
+    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
+                               _mas_case(rng, 16, 896, 128, "seeded"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    busy = torch.empty(4 * sms, 1024, device=dev)
+    side = torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        kernels.barrier_chain(busy, 4 * sms, 1024, 20000)
+    got = mas.b_mas(attn, in_lens, out_lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
+
+
+def test_mas_kernel_log_is_the_wrappers_torch_expression():
+    """The kernel's logf(max(p, eps)) is torch.log(torch.clamp(p, eps)) bit
+    for bit on the card: softmax-like values, 0, eps, below eps, 1, above
+    1, a denormal, a NaN and -0."""
+    dev = _need_card()
+    from ctts_torch.ops import mas
+    rng = np.random.RandomState(10)
+    p = torch.from_numpy((rng.rand(1 << 20) ** 6).astype(np.float32)).to(dev)
+    p[:10] = torch.tensor([0.0, 1e-13, 1e-12, 1.0, float("nan"), 1e-40, 0.5,
+                           2.0, -0.0, 3e-12])
+    want = torch.log(torch.clamp(p, min=1e-12))
+    got = mas.kernel_log(p)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _ctc_em(rng, dev, B, T_m, T_s, in_lens, out_lens):
@@ -461,7 +579,7 @@ def test_training_wrappers_raise_on_untaken_cuda_input():
     lens = torch.tensor([3, 2], dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         mas.b_mas(torch.rand(2, 6, 3, device=dev), lens.long(), lens)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="1024"):
         mas.b_mas(torch.rand(2, 6, 1030, device=dev), lens, lens)
     with pytest.raises(ValueError):
         fs.ctc_lattice(torch.zeros(2, 6, 1025, device=dev), lens, lens)
