@@ -38,6 +38,19 @@ suppresses the final line:
    counters zeroed before each and read after it, one step below
    ``binarization_start_steps`` (soft upsample), one above
    ``var_start_steps``, then timed steps and one under ``torch.profiler``;
+6b. supervised training, "LJSpeech supervised" (``learn_alignment:
+   False``, seeded weights, bf16): three ``train_sup`` steps at [16, 128
+   tokens, 896 frames] with durations summing to the mel lengths, counted
+   (attention 10, gather 2, scatter 2, no MAS, no CTC), one with the
+   variance losses on, then timed and profiled beside phase 6's step;
+   ``python -m ctts_torch.train`` on a synthetic supervised store (8
+   steps, and 4 + a resume for 4 more, validating every 4) and
+   ``python -m ctts_torch.synthesize`` from its step-8 checkpoint on the
+   probe texts; the four variance configurations (frame and ph pitch,
+   ``pitch_ar``, frame energy, huber, mog and crf durations, LEFT padding,
+   the ssim CWT loss): a counted bf16 step, a probe forward at budget
+   1152 (pitch_ar's frame loop profiled), and one float32 step with
+   dropout off on the card against the port's CPU path;
 7. the relative-position attention kernels (the conformer's) against
    their plain version at the decoder's and the encoder's training shapes,
    the probe's budget and text lengths (96 padded, 87 unpadded), and at
@@ -167,6 +180,13 @@ SERVE_PCM_RMS_TOL = 5e-2
 # batches and dropout seeds; cuDNN and embedding backward sums are not
 # bitwise reproducible on the card, so the losses agree to float rounding
 RESUME_TOL = 1e-3
+# the variance configurations in float32 with dropout off, the card against
+# the port's CPU path on the same weights and batch: the postnet mel's max
+# |difference| over its largest entry, and each loss term relative to its
+# CPU value (both through float32 sums in another order, cuDNN's convs and
+# the attention kernel's bf16 hi + lo products)
+VARIANCE_MEL_TOL = 1e-3
+VARIANCE_LOSS_TOL = 1e-4
 
 
 def card_line():
@@ -617,12 +637,12 @@ class Smoke:
     def breakdown(forward, what="probe forward"):
         """Device time of one call of ``forward`` by kernel, and the
         device's idle share of the host-clock window. Returns (wall ms,
-        busy ms, idle share)."""
+        busy ms, idle share, kernel count)."""
         got = profiled(forward, cpu=True)
         if got is None:
             print(f"{what} under the profiler: no whole profile, device busy "
                   f"not measured")
-            return float("nan"), float("nan"), float("nan")
+            return float("nan"), float("nan"), float("nan"), None
         events, wall, _ = got
         per = {}
         for e in events:
@@ -641,7 +661,7 @@ class Smoke:
         for name, (n, us) in ranked[12:]:
             if "(anonymous namespace)::" in name or "ctts_window::" in name:
                 print(f"  {us / 1e3:8.3f} ms  {n:4d}x  {name[:100]}")
-        return wall, busy, 1 - busy / wall
+        return wall, busy, 1 - busy / wall, sum(n for n, _ in per.values())
 
     # ---- phase 4 ----------------------------------------------------- #
     def vocoder(self):
@@ -1080,7 +1100,6 @@ class Smoke:
     # ---- phase 6: the train step ----------------------------------------- #
     def train(self):
         from ctts_torch.config import get_configs_of
-        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
         from ctts_torch.parallel.train_step import (batch_to_device,
                                                     create_train_state,
                                                     make_train_step)
@@ -1111,20 +1130,7 @@ class Smoke:
               f"binarization {gates[0]}, variance {gates[1]}")
 
         def one(what):
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            metrics = step(state, batch)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            got = {k: v for k, v in launch_counts().items() if v}
-            metrics = {k: v.item() for k, v in metrics.items()}
-            print(f"{what} (step {state.step}, {ms:.1f} ms): "
-                  + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-            print(f"  launches {got}")
-            bad = [k for k, v in metrics.items() if not np.isfinite(v)]
-            if bad:
-                raise AssertionError(f"{what}: non-finite {bad}")
-            return metrics, got
+            return self.counted_step(step, state, batch, what)
 
         hard = {"fused_attention": 10, "gather_rows": 2, "scatter_rows": 2,
                 "b_mas": 1, "ctc_lattice": 1, "ctc_grad": 1}
@@ -1162,7 +1168,32 @@ class Smoke:
         if shut:
             raise AssertionError(f"gates open but {shut} are zero")
         state.step = after
+        self.unsup_step = self.step_timing(step, state, batch, "train step")
 
+    @staticmethod
+    def counted_step(step, state, batch, what):
+        """One train step with the launch counters zeroed just before it
+        and read just after; fails on a non-finite loss term. Returns
+        (metrics, launches)."""
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v for k, v in launch_counts().items() if v}
+        metrics = {k: v.item() for k, v in metrics.items()}
+        print(f"{what} (step {state.step}, {ms:.1f} ms): "
+              + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+        print(f"  launches {got}")
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{what}: non-finite {bad}")
+        return metrics, got
+
+    def step_timing(self, step, state, batch, what):
+        """Host clock around 7 synchronised steps, then one step under the
+        profiler; prints and returns the step's numbers."""
         times = []
         for _ in range(7):
             t0 = time.perf_counter()
@@ -1175,13 +1206,326 @@ class Smoke:
             step(state, batch)
             torch.cuda.synchronize()
 
-        wall, busy, idle = self.breakdown(traced, "train step")
-        print(f"train step, host clock around a synchronised step: median of "
+        wall, busy, idle, kernels = self.breakdown(traced, what)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{what}, host clock around a synchronised step: median of "
               f"7 {np.median(times):.2f} ms, min {min(times):.2f}, max "
               f"{max(times):.2f}; under the profiler wall {wall:.2f} ms, "
               f"device busy {busy:.2f} ms, idle share {idle:.3f}; peak "
-              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-              f"GiB")
+              f"device memory {peak:.2f} GiB")
+        return {"median_ms": float(np.median(times)), "busy_ms": busy,
+                "idle": idle, "kernels": kernels, "peak_gib": peak}
+
+    # ---- phase 6b: supervised training and the variance options --------- #
+    # the variance configurations: "LJSpeech supervised" with these changes
+    VARIANCE_OPTIONS = {
+        "a": {"pitch_type": "frame", "energy": "frame_level",
+              "dur_loss": "huber"},
+        "b": {"pitch_type": "ph", "dur_loss": "mog"},
+        "c": {"pitch_type": "frame", "pitch_ar": True, "dur_loss": "crf",
+              "ffn_padding": "LEFT"},
+        "d": {"cwt_loss": "ssim"}}
+
+    @staticmethod
+    def sup_configs(pitch_type="cwt", pitch_ar=False, energy="phoneme_level",
+                    dur_loss="mse", ffn_padding="SAME", cwt_loss="l1"):
+        """``configs/LJSpeech.yaml`` with ``learn_alignment: False`` ("LJSpeech
+        supervised"), with the energy range of no store, and the variance
+        options given."""
+        from ctts_torch.config import get_configs_of, inject_derived
+        from ctts_torch.models.comp_trans_tts import prepare_model_config
+        pre, mc, tr = get_configs_of("LJSpeech")
+        mc["duration_modeling"]["learn_alignment"] = False
+        pitch = pre["preprocessing"]["pitch"]
+        pitch.update(pitch_type=pitch_type, pitch_ar=pitch_ar)
+        pre["preprocessing"]["energy"]["feature"] = energy
+        mc["variance_predictor"]["ffn_padding"] = ffn_padding
+        tr["loss"].update(dur_loss=dur_loss, cwt_loss=cwt_loss)
+        inject_derived(pre, mc, tr)
+        return pre, prepare_model_config(pre, mc), tr
+
+    def sup_batch(self, phone_energy=True, B=None):
+        """The train step's seeded batch (``Smoke.train_lengths``) with
+        durations drawn to sum to each mel length and ``mel2ph``; the
+        first ``B`` utterances (all by default)."""
+        from ctts_torch.utils.testing import synth_batch
+        src_lens, mel_lens = self.train_lengths()
+        B = B or len(src_lens)
+        batch = synth_batch(B=B, T_s=T_S, T_m=T_M, seed=0,
+                            src_lens=src_lens[:B], mel_lens=mel_lens[:B],
+                            prior=False, sup=True, phone_energy=phone_energy)
+        assert (batch["durations"].sum(1) == mel_lens[:B]).all()
+        return batch
+
+    @staticmethod
+    def sup_model(configs, device="cuda"):
+        from ctts_torch.models.comp_trans_tts import CompTransTTS
+        from ctts_torch.utils.model import init_weights
+        pre, mc, tr = configs
+        return init_weights(CompTransTTS(pre, mc, tr), tr["seed"]).to(device)
+
+    def sup_train(self):
+        """``train_sup`` at full width and depth in bf16 ("LJSpeech
+        supervised", seeded weights) on the train step's batch with seeded
+        durations: three steps at the schedule's peak rate with the
+        counters zeroed before each and read after it, one with the
+        variance losses on, then timed steps and one under the profiler,
+        printed beside the ``train_unsup`` step of this run."""
+        from ctts_torch.parallel.train_step import (batch_to_device,
+                                                    create_train_state,
+                                                    make_train_step)
+        from ctts_torch.utils.optimizer import build_optimizer
+        configs = pre, mc, tr = self.sup_configs()
+        model = self.sup_model(configs)
+        start = tr["optimizer"]["warm_up_step"]
+        opt, schedule = build_optimizer(model, mc, tr, count=start)
+        state = create_train_state(model, opt, step=start, seed=tr["seed"])
+        host = self.sup_batch()
+        host["mels"] = host["mels"].astype(np.float16)     # transfer_dtype
+        batch = batch_to_device(host, "cuda")
+        step = make_train_step(pre, mc, tr, "train_sup")
+        print(f"LJSpeech supervised: compute_dtype={mc['compute_dtype']}, "
+              f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+              f"parameters (seeded), batch {B_TRAIN}x[{T_S} tokens, {T_M} "
+              f"frames], durations summing to the mel lengths; step counter "
+              f"{start}, rate {schedule(start):.3e}")
+        want = {"fused_attention": 10, "gather_rows": 2, "scatter_rows": 2}
+        totals = []
+        for i in range(3):
+            metrics, got = self.counted_step(
+                step, state, batch, f"supervised train step {i + 1}/3")
+            totals.append(metrics["total"])
+            if got != want:
+                raise AssertionError(f"expected launches {want} (MAS 0, CTC "
+                                     f"lattice 0, CTC gradient 0), got {got}")
+            if metrics["ctc"] != 0 or metrics["bin"] != 0:
+                raise AssertionError("ctc or bin nonzero without alignment")
+            if i == 0:
+                for name, n in got.items():
+                    self.kernels.setdefault(name, {})[
+                        "launches_sup_step"] = n
+        print(f"supervised launches: attention {got['fused_attention']}, "
+              f"gather {got['gather_rows']}, scatter {got['scatter_rows']}, "
+              f"MAS 0, CTC lattice 0, CTC gradient 0")
+        if not totals[2] < totals[0]:
+            raise AssertionError(f"total did not fall: {totals}")
+        print(f"supervised total over the three steps: {totals}")
+        after = state.step
+        state.step = tr["step"]["var_start_steps"] + 1
+        metrics, got = self.counted_step(
+            step, state, batch, "supervised train step, variance losses on")
+        # no silence phoneme in the seeded texts, so no word and no wdur
+        shut = [k for k in ("pdur", "sdur", "pitch_C", "pitch_uv",
+                            "pitch_f0_mean", "pitch_f0_std", "energy")
+                if not metrics[k] > 0]
+        if shut or got != want:
+            raise AssertionError(f"variance terms {shut} zero, or launches "
+                                 f"{got}")
+        state.step = after
+        sup = self.step_timing(step, state, batch, "supervised train step")
+        unsup = getattr(self, "unsup_step", None)
+        if unsup:
+            print("supervised against unsupervised step, this run: "
+                  + "; ".join(f"{k} {sup[k]:.3f} vs {unsup[k]:.3f}"
+                              if isinstance(sup[k], float) else
+                              f"{k} {sup[k]} vs {unsup[k]}"
+                              for k in sup))
+
+    def sup_train_cli(self):
+        """``python -m ctts_torch.train`` on a synthetic supervised store
+        with "LJSpeech supervised" (bf16, batch 16, the device cache,
+        dropout on, the warm-up cut to 50 steps and the variance losses on
+        from the start): 8 straight steps, and 4 + a resume from the step-4
+        checkpoint for 4 more, validating every 4 steps; then
+        ``python -m ctts_torch.synthesize`` from the step-8 checkpoint on
+        the probe texts."""
+        from ctts_torch.config import load_yaml
+        tmp = tempfile.mkdtemp(prefix="ctts_smoke_sup_")
+        try:
+            store = os.path.join(tmp, "store")
+            self.write_store(store, sup=True)
+            raw = load_yaml(open(os.path.join(REPO, "configs",
+                                              "LJSpeech.yaml")))
+            raw["model"]["duration_modeling"]["learn_alignment"] = False
+            raw["preprocess"]["path"]["preprocessed_path"] = store
+            raw["train"]["optimizer"]["warm_up_step"] = 50
+            raw["train"]["step"].update(log_step=1, save_step=4, val_step=4,
+                                        var_start_steps=0)
+            straight = self.run_train_cli(raw, tmp, "straight", 8)
+            self.run_train_cli(raw, tmp, "resumed", 4)
+            resumed = self.run_train_cli(raw, tmp, "resumed", 8, restore=4)
+            totals = [straight[s]["total"] for s in range(1, 9)]
+            bad = [(s, k) for s, r in straight.items() for k, v in r.items()
+                   if isinstance(v, float) and not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"non-finite loss terms {bad}")
+            print("supervised train CLI total over 8 steps: "
+                  + ", ".join(f"{t:.3f}" for t in totals))
+            if not np.mean(totals[-2:]) < np.mean(totals[:2]):
+                raise AssertionError(f"total did not fall: {totals}")
+            if any(straight[s]["ctc"] != 0 or not straight[s]["pdur"] > 0
+                   for s in straight):
+                raise AssertionError("ctc nonzero or pdur zero in the log")
+            diff = max(abs(straight[s][k] - resumed[s][k]) /
+                       max(1.0, abs(straight[s][k]))
+                       for s in range(5, 9) for k in ("total", "mel", "pdur"))
+            print(f"supervised resume from step 4: steps 5-8 total/mel/pdur "
+                  f"max relative difference to the straight run {diff:.3e} "
+                  f"(tol {RESUME_TOL:g}); launches per step in the log: "
+                  f"{straight[3]['launches_per_step']}")
+            if diff > RESUME_TOL:
+                raise AssertionError(f"resumed losses differ by {diff}")
+            want = {"fused_attention": 10, "gather_rows": 2,
+                    "scatter_rows": 2}
+            if straight[3]["launches_per_step"] != want:
+                raise AssertionError(f"CLI launches per step "
+                                     f"{straight[3]['launches_per_step']}")
+            val = [json.loads(ln) for ln in open(os.path.join(
+                tmp, "straight", "log_path", "val", "log.jsonl"))]
+            print(f"supervised validation (make_eval_step): "
+                  + "; ".join(f"step {r['step']} total {r['total']:.4f} "
+                              f"pdur {r['pdur']:.4f}" for r in val))
+            if [r["step"] for r in val] != [4, 8] or not all(
+                    np.isfinite(r["total"]) for r in val):
+                raise AssertionError(f"validation lines {val}")
+
+            # the synthesize CLI on the step-8 checkpoint
+            self.save_seed_vocoder(os.path.join(tmp, "ckpt"))
+            meta = os.path.join(tmp, "meta.txt")
+            self.write_probe_meta(meta)
+            out = os.path.join(tmp, "out")
+            cmd = [sys.executable, "-m", "ctts_torch.synthesize", "--mode",
+                   "batch", "--source", meta, "--dataset", "LJSpeech",
+                   "--config_dir", os.path.join(tmp, "straight"),
+                   "--restore_step", "8",
+                   "--vocoder_ckpt", os.path.join(tmp, "ckpt"),
+                   "--result_dir", out]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=REPO, capture_output=True,
+                                 text=True, timeout=600)
+            if res.returncode != 0:
+                print(res.stderr[-3000:])
+                raise AssertionError(f"synthesize exited {res.returncode}")
+            mels = [np.load(os.path.join(out, f"probe{i}.npy"))
+                    for i in range(4)]
+            lens = [m.shape[0] for m in mels]
+            cap = 2 * raw["model"]["max_seq_len"]
+            print(f"synthesize CLI from the supervised step-8 checkpoint: "
+                  f"{time.perf_counter() - t0:.1f} s (process start "
+                  f"included); mel lengths {lens} (budget at most {cap})")
+            if not all(np.isfinite(m).all() for m in mels) or not (
+                    0 < sum(lens) and max(lens) <= cap):
+                raise AssertionError(f"synthesized mels: lengths {lens}")
+            if "griffin-lim" in res.stdout:
+                raise AssertionError("the vocoder checkpoint was not loaded")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def variance_options(self):
+        """The four variance configurations (``VARIANCE_OPTIONS``) at full
+        width with seeded weights: one bf16 ``train_sup`` step (the
+        variance losses on) at [16, 128, 896], counted, and one inference
+        forward on the probe texts at budget 1152, timed (pitch_ar's
+        free-running frame loop also under the profiler). Then each in
+        float32 with dropout off, on the card and on the CPU from the same
+        weights and batch (the first 4 utterances): the forward's mel
+        within VARIANCE_MEL_TOL of its largest entry, and every loss term
+        of one step within VARIANCE_LOSS_TOL relative."""
+        import copy
+        from ctts_torch.parallel.train_step import (_apply, batch_to_device,
+                                                    create_train_state,
+                                                    make_train_step)
+        from ctts_torch.synthesize import infer_mels
+        from ctts_torch.utils.optimizer import build_optimizer
+        man = json.load(open(MANIFEST))["probe"]
+        probe = {"speakers": np.zeros(len(man["src_lens"]), np.int64),
+                 "texts": np.asarray(man["texts"], np.int64),
+                 "src_lens": np.asarray(man["src_lens"], np.int64)}
+        for key, opts in self.VARIANCE_OPTIONS.items():
+            configs = pre, mc, tr = self.sup_configs(**opts)
+            what = f"variance options ({key}) {opts}"
+            phone = pre["preprocessing"]["energy"]["feature"] == \
+                "phoneme_level"
+            model = self.sup_model(configs)
+            start = tr["step"]["var_start_steps"]
+            opt, _ = build_optimizer(model, mc, tr, count=start)
+            state = create_train_state(model, opt, step=start,
+                                       seed=tr["seed"])
+            host = self.sup_batch(phone_energy=phone)
+            host["mels"] = host["mels"].astype(np.float16)
+            step = make_train_step(pre, mc, tr, "train_sup")
+            metrics, got = self.counted_step(
+                step, state, batch_to_device(host, "cuda"),
+                f"{what}: bf16 train step")
+            gathers = {"a": 1, "b": 3, "c": 2, "d": 2}[key]
+            want = {"fused_attention": 10, "gather_rows": gathers,
+                    "scatter_rows": 2 if gathers > 1 else 1}
+            if got != want:
+                raise AssertionError(f"expected launches {want}, got {got}")
+
+            def forward():
+                out = infer_mels(model, probe, configs,
+                                 max_mel_len=man["budget"])
+                torch.cuda.synchronize()
+                return out
+
+            forward()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                out = forward()
+                times.append((time.perf_counter() - t0) * 1e3)
+            mel = out["postnet_mel_predictions"]
+            lens = out["mel_lens"].tolist()
+            print(f"{what}: probe forward at budget {man['budget']}: mel "
+                  f"lens {lens}, host clock median of 5 "
+                  f"{np.median(times):.2f} ms (min {min(times):.2f})")
+            if not bool(torch.isfinite(mel).all()) or mel.shape != (
+                    4, man["budget"], 80):
+                raise AssertionError(f"{what}: mel {tuple(mel.shape)} or "
+                                     "non-finite")
+            if opts.get("pitch_ar"):
+                _, busy, idle, kernels = self.breakdown(
+                    forward, "pitch_ar probe forward")
+                print(f"pitch_ar inference at budget {man['budget']}: host "
+                      f"clock {np.median(times):.2f} ms, device busy "
+                      f"{busy:.3f} ms, idle share {idle:.3f}, {kernels} "
+                      f"kernels (a host loop of {man['budget']} GRU steps)")
+
+            # float32, dropout off: the card against the port's CPU path
+            mc32 = dict(mc, compute_dtype="float32")
+            cpu = self.sup_model((pre, mc32, tr), "cpu")
+            card = copy.deepcopy(cpu).cuda()
+            small = self.sup_batch(phone_energy=phone, B=4)
+            outs, comps = [], []
+            for m, dev in ((cpu, "cpu"), (card, "cuda")):
+                b = batch_to_device(small, dev)
+                m.eval()
+                with torch.no_grad():
+                    outs.append(_apply(m, b, "train_sup", start + 1)[
+                        "postnet_mel_predictions"].float().cpu())
+                o, _ = build_optimizer(m, mc32, tr, count=start)
+                st = create_train_state(m, o, step=start, seed=tr["seed"])
+                comps.append({k: v.item() for k, v in make_train_step(
+                    pre, mc32, tr, "train_sup", deterministic=True)(
+                        st, b).items()})
+            mel_err = ((outs[1] - outs[0]).abs().max()
+                       / outs[0].abs().max()).item()
+            loss_err = {k: abs(comps[1][k] - v) / max(abs(v), 1e-30)
+                        for k, v in comps[0].items() if v != 0}
+            worst = max(loss_err, key=loss_err.get)
+            print(f"{what}: f32, dropout off, card vs CPU at 4x[{T_S}, "
+                  f"{T_M}]: mel max err over its largest entry {mel_err:.3e} "
+                  f"(tol {VARIANCE_MEL_TOL:g}); loss terms relative, worst "
+                  f"{worst} {loss_err[worst]:.3e} (tol {VARIANCE_LOSS_TOL:g})"
+                  f"; total {comps[1]['total']:.6f} vs "
+                  f"{comps[0]['total']:.6f}")
+            zeros = [k for k, v in comps[0].items()
+                     if v == 0 and comps[1][k] != 0]
+            if mel_err > VARIANCE_MEL_TOL or \
+                    loss_err[worst] > VARIANCE_LOSS_TOL or zeros:
+                raise AssertionError(f"{what}: card vs CPU {mel_err}, "
+                                     f"{loss_err}, {zeros}")
 
 
     # ---- phase 7: the relpos kernels ------------------------------------- #
@@ -1474,15 +1818,22 @@ class Smoke:
 
     # ---- phase 9: the conformer train CLI ---------------------------------- #
     @staticmethod
-    def write_store(root, n_train=64, n_val=8, seed=0):
+    def write_store(root, n_train=64, n_val=8, seed=0, sup=False):
         """A synthetic LJSpeech-shaped ``.npy`` store (75-128 phones,
         500-896 frames of 80 mel bins, CWT pitch, frame energy), in the
-        layout ``ctts_torch.data.dataset.Dataset`` reads."""
+        layout ``ctts_torch.data.dataset.Dataset`` reads. ``sup=True``
+        writes the ``sup`` store of a forced-aligned corpus instead: the
+        same arrays under the ``sup`` names, durations of at least one
+        frame summing to each mel length, ``mel2ph``, and phone-level
+        energy (the frame energy averaged over each phone's frames)."""
         rng = np.random.RandomState(seed)
+        tag = "sup" if sup else "unsup"
+        energy_dir = f"energy_{tag}_{'phone' if sup else 'frame'}"
         phones = ("AA1 AE1 AH0 B D EH1 F G HH IY1 K L M N OW1 P R S T UW1 V "
                   "W Z").split()
-        for d in ("mel_unsup", "pitch_unsup", "f0_unsup", "energy_unsup_frame",
-                  "cwt_spec_unsup", "f0cwt_mean_std_unsup"):
+        for d in (f"mel_{tag}", f"pitch_{tag}", f"f0_{tag}", energy_dir,
+                  f"cwt_spec_{tag}", f"f0cwt_mean_std_{tag}") + (
+                      ("duration", "mel2ph") if sup else ()):
             os.makedirs(os.path.join(root, d), exist_ok=True)
         lines = []
         for i in range(n_train + n_val):
@@ -1492,30 +1843,40 @@ class Smoke:
             f0 = (np.abs(rng.randn(T_m)) * 40 + 150).astype(np.float32)
             f0[rng.rand(T_m) < 0.2] = 0.0
             arrays = {
-                "mel_unsup/{s}-mel-{b}": (rng.randn(T_m, 80) * 0.5 - 4.0
-                                          ).astype(np.float32),
-                "pitch_unsup/{s}-pitch-{b}": np.clip(f0 / 4, 1, 255).astype(
-                    np.int64),
-                "f0_unsup/{s}-f0-{b}": f0,
-                "energy_unsup_frame/{s}-energy-{b}": (rng.rand(T_m) * 8 - 1
-                                                      ).astype(np.float32),
-                "cwt_spec_unsup/{s}-cwt_spec-{b}": rng.randn(T_m, 10).astype(
-                    np.float32),
-                "f0cwt_mean_std_unsup/{s}-f0cwt_mean_std-{b}": np.array(
+                f"mel_{tag}/{{s}}-mel-{{b}}": (rng.randn(T_m, 80) * 0.5 - 4.0
+                                               ).astype(np.float32),
+                f"pitch_{tag}/{{s}}-pitch-{{b}}": np.clip(
+                    f0 / 4, 1, 255).astype(np.int64),
+                f"f0_{tag}/{{s}}-f0-{{b}}": f0,
+                f"{energy_dir}/{{s}}-energy-{{b}}": (rng.rand(T_m) * 8 - 1
+                                                     ).astype(np.float32),
+                f"cwt_spec_{tag}/{{s}}-cwt_spec-{{b}}": rng.randn(
+                    T_m, 10).astype(np.float32),
+                f"f0cwt_mean_std_{tag}/{{s}}-f0cwt_mean_std-{{b}}": np.array(
                     [5.3, 0.2], np.float32)}
+            text = "{" + " ".join(rng.choice(phones, T_s)) + "}"
+            lines.append(f"{base}|{spk}|{text}|synthetic")
+            if sup:
+                dur = rng.multinomial(T_m - T_s, np.ones(T_s) / T_s) + 1
+                mel2ph = np.repeat(np.arange(1, T_s + 1), dur)
+                key = f"{energy_dir}/{{s}}-energy-{{b}}"
+                arrays[key] = (np.bincount(mel2ph - 1, arrays[key], T_s)
+                               / dur).astype(np.float32)
+                arrays["duration/{s}-duration-{b}"] = dur.astype(np.int64)
+                arrays["mel2ph/{s}-mel2ph-{b}"] = mel2ph.astype(np.int64)
             for name, a in arrays.items():
                 np.save(os.path.join(root, name.format(s=spk, b=base) + ".npy"),
                         a)
-            text = "{" + " ".join(rng.choice(phones, T_s)) + "}"
-            lines.append(f"{base}|{spk}|{text}|synthetic")
         for split, part in (("train", lines[:n_train]), ("val", lines[n_train:])):
-            with open(os.path.join(root, f"{split}_unsup.txt"), "w") as f:
+            with open(os.path.join(root, f"{split}_{tag}.txt"), "w") as f:
                 f.write("\n".join(part) + "\n")
         with open(os.path.join(root, "speakers.json"), "w") as f:
             json.dump({"LJSpeech": 0}, f)
         with open(os.path.join(root, "stats.json"), "w") as f:
             json.dump({"f0_unsup": [214.2, 63.4],
-                       "energy_unsup_frame": [-1.17, 9.09, 37.2, 31.7]}, f)
+                       "energy_unsup_frame": [-1.17, 9.09, 37.2, 31.7],
+                       "f0_sup": [214.3, 64.0],
+                       "energy_sup_phone": [-1.43, 8.18, 37.3, 26.0]}, f)
 
     def conformer_train(self):
         """``python -m ctts_torch.train`` on a synthetic store with the
@@ -1603,25 +1964,7 @@ class Smoke:
                 self.kernels[name].setdefault("launches_conformer_step", n)
             self.kernels["relpos_fwd"]["launches"] = counts["relpos_fwd"]
             self.kernels["relpos_bwd"]["launches"] = counts["relpos_bwd"]
-            times = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                step(state, batch)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.reset_peak_memory_stats()
-
-            def traced():
-                step(state, batch)
-                torch.cuda.synchronize()
-
-            wall, busy, idle = self.breakdown(traced, "conformer train step")
-            print(f"conformer train step, host clock around a synchronised "
-                  f"step: median of 5 {np.median(times):.2f} ms, min "
-                  f"{min(times):.2f}, max {max(times):.2f}; under the profiler "
-                  f"wall {wall:.2f} ms, device busy {busy:.2f} ms, idle share "
-                  f"{idle:.3f}; peak device memory "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            self.step_timing(step, state, batch, "conformer train step")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2269,27 +2612,8 @@ class Smoke:
                 if fused:
                     self.kernels["lsh_chunk_bwd"]["launches"] = \
                         counts["lsh_chunk_bwd"]
-                times = []
-                for _ in range(5):
-                    t0 = time.perf_counter()
-                    step(state, batch)
-                    torch.cuda.synchronize()
-                    times.append((time.perf_counter() - t0) * 1e3)
-                torch.cuda.reset_peak_memory_stats()
-
-                def traced():
-                    step(state, batch)
-                    torch.cuda.synchronize()
-
-                wall, busy, idle = self.breakdown(
-                    traced, f"reformer train step ({route})")
-                print(f"reformer train step ({route}), host clock around a "
-                      f"synchronised step: median of 5 {np.median(times):.2f}"
-                      f" ms, min {min(times):.2f}, max {max(times):.2f}; "
-                      f"under the profiler wall {wall:.2f} ms, device busy "
-                      f"{busy:.2f} ms, idle share {idle:.3f}; peak device "
-                      f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-                      f" GiB")
+                self.step_timing(step, state, batch,
+                                 f"reformer train step ({route})")
                 del model, opt, state
         finally:
             os.environ.pop("CTTS_FUSED_LSH", None)
@@ -2642,23 +2966,40 @@ class Smoke:
             srv.server_close()
             shutil.rmtree(tmp, ignore_errors=True)
 
+    @staticmethod
+    def save_seed_vocoder(ckpt_dir):
+        """HiFi-GAN V1 with seed-0 weights as an upstream checkpoint under
+        ``ckpt_dir`` (the synthesize CLI's ``--vocoder_ckpt``)."""
+        from ctts_torch.config import get_configs_of
+        from ctts_torch.utils.model import get_vocoder
+        mc = get_configs_of("LJSpeech")[1]
+        _, gen = get_vocoder(mc, ckpt_dir=os.path.join(ckpt_dir, "none"),
+                             device="cpu", seed=0)
+        os.makedirs(os.path.join(ckpt_dir, "hifigan"))
+        torch.save({"generator": gen.state_dict()}, os.path.join(
+            ckpt_dir, "hifigan",
+            f"generator_{mc['vocoder']['speaker']}.pth.tar"))
+
+    @staticmethod
+    def write_probe_meta(path):
+        """The manifest's 4 texts as a batch-mode metadata file of their
+        phones, ids probe0..probe3."""
+        from ctts_torch.text.symbols import symbols
+        man = json.load(open(MANIFEST))["probe"]
+        with open(path, "w") as f:
+            for i, (ids, n) in enumerate(zip(man["texts"], man["src_lens"])):
+                phones = " ".join(symbols[j][1:] for j in ids[:n])
+                f.write(f"probe{i}|LJSpeech|{{{phones}}}|probe {i}\n")
+
     def cli_batch(self):
         """``python -m ctts_torch.synthesize --mode batch --stream_chunk 64``
         on the manifest's 4 texts (a metadata file of their phones) with
         the trained weights and HiFi-GAN at seed 0, saved as an upstream
         checkpoint under ``--vocoder_ckpt``."""
-        from ctts_torch.config import dump_yaml, get_configs_of, load_yaml
-        from ctts_torch.text.symbols import symbols
-        from ctts_torch.utils.model import get_vocoder
+        from ctts_torch.config import dump_yaml, load_yaml
         man = json.load(open(MANIFEST))["probe"]
         with tempfile.TemporaryDirectory() as tmp:
-            mc = get_configs_of("LJSpeech")[1]
-            _, gen = get_vocoder(mc, ckpt_dir=os.path.join(tmp, "none"),
-                                 device="cpu", seed=0)
-            os.makedirs(os.path.join(tmp, "ckpt", "hifigan"))
-            torch.save({"generator": gen.state_dict()}, os.path.join(
-                tmp, "ckpt", "hifigan",
-                f"generator_{mc['vocoder']['speaker']}.pth.tar"))
+            self.save_seed_vocoder(os.path.join(tmp, "ckpt"))
             raw = load_yaml(open(os.path.join(REPO, "configs",
                                               "LJSpeech.yaml")))
             raw["preprocess"]["path"]["preprocessed_path"] = tmp
@@ -2667,11 +3008,7 @@ class Smoke:
                 f.write(dump_yaml(raw))
             with open(os.path.join(tmp, "speakers.json"), "w") as f:
                 json.dump({"LJSpeech": 0}, f)
-            with open(os.path.join(tmp, "meta.txt"), "w") as f:
-                for i, (ids, n) in enumerate(zip(man["texts"],
-                                                 man["src_lens"])):
-                    phones = " ".join(symbols[j][1:] for j in ids[:n])
-                    f.write(f"probe{i}|LJSpeech|{{{phones}}}|probe {i}\n")
+            self.write_probe_meta(os.path.join(tmp, "meta.txt"))
             out = os.path.join(tmp, "out")
             cmd = [sys.executable, "-m", "ctts_torch.synthesize", "--mode",
                    "batch", "--source", os.path.join(tmp, "meta.txt"),
@@ -2776,6 +3113,9 @@ def main():
          ("CTC kernels vs plain", smoke.ctc),
          ("attention backward vs plain", smoke.attention_backward)],
         [("train step", smoke.train)],
+        [("supervised train step", smoke.sup_train),
+         ("supervised train CLI", smoke.sup_train_cli),
+         ("variance options", smoke.variance_options)],
         [("relpos kernels vs plain", smoke.relpos)],
         [("conformer forward", smoke.conformer_forward),
          ("conformer train CLI", smoke.conformer_train)],

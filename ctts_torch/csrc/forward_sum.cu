@@ -155,12 +155,10 @@ __device__ void beta_chain(const float* __restrict__ eb, float* __restrict__ bb,
     for (int t = olen - 1; t < t_m; ++t) bb[static_cast<size_t>(t) * n_s + s] = fin;
 }
 
-__global__ void ctc_lattice_kernel(const float* __restrict__ em,
-                                   const int* __restrict__ in_lens,
-                                   const int* __restrict__ out_lens,
-                                   float* __restrict__ alpha,
-                                   float* __restrict__ beta, int n_b, int t_m,
-                                   int n_s) {
+__device__ __forceinline__ void lattice_block(
+    const float* __restrict__ em, const int* __restrict__ in_lens,
+    const int* __restrict__ out_lens, float* __restrict__ alpha,
+    float* __restrict__ beta, int n_b, int t_m, int n_s) {
   extern __shared__ float rows[];        // two rows of the chain
   const bool is_beta = static_cast<int>(blockIdx.x) >= n_b;
   const int b = is_beta ? blockIdx.x - n_b : blockIdx.x;
@@ -170,6 +168,29 @@ __global__ void ctc_lattice_kernel(const float* __restrict__ em,
     beta_chain(em + at, beta + at, in_lens[b], olen, t_m, n_s, rows);
   else
     alpha_chain(em + at, alpha + at, olen, t_m, n_s, rows);
+}
+
+// Blocks of up to 512 threads (the train shape's S = 257 takes 288) run
+// without a launch bound: the chain takes 71 registers, and a bound
+// (even one that 71 fits) made nvcc cut them to 40 and the chain 8 %
+// slower. Past 512 threads a block must fit the SM's 65536 registers at up
+// to 1024 threads (S <= 1024), 64 a thread: that instance has the bound.
+__global__ void ctc_lattice_kernel(const float* __restrict__ em,
+                                   const int* __restrict__ in_lens,
+                                   const int* __restrict__ out_lens,
+                                   float* __restrict__ alpha,
+                                   float* __restrict__ beta, int n_b, int t_m,
+                                   int n_s) {
+  lattice_block(em, in_lens, out_lens, alpha, beta, n_b, t_m, n_s);
+}
+
+__global__ void __launch_bounds__(1024)
+ctc_lattice_kernel_1024(const float* __restrict__ em,
+                        const int* __restrict__ in_lens,
+                        const int* __restrict__ out_lens,
+                        float* __restrict__ alpha, float* __restrict__ beta,
+                        int n_b, int t_m, int n_s) {
+  lattice_block(em, in_lens, out_lens, alpha, beta, n_b, t_m, n_s);
 }
 
 __global__ void ctc_grad_kernel(const float* __restrict__ alpha,
@@ -201,8 +222,10 @@ extern "C" int ctts_ctc_lattice(const float* em, const int* in_lens,
   if (b < 0 || t_m < 0 || n_s < 0 || n_s > 1024) return cudaErrorInvalidValue;
   if (b == 0 || t_m == 0 || n_s == 0) return cudaSuccess;
   const int threads = (n_s + 31) / 32 * 32;
-  ctc_lattice_kernel<<<beta ? 2 * b : b, threads, (2 * threads + 2) * sizeof(float),
-                       static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel =
+      threads <= 512 ? ctc_lattice_kernel : ctc_lattice_kernel_1024;
+  kernel<<<beta ? 2 * b : b, threads, (2 * threads + 2) * sizeof(float),
+           static_cast<cudaStream_t>(stream)>>>(
       em, in_lens, out_lens, alpha, beta, b, t_m, n_s);
   return cudaGetLastError();
 }

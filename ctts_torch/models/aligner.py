@@ -20,7 +20,7 @@ class AlignmentEncoder(nn.Module):
         if multi_speaker:
             raise NotImplementedError(
                 "the aligner's speaker projections are not ported yet "
-                "(ROADMAP.md §1 item 12)")
+                "(ROADMAP.md §1 item 7)")
         self.temperature = temperature
         self.key_proj = nn.Sequential(
             ConvNorm(n_text_channels, n_text_channels * 2, 3), nn.ReLU(),

@@ -138,15 +138,21 @@ class Linear(nn.Linear):
 
 class Conv1d(nn.Conv1d):
     """1-D conv over [B, T, C] with SAME padding ((k-1)//2 left, k//2
-    right), dilation and groups, computing in ``dtype``."""
+    right) or LEFT (causal: k-1 left, none right), dilation and groups,
+    computing in ``dtype``."""
 
     def __init__(self, in_channels, out_channels, kernel_size, dilation=1,
-                 bias=True, dtype=torch.float32, groups=1):
+                 bias=True, dtype=torch.float32, groups=1, padding="SAME"):
         super().__init__(in_channels, out_channels, kernel_size,
                          dilation=dilation, bias=bias, groups=groups)
         self.compute_dtype = dtype
         total = dilation * (kernel_size - 1)
-        self.pad = (total // 2, total - total // 2)
+        if padding == "SAME":
+            self.pad = (total // 2, total - total // 2)
+        elif padding == "LEFT":
+            self.pad = (total, 0)
+        else:
+            raise ValueError(f"unknown padding {padding!r}")
 
     def forward(self, x):
         dt = self.compute_dtype

@@ -1,7 +1,7 @@
 """CompTransTTS: encoder → variance adaptor → decoder → mel + postnet
-(ctts_tpu/models/comp_trans_tts.py), in the ``infer`` and ``train_unsup``
-modes. Dropout and the postnet's batch statistics follow the module's
-``training`` flag (``model.train()`` is the JAX ``deterministic=False``)."""
+(ctts_tpu/models/comp_trans_tts.py), in the ``infer``, ``train_unsup`` and
+``train_sup`` modes. Dropout and the postnet's batch statistics follow the
+module's ``training`` flag (``model.train()`` is the JAX ``deterministic=False``)."""
 
 import json
 import os
@@ -45,7 +45,7 @@ class CompTransTTS(nn.Module):
         if mc["multi_speaker"]:
             raise NotImplementedError(
                 "multi-speaker models are not ported yet (ROADMAP.md §1 "
-                "item 12)")
+                "item 7)")
         TextEncoder, Decoder = get_block(mc["block_type"])
         enc_h, dec_h = block_hidden(mc)
         self.encoder = TextEncoder(mc)
@@ -58,14 +58,15 @@ class CompTransTTS(nn.Module):
 
     def forward(self, speakers, texts, src_lens, mode, mels=None,
                 mel_lens=None, pitch_targets=None, energy_targets=None,
-                attn_priors=None, p_control=1.0, e_control=1.0,
-                d_control=1.0, step=None, max_mel_len=None):
-        """mode: "infer" | "train_unsup".
+                duration_targets=None, attn_priors=None, p_control=1.0,
+                e_control=1.0, d_control=1.0, step=None, max_mel_len=None):
+        """mode: "infer" | "train_unsup" | "train_sup".
 
         texts [B, T_s] int, src_lens [B]; in training mels [B, T_m, n_mel],
-        mel_lens [B], the targets, the prior and the host int ``step``; at
-        inference max_mel_len is the frame budget. Returns the JAX model's
-        output dict (without the entries of unported options).
+        mel_lens [B], the targets, the prior (``train_unsup``) or the
+        durations (``train_sup``), and the host int ``step``; at inference
+        max_mel_len is the frame budget. Returns the JAX model's output dict
+        (without the entries of unported options).
         """
         src_masks = get_mask_from_lengths(src_lens, texts.shape[1])
         mel_masks = None
@@ -80,7 +81,8 @@ class CompTransTTS(nn.Module):
             e_control=e_control, d_control=d_control,
             text_embedding=text_embeds, src_len=src_lens, mel=mels,
             mel_len=mel_lens, mel_mask=mel_masks, pitch_target=pitch_targets,
-            energy_target=energy_targets, attn_prior=attn_priors, step=step)
+            energy_target=energy_targets, duration_target=duration_targets,
+            attn_prior=attn_priors, step=step)
         dec_out, mel_masks = self.decoder(va["x"], va["mel_mask"])
         mel_pred = self.mel_linear(dec_out)
         postnet_out = self.postnet(mel_pred) + mel_pred
@@ -90,6 +92,7 @@ class CompTransTTS(nn.Module):
             "pitch_predictions": va["pitch_predictions"],
             "energy_predictions": va["energy_prediction"],
             "log_duration_predictions": va["log_duration_prediction"],
+            "dur_crf_ll": va["dur_crf_ll"],
             "duration_rounded": va["duration_rounded"],
             "src_masks": src_masks,
             "mel_masks": mel_masks,

@@ -17,7 +17,7 @@ def get_block(block_type):
     if block_type in _NOT_YET:
         raise NotImplementedError(
             f"block_type {block_type!r} is not ported to ctts_torch yet "
-            "(ROADMAP.md §1 item 11, 'The rest of the block zoo')")
+            "(ROADMAP.md §1 item 5, 'The rest of the block zoo')")
     if block_type not in _BLOCKS:
         raise NotImplementedError(
             f"unknown block_type {block_type!r}; choose from "

@@ -1,7 +1,8 @@
 """`transformer_fs2` block (ctts_tpu/models/transformer_fs2.py).
 
 Pre-LN self-attention + conv FFN layers (no qkv bias, 9-wide conv with
-4×H channels, exact gelu, the k^-0.5 FFN scale), a final LayerNorm and
+4×H channels padded as ``ffn_padding`` says, SAME or LEFT (causal), exact
+gelu, the k^-0.5 FFN scale), a final LayerNorm and
 non-padding re-masking after every layer. The stacks compute in the
 config's ``compute_dtype`` (bf16 on the default path) and return float32.
 Parameter paths match upstream: ``layers.{i}.op.{layer_norm1, self_attn,
@@ -22,13 +23,14 @@ class FFNLayer(nn.Module):
     """Conv(k) → ×k^-0.5 → gelu → dropout → Linear."""
 
     def __init__(self, hidden, filter_size, kernel_size, dropout, act="gelu",
-                 dtype=torch.float32):
+                 dtype=torch.float32, padding="SAME"):
         super().__init__()
         if act not in ("gelu", "relu", "swish"):
             raise ValueError(f"unknown ffn_act {act!r}")
         self.kernel_size = kernel_size
         self.act = act
-        self.ffn_1 = Conv1d(hidden, filter_size, kernel_size, dtype=dtype)
+        self.ffn_1 = Conv1d(hidden, filter_size, kernel_size, dtype=dtype,
+                            padding=padding)
         self.dropout = Dropout(dropout)
         self.ffn_2 = Linear(filter_size, hidden, dtype=dtype)
 
@@ -48,13 +50,13 @@ class EncSALayer(nn.Module):
     branches and non-pad masking."""
 
     def __init__(self, hidden, num_heads, dropout, kernel_size, act="gelu",
-                 dtype=torch.float32):
+                 dtype=torch.float32, padding="SAME"):
         super().__init__()
         self.layer_norm1 = LayerNorm(hidden, dtype=dtype)
         self.self_attn = MultiHeadAttention(hidden, num_heads, dtype=dtype)
         self.layer_norm2 = LayerNorm(hidden, dtype=dtype)
         self.ffn = FFNLayer(hidden, 4 * hidden, kernel_size, dropout, act=act,
-                            dtype=dtype)
+                            dtype=dtype, padding=padding)
         self.dropout = Dropout(dropout)
 
     def forward(self, x, padding_mask):
@@ -84,7 +86,7 @@ class FFTBlocks(nn.Module):
 
     def __init__(self, hidden, num_layers, num_heads=2, ffn_kernel_size=9,
                  dropout=0.1, use_pos_embed=True, max_seq_len=2000,
-                 act="gelu", dtype=torch.float32):
+                 act="gelu", dtype=torch.float32, padding="SAME"):
         super().__init__()
         self.use_pos_embed = use_pos_embed
         self.dropout = Dropout(dropout)
@@ -94,7 +96,7 @@ class FFTBlocks(nn.Module):
                 hidden, max_seq_len, dtype)
         self.layers = nn.ModuleList(
             _Layer(EncSALayer(hidden, num_heads, dropout, ffn_kernel_size,
-                              act=act, dtype=dtype))
+                              act=act, dtype=dtype, padding=padding))
             for _ in range(num_layers))
         self.layer_norm = LayerNorm(hidden, dtype=dtype)
 
@@ -124,10 +126,8 @@ class TextEncoder(FFTBlocks):
                          ffn_kernel_size=cfg["ffn_kernel_size"],
                          dropout=cfg["encoder_dropout"], use_pos_embed=False,
                          act=model_config["variance_predictor"]["ffn_act"],
-                         dtype=dtype)
-        if model_config["variance_predictor"]["ffn_padding"] != "SAME":
-            raise NotImplementedError(
-                "ffn_padding other than SAME is not ported yet")
+                         dtype=dtype, padding=model_config[
+                             "variance_predictor"]["ffn_padding"])
         self.hidden = hidden
         self.dtype = dtype
         self.embed_tokens = nn.Embedding(len(symbols) + 1, hidden,
@@ -161,10 +161,8 @@ class Decoder(FFTBlocks):
                          dropout=cfg["decoder_dropout"], use_pos_embed=True,
                          max_seq_len=model_config["max_seq_len"] * 2,
                          act=model_config["variance_predictor"]["ffn_act"],
-                         dtype=dtype)
-        if model_config["variance_predictor"]["ffn_padding"] != "SAME":
-            raise NotImplementedError(
-                "ffn_padding other than SAME is not ported yet")
+                         dtype=dtype, padding=model_config[
+                             "variance_predictor"]["ffn_padding"])
         self.hidden = cfg["decoder_hidden"]
         self.dtype = dtype
 

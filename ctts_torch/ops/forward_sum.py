@@ -124,13 +124,22 @@ def _lib():
     return lib
 
 
+# csrc/forward_sum.cu: one thread a state in one block
+MAX_STATES = 1024
+
+
 def _check(em, floats, lens):
     if em.device.type != "cuda":
         raise ValueError(f"the CTC lattice runs on cpu or cuda, not "
                          f"{em.device}")
-    if em.dim() != 3 or em.shape[2] > 1024:
-        raise ValueError(f"the CTC kernels take [B, T_m, S <= 1024], got "
+    if em.dim() != 3:
+        raise ValueError(f"the CTC kernels take [B, T_m, S], got "
                          f"{tuple(em.shape)}")
+    if em.shape[2] > MAX_STATES:
+        raise ValueError(
+            f"the card's CTC lattice runs one thread a state and takes at "
+            f"most S = {MAX_STATES} states (text axis <= 511), got "
+            f"{tuple(em.shape)}; see ROADMAP.md §3 L2")
     B = em.shape[0]
     for t in (em, *floats):
         if t.dtype != torch.float32:

@@ -71,7 +71,13 @@ def _apply(model, batch, mode, step):
                  mels=batch["mels"], mel_lens=batch["mel_lens"],
                  pitch_targets=batch["pitch_data"],
                  energy_targets=batch["energies"],
-                 attn_priors=batch["attn_priors"], step=step)
+                 duration_targets=batch.get("durations"),
+                 attn_priors=batch.get("attn_priors"), step=step)
+
+
+def _check_mode(mode):
+    if mode not in ("train_unsup", "train_sup"):
+        raise ValueError(f"unknown training mode {mode!r}")
 
 
 def make_train_step(preprocess_config, model_config, train_config, mode,
@@ -81,10 +87,9 @@ def make_train_step(preprocess_config, model_config, train_config, mode,
     ``grad_norm`` (the norm before the clip), as 0-d tensors on the device.
     ``deterministic=True`` runs the forward in eval mode (no dropout,
     running BatchNorm statistics), which is how the step is compared with
-    the JAX one."""
-    if mode != "train_unsup":
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP.md §1 item 10)")
+    the JAX one. ``mode`` is "train_unsup" (MAS durations) or "train_sup"
+    (the batch's durations)."""
+    _check_mode(mode)
 
     def train_step(state, batch):
         model = state.model
@@ -108,9 +113,7 @@ def make_train_step(preprocess_config, model_config, train_config, mode,
 
 def make_eval_step(preprocess_config, model_config, train_config, mode):
     """Returns ``eval_step(state, batch) -> (components, model output)``."""
-    if mode != "train_unsup":
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP.md §1 item 10)")
+    _check_mode(mode)
 
     def eval_step(state, batch):
         state.model.eval()

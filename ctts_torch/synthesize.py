@@ -186,7 +186,7 @@ def main(argv=None):
     preprocess_config, model_config, train_config = configs
     if model_config["multi_speaker"]:
         raise NotImplementedError("multi-speaker synthesis is not ported yet "
-                                  "(ROADMAP.md §1 item 12)")
+                                  "(ROADMAP.md §1 item 7)")
     language = preprocess_config["preprocessing"]["text"]["language"]
     if language != "en":
         raise NotImplementedError(f"language {language!r}: only English is "

@@ -6,7 +6,9 @@
 Reads the preprocessed ``.npy`` store named by the config
 (``preprocess.path.preprocessed_path``), builds ``CompTransTTS`` for the
 config's ``block_type`` (``transformer_fs2``, ``conformer`` or
-``reformer``) with seeded weights, and takes ``train_unsup`` steps
+``reformer``) with seeded weights, and takes ``train_unsup`` steps (with
+``learn_alignment``: the ``unsup`` store, MAS durations) or ``train_sup``
+steps (without: the ``sup`` store's durations and ``mel2ph``)
 (``parallel.train_step``) until ``--max_steps`` or
 ``train.step.total_step``. As in the JAX loop:
 

@@ -16,7 +16,8 @@ def init_weights(module, seed):
     """Redraw every parameter of ``module`` from a seeded torch.Generator:
     N(0, fan_in^-1) for matrices and kernels (Xavier-uniform for the
     reformer attention's ``toqk``, ``tov`` and ``to_out``, as flax inits
-    them), 1 for norm scales and the positional alphas, 0 for biases;
+    them), 1 for norm scales, the positional alphas and the duration CRF's
+    start and end scores, 0 for biases (the GRU's ``bias_*`` too);
     embedding padding rows stay zero. A module shared by several parents
     (the reformer's tied layers) is drawn once."""
     gen = torch.Generator().manual_seed(seed)
@@ -29,7 +30,7 @@ def init_weights(module, seed):
             elif p.dim() >= 2:
                 fan_in = p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
-            elif name.endswith("bias"):
+            elif name.split(".")[-1].startswith("bias"):
                 p.zero_()
             else:
                 p.fill_(1.0)

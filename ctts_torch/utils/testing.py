@@ -35,12 +35,17 @@ def tiny_configs():
 
 
 def synth_batch(B=2, T_s=11, T_m=40, seed=0, src_lens=None, mel_lens=None,
-                prior=True):
+                prior=True, sup=False, phone_energy=False):
     """A seeded ``train_unsup`` batch of numpy arrays at [B, T_s] tokens and
     [B, T_m] frames with CWT pitch data. The first utterance is full
     length and the others shorter, unless the lengths are given.
     ``prior=False`` leaves ``attn_priors`` to the step (computed on the
-    device)."""
+    device). ``sup=True`` adds a ``train_sup`` batch's ``durations``
+    (at least 1 a token, summing to each mel length) and
+    ``pitch_data["mel2ph"]``, drawn after everything else, so the other
+    arrays are those of the same seed without it. ``phone_energy=True``
+    gives the energies a token, as a supervised store holds them at
+    ``phoneme_level``."""
     rng = np.random.RandomState(seed)
     if src_lens is None:
         src_lens = np.array([T_s] + [T_s - 3] * (B - 1))
@@ -65,6 +70,20 @@ def synth_batch(B=2, T_s=11, T_m=40, seed=0, src_lens=None, mel_lens=None,
     energies = ((rng.randn(B, T_m).astype(np.float32) + 3.0)
                 * frame_mask).astype(np.float32)
     attn_priors = rng.rand(B, T_m, T_s).astype(np.float32) + 1e-3
+    durations = None
+    if sup:
+        durations = np.zeros((B, T_s), np.int32)
+        mel2ph = np.zeros((B, T_m), np.int32)
+        for b in range(B):
+            n, m = int(src_lens[b]), int(mel_lens[b])
+            d = rng.multinomial(m - n, np.ones(n) / n) + 1
+            durations[b, :n] = d
+            mel2ph[b, :m] = np.repeat(np.arange(1, n + 1), d)
+        pitch_data["mel2ph"] = mel2ph
+    if phone_energy:
+        token_mask = np.arange(T_s)[None, :] < src_lens[:, None]
+        energies = ((rng.randn(B, T_s).astype(np.float32) + 3.0)
+                    * token_mask).astype(np.float32)
     return {
         "speakers": np.zeros(B, np.int32),
         "texts": texts,
@@ -73,7 +92,7 @@ def synth_batch(B=2, T_s=11, T_m=40, seed=0, src_lens=None, mel_lens=None,
         "mel_lens": mel_lens,
         "pitch_data": pitch_data,
         "energies": energies,
-        "durations": None,
+        "durations": durations,
         "attn_priors": attn_priors if prior else None,
         "spker_embeds": None,
     }

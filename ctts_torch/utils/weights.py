@@ -20,7 +20,19 @@ state_dict straight back. Layout changes:
 - reformer stacks: the tied ``attn`` (``toqk``, ``tov``, ``to_out``) and
   ``ff`` (``w1``, ``w2``) Dense kernels and each layer's ``norm_f_i`` /
   ``norm_g_i`` → ``layer_stack.net.layers.irrev_blocks.{i}.{f,g}.*``, the
-  tied weights under every ``i`` as an upstream state_dict holds them.
+  tied weights under every ``i`` as an upstream state_dict holds them;
+- the duration CRF (``variance_adaptor/dur_crf``) →
+  ``variance_adaptor.duration_predictor.crf.{start_transitions,
+  end_transitions, transitions}`` (torchcrf's names, under the predictor as
+  upstream's ``dur_predictor.crf`` call has it);
+- the autoregressive pitch head's flax GRU cell (``ar/gru``: ``ir``,
+  ``iz``, ``in`` with biases, ``hr``, ``hz`` without, ``hn`` with) → one
+  ``nn.GRU`` layer, ``pitch_predictor.gru.weight_ih_l0`` = [ir | iz | in]ᵀ,
+  ``weight_hh_l0`` = [hr | hz | hn]ᵀ, ``bias_ih_l0`` = [b_ir | b_iz | b_in],
+  ``bias_hh_l0`` = [0 | 0 | b_hn], and ``ar/head`` → ``pitch_predictor.head``
+  (upstream has no such module; the port chose these names). The port's
+  cell runs with [0 | 0 | b_hn] whatever ``bias_hh_l0[:2H]`` holds, so the
+  inverse reads only its n part.
 
 :func:`jax_tree_from_state_dict` is the inverse for the acoustic model, so a
 test can compare the port's parameters with the JAX tree after a step.
@@ -144,6 +156,9 @@ def _reformer_stack(sd, prefix, node):
         i += 1
 
 
+_GATES = ("r", "z", "n")
+
+
 def _predictor(sd, prefix, node):
     conv = node["conv"]
     i = 0
@@ -151,9 +166,22 @@ def _predictor(sd, prefix, node):
         _conv_params(sd, f"{prefix}.conv.{i}.1", conv[f"conv_{i}"]["Conv_0"])
         _ln(sd, f"{prefix}.conv.{i}.3", conv[f"LayerNorm_{i}"]["LayerNorm_0"])
         i += 1
-    _dense(sd, f"{prefix}.linear", node["linear"])
+    if "linear" in node:
+        _dense(sd, f"{prefix}.linear", node["linear"])
     if "pos_embed_alpha" in node:
         sd[f"{prefix}.pos_embed_alpha"] = node["pos_embed_alpha"]
+    if "ar" in node:                           # PitchPredictorAR
+        gru = node["ar"]["gru"]
+        sd[f"{prefix}.gru.weight_ih_l0"] = np.concatenate(
+            [np.asarray(gru[f"i{g}"]["kernel"]).T for g in _GATES])
+        sd[f"{prefix}.gru.weight_hh_l0"] = np.concatenate(
+            [np.asarray(gru[f"h{g}"]["kernel"]).T for g in _GATES])
+        sd[f"{prefix}.gru.bias_ih_l0"] = np.concatenate(
+            [gru[f"i{g}"]["bias"] for g in _GATES])
+        b_hn = np.asarray(gru["hn"]["bias"])
+        sd[f"{prefix}.gru.bias_hh_l0"] = np.concatenate(
+            [np.zeros(2 * b_hn.shape[0], b_hn.dtype), b_hn])
+        _dense(sd, f"{prefix}.head", node["ar"]["head"])
 
 
 def _to_tensors(sd):
@@ -209,9 +237,10 @@ def state_dict_from_jax(tree):
         i += 1
 
     va = params["variance_adaptor"]
-    va_known = {"duration_predictor", "pitch_embed", "cwt_in_proj",
-                "cwt_predictor", "cwt_stats_layers", "energy_predictor",
-                "energy_embedding", "aligner"}
+    va_known = {"duration_predictor", "dur_crf", "pitch_embed",
+                "cwt_in_proj", "cwt_predictor", "cwt_stats_layers",
+                "pitch_predictor", "energy_predictor", "energy_embedding",
+                "aligner"}
     extra = set(va) - va_known
     if extra:
         raise NotImplementedError(
@@ -219,6 +248,10 @@ def state_dict_from_jax(tree):
             "ctts_torch yet")
     p = "variance_adaptor"
     _predictor(sd, f"{p}.duration_predictor", va["duration_predictor"])
+    for name, leaf in va.get("dur_crf", {}).items():
+        sd[f"{p}.duration_predictor.crf.{name}"] = leaf
+    if "pitch_predictor" in va:
+        _predictor(sd, f"{p}.pitch_predictor", va["pitch_predictor"])
     if "pitch_embed" in va:
         sd[f"{p}.pitch_embed.weight"] = va["pitch_embed"]["embedding"]
     if "cwt_in_proj" in va:
@@ -351,9 +384,23 @@ def _inv_predictor(sd, prefix):
         conv[f"LayerNorm_{i}"] = {
             "LayerNorm_0": _inv_ln(sd, f"{prefix}.conv.{i}.3")}
         i += 1
-    node = {"conv": conv, "linear": _inv_dense(sd, f"{prefix}.linear")}
+    node = {"conv": conv}
+    if f"{prefix}.linear.weight" in sd:
+        node["linear"] = _inv_dense(sd, f"{prefix}.linear")
     if f"{prefix}.pos_embed_alpha" in sd:
         node["pos_embed_alpha"] = sd[f"{prefix}.pos_embed_alpha"]
+    if f"{prefix}.gru.weight_ih_l0" in sd:     # PitchPredictorAR
+        g = f"{prefix}.gru"
+        w_ih, w_hh = (np.split(sd[f"{g}.weight_{n}_l0"], 3)
+                      for n in ("ih", "hh"))
+        b_ih, b_hh = (np.split(sd[f"{g}.bias_{n}_l0"], 3)
+                      for n in ("ih", "hh"))
+        gru = {}
+        for j, gate in enumerate(_GATES):
+            gru[f"i{gate}"] = {"kernel": w_ih[j].T, "bias": b_ih[j]}
+            gru[f"h{gate}"] = {"kernel": w_hh[j].T}
+        gru["hn"]["bias"] = b_hh[2]
+        node["ar"] = {"gru": gru, "head": _inv_dense(sd, f"{prefix}.head")}
     return node
 
 
@@ -399,6 +446,13 @@ def jax_tree_from_state_dict(state_dict, model_config):
 
     p = "variance_adaptor"
     va = {"duration_predictor": _inv_predictor(sd, f"{p}.duration_predictor")}
+    if f"{p}.duration_predictor.crf.transitions" in sd:
+        va["dur_crf"] = {
+            name: sd[f"{p}.duration_predictor.crf.{name}"]
+            for name in ("start_transitions", "end_transitions",
+                         "transitions")}
+    if f"{p}.pitch_predictor.pos_embed_alpha" in sd:
+        va["pitch_predictor"] = _inv_predictor(sd, f"{p}.pitch_predictor")
     if f"{p}.pitch_embed.weight" in sd:
         va["pitch_embed"] = {"embedding": sd[f"{p}.pitch_embed.weight"]}
     if f"{p}.cwt_predictor.0.weight" in sd:

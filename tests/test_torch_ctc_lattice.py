@@ -400,8 +400,12 @@ def test_model_mirrors_the_kernel_source():
             # the launch: 2B blocks (B, alpha alone, with a null beta), one
             # thread a state, two rows + 2
             "const int threads = (n_s + 31) / 32 * 32;",
-            "ctc_lattice_kernel<<<beta ? 2 * b : b, threads, "
+            "kernel<<<beta ? 2 * b : b, threads, "
             "(2 * threads + 2) * sizeof(float),",
+            # blocks past 512 threads take the instance whose launch bound
+            # fits 1024 threads' registers
+            "__global__ void __launch_bounds__(1024)",
+            "threads <= 512 ? ctc_lattice_kernel : ctc_lattice_kernel_1024;",
             "const bool is_beta = static_cast<int>(blockIdx.x) >= n_b;",
             # the gradient
             "const unsigned row = idx / n_s, b = row / t_m;",

@@ -94,6 +94,29 @@ def test_gather_kernel_bit_exact(G, N, M, F, dtype):
     assert torch.equal(got, ref)
 
 
+def test_gather_kernel_int64_rows_bit_exact():
+    """The ph pitch path's gather: coarse bins (int64, one element a row,
+    the 8-byte word path) from [B, T_s + 1] to the frames of mel2ph, at the
+    train step's shape; bit-exact against the plain version, one launch,
+    and no gradient asked for."""
+    dev = _need_card()
+    from ctts_torch.ops import sort_gather
+    from ctts_torch.ops.length_regulator import gather_by_mel2ph
+    rng = np.random.RandomState(21)
+    B, T_s, T_m = 16, 128, 896
+    bins = torch.from_numpy(rng.randint(1, 256, (B, T_s))).to(dev)
+    mel2ph = torch.from_numpy(np.sort(rng.randint(0, T_s + 1, (B, T_m)),
+                                      axis=1).astype(np.int32)).to(dev)
+    before = sort_gather.launches
+    got = gather_by_mel2ph(bins, mel2ph)
+    torch.cuda.synchronize()
+    assert sort_gather.launches == before + 1
+    assert got.dtype == torch.int64 and not got.requires_grad
+    pad = torch.cat([bins.new_zeros(B, 1), bins], 1)[..., None]
+    assert torch.equal(got, sort_gather.gather_rows_plain(pad, mel2ph)[..., 0])
+    assert torch.equal(got.cpu(), gather_by_mel2ph(bins.cpu(), mel2ph.cpu()))
+
+
 def test_gather_kernel_unaligned_pointers():
     """Views that start 4 and 2 bytes into their storage take the narrower
     words and are still exact."""
@@ -502,6 +525,26 @@ def test_ctc_lattice_alpha_alone_without_a_gradient():
     assert torch.equal(with_grad.detach(), without)
 
 
+def test_ctc_lattice_at_its_state_limit():
+    """ROADMAP.md §3 L2: one thread a state, so at most 1024 states. A text
+    axis of 511 (S = 1023) runs bit-exact against the plain versions; 512
+    (S = 1025) raises, naming the item."""
+    dev = _need_card()
+    from ctts_torch.ops import forward_sum as fs
+    rng = np.random.RandomState(14)
+    B, T_m = 2, 1100
+    in_lens = torch.tensor([511, 300], dtype=torch.int32, device=dev)
+    out_lens = torch.tensor([1100, 700], dtype=torch.int32, device=dev)
+    em = _ctc_em(rng, dev, B, T_m, 511, in_lens, out_lens)
+    assert em.shape[2] == 1023
+    cot = torch.from_numpy(rng.rand(B).astype(np.float32) + 0.5).to(dev)
+    _check_ctc(em, in_lens, out_lens, cot)
+    em = _ctc_em(rng, dev, B, T_m, 512, in_lens, out_lens)
+    assert em.shape[2] == 1025
+    with pytest.raises(ValueError, match="ROADMAP.md §3 L2"):
+        fs.ctc_lattice(em, in_lens, out_lens)
+
+
 def _attention_case(rng, dev, N, T, d, lens):
     q, k, v = (torch.from_numpy(rng.randn(N, T, d).astype(np.float32)).to(dev)
                for _ in range(3))
@@ -626,6 +669,78 @@ def test_train_step_on_the_card_tiny():
     after = (sort_gather.scatter_launches, mas.launches, fs.lattice_launches,
              fs.grad_launches)
     assert [a - b for a, b in zip(after, before)] == [6, 3, 3, 3]
+
+
+def test_crf_on_the_card_matches_the_cpu():
+    """The duration CRF at the train shape (B=16, T_s=128, 32 classes,
+    ragged lengths): the log-likelihood within 1e-5 of max(1, |CPU|) (the
+    log-sum-exps may round differently), the Viterbi tags equal."""
+    dev = _need_card()
+    from ctts_torch.ops.crf import crf_log_likelihood, viterbi_decode
+    rng = np.random.RandomState(22)
+    B, T, K = 16, 128, 32
+    lens = _ragged(rng, B, 60, T)
+    mask = torch.from_numpy(np.arange(T)[None] < lens[:, None])
+    em = torch.from_numpy(rng.randn(B, T, K).astype(np.float32) * 2)
+    tags = torch.from_numpy(rng.randint(0, K, (B, T)).astype(np.int32))
+    params = [torch.from_numpy(rng.randn(*s).astype(np.float32))
+              for s in ((K,), (K,), (K, K))]
+    cpu_ll = crf_log_likelihood(em, tags, mask, *params)
+    cpu_tags = viterbi_decode(em, mask, *params)
+    on = [t.to(dev) for t in (em, tags, mask, *params)]
+    card_ll = crf_log_likelihood(*on).cpu()
+    assert ((card_ll - cpu_ll).abs() / cpu_ll.abs().clamp(min=1.0)).max() \
+        <= 1e-5
+    card_tags = viterbi_decode(on[0], on[2], *on[3:]).cpu()
+    assert torch.equal(card_tags, cpu_tags)
+
+
+@pytest.mark.parametrize("option", ["cwt-mse", "ph-mog", "frame-crf-ar"])
+def test_train_sup_step_on_the_card_tiny(option):
+    """Three ``train_sup`` steps of the tiny configuration on the card with
+    the option set: finite losses, the gather and its scatter launched
+    (the ph path's integer gather has no scatter), no MAS and no CTC."""
+    dev = _need_card()
+    from ctts_torch.models.comp_trans_tts import CompTransTTS
+    from ctts_torch.ops import forward_sum as fs
+    from ctts_torch.ops import mas, sort_gather
+    from ctts_torch.parallel.train_step import (batch_to_device,
+                                                create_train_state,
+                                                make_train_step)
+    from ctts_torch.utils.model import init_weights
+    from ctts_torch.utils.optimizer import build_optimizer
+    from ctts_torch.utils.testing import synth_batch, tiny_configs
+    pre, mc, tr = tiny_configs()
+    mc["transformer_fs2"]["encoder_hidden"] = 128     # head width 64
+    mc["transformer_fs2"]["decoder_hidden"] = 128
+    mc["duration_modeling"]["learn_alignment"] = False
+    pitch, energy, dur = {"cwt-mse": ("cwt", "phoneme_level", "mse"),
+                          "ph-mog": ("ph", "phoneme_level", "mog"),
+                          "frame-crf-ar": ("frame", "frame_level",
+                                           "crf")}[option]
+    pre["preprocessing"]["pitch"]["pitch_type"] = pitch
+    pre["preprocessing"]["pitch"]["pitch_ar"] = option == "frame-crf-ar"
+    pre["preprocessing"]["energy"]["feature"] = energy
+    tr["loss"]["dur_loss"] = dur
+    model = init_weights(CompTransTTS(pre, mc, tr), 0).to(dev)
+    opt, _ = build_optimizer(model, mc, tr)
+    state = create_train_state(model, opt,
+                               step=tr["step"]["var_start_steps"])
+    step = make_train_step(pre, mc, tr, "train_sup")
+    batch = batch_to_device(synth_batch(
+        sup=True, phone_energy=energy == "phoneme_level"), dev)
+    before = (sort_gather.launches, sort_gather.scatter_launches,
+              mas.launches, fs.lattice_launches)
+    for _ in range(3):
+        metrics = step(state, batch)
+    assert all(np.isfinite(v.item()) for v in metrics.values())
+    assert metrics["ctc"].item() == 0 and metrics["pdur"].item() > 0
+    after = (sort_gather.launches, sort_gather.scatter_launches,
+             mas.launches, fs.lattice_launches)
+    gathers = {"cwt-mse": 2, "ph-mog": 3, "frame-crf-ar": 1}[option]
+    scatters = 1 if option == "frame-crf-ar" else 2
+    assert [a - b for a, b in zip(after, before)] == \
+        [3 * gathers, 3 * scatters, 0, 0]
 
 
 # ---- relative-position attention (the conformer) ------------------------------ #

@@ -93,7 +93,8 @@ def test_text_frontend_matches_jax_package():
 def test_imports_need_no_jax_yaml_or_ml_dtypes():
     """Every ctts_torch module (the conformer, the reformer and its two ops,
     the data pipeline, the train CLI, the server, the streaming vocoder,
-    MelGAN and the flip tool included) and chip_smoke.py import
+    MelGAN, the flip tool and the CRF and SSIM ops included) and
+    chip_smoke.py import
     with jax, ctts_tpu, yaml, ml_dtypes, matplotlib, flax and orbax
     blocked."""
     code = r"""
@@ -125,7 +126,7 @@ print(" ".join(mods), len(mods))
                 "train", "models.reformer", "ops.local_window_attention",
                 "ops.lsh_chunk_attention", "ops.fused_resblock", "serve",
                 "vocoder.streaming", "vocoder.melgan", "ops.flip",
-                "tools.bench_flip"):
+                "tools.bench_flip", "ops.crf", "ops.ssim"):
         assert f"ctts_torch.{new}" in names, new
 
 
@@ -179,11 +180,9 @@ def test_unported_options_raise(tmp_path):
     configs[2]["path"]["ckpt_path"] = str(tmp_path)
     with pytest.raises(FileNotFoundError):     # no checkpoint at step 5
         get_model(5, configs, device="cpu")
-    model = get_model(0, configs, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, dtype=torch.long),
-              torch.ones(1, 4, dtype=torch.long), torch.tensor([4]),
-              "train_sup", max_mel_len=8)
+    configs[1]["multi_speaker"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
+        get_model(0, configs, device="cpu")
 
 
 @pytest.mark.parametrize("B", [1, 3])

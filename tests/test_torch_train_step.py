@@ -271,25 +271,6 @@ def test_loss_terms_match_jax(term):
         assert abs(got[k].item() - float(want[k])) <= 1e-5, k
 
 
-@pytest.mark.parametrize("kind", ["huber", "mog", "crf", "ssim", "frame"])
-def test_unported_loss_kinds_name_their_roadmap_item(kind):
-    from ctts_torch.models import loss as t_loss
-    from ctts_torch.config import get_configs_of
-    pre, _, tr = copy.deepcopy(get_configs_of("LJSpeech"))
-    z = torch.zeros(1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if kind in ("huber", "mog", "crf"):
-            tr["loss"]["dur_loss"] = kind
-            t_loss.duration_loss(z, z, z.long(), z.bool(), tr["loss"])
-        else:
-            if kind == "ssim":
-                tr["loss"]["cwt_loss"] = "ssim"
-            else:
-                pre["preprocessing"]["pitch"]["pitch_type"] = "frame"
-            t_loss.pitch_loss({}, {}, pre["preprocessing"]["pitch"],
-                              tr["loss"], z.bool())
-
-
 # ---- optimizer ------------------------------------------------------------------ #
 
 @pytest.mark.parametrize("start", [0, 13301, 350000])
