@@ -84,6 +84,20 @@ suppresses the final line:
 12. ``python -m ctts_torch.train`` with the reformer config: 6 steps, and
    3 + a resume for 3 more; then counted, timed and profiled steps at
    [16, 128 tokens, 896 frames] on both routes;
+12b. the classic ``transformer``, ``fastformer`` and ``lstransformer``
+   blocks (``configs/LJSpeech.yaml`` with only ``block_type`` changed,
+   full width and depth, bf16, seeded weights): the probe forward at budget
+   1152 (counted, median of 20, profiled), one counted ``train_unsup`` step
+   at [16, 128 tokens, 896 frames], timed and profiled, and one float32
+   step with dropout off on the card against the port's CPU path at [4,
+   128, 896]; then the VCTK recipe (``configs/VCTK.yaml`` as shipped:
+   ``transformer_fs2``, external 512-d speaker embeddings, seeded weights):
+   ``python -m ctts_torch.train --dataset VCTK`` on a synthetic store of 8
+   speakers (4 steps, and a resume from step 2, validating), one counted,
+   timed and profiled step at exactly [16, 128, 1298] (VCTK's longest
+   utterance), the attention, gather, scatter, MAS and CTC kernels at that
+   shape against their plain versions with their bounds, and the
+   synthesize CLI with ``--speaker_id`` for two speakers;
 13. serving: the fused HiFi-GAN ResBlock1 kernel against its plain version
    at levels 1-3 of the probe (C = 128, 64, 32; k = 3, 7, 11; bf16 and
    f32; the generator's own weights and inputs) plus two and ragged tiles,
@@ -99,9 +113,12 @@ suppresses the final line:
    variants bit-exact against its plain version;
 14. the ``kernels`` JSON line, the card line, and the result line.
 
-Exits non-zero without a result when no CUDA device is present.
+Each phase prints its own seconds. Exits non-zero without a result when no
+CUDA device is present.
 """
 
+import atexit
+import contextlib
 import io
 import json
 import os
@@ -132,6 +149,9 @@ ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 ATTN_ROW_TOL_BF16 = 1e-2
 # the train step's shapes
 B_TRAIN, T_S, T_M = 16, 128, 896
+# the VCTK recipe's longest utterance (configs/VCTK.yaml, max_seq_len's
+# comment): its train step's mel axis
+T_VCTK = 1298
 # scatter: float32 sums of up to ~20 rows in another order than the plain
 # version's atomics; bfloat16 adds one rounding of the float32 sum on each
 # side, which may land on neighbouring values
@@ -187,6 +207,12 @@ RESUME_TOL = 1e-3
 # the attention kernel's bf16 hi + lo products)
 VARIANCE_MEL_TOL = 1e-3
 VARIANCE_LOSS_TOL = 1e-4
+# the transformer, fastformer and lstransformer models in float32 with
+# dropout off, one train_unsup step on the card against the port's CPU path
+# on the same weights and batch: the postnet mel's max |difference| over its
+# largest entry, and each loss term relative to its CPU value
+ZOO_MEL_TOL = 1e-4
+ZOO_LOSS_TOL = 1e-4
 
 
 def card_line():
@@ -379,6 +405,7 @@ class Smoke:
 
     def phase(self, name, fn):
         print(f"== {name}", flush=True)
+        t0 = time.perf_counter()
         try:
             return fn()
         except Exception:                                # report, go on
@@ -386,6 +413,9 @@ class Smoke:
             print(f"FAILED: {name}", flush=True)
             self.failures.append(name)
             return None
+        finally:
+            print(f"   ({name}: {time.perf_counter() - t0:.1f} s)",
+                  flush=True)
 
     # ---- phase 1 ----------------------------------------------------- #
     def build(self):
@@ -1818,15 +1848,27 @@ class Smoke:
 
     # ---- phase 9: the conformer train CLI ---------------------------------- #
     @staticmethod
-    def write_store(root, n_train=64, n_val=8, seed=0, sup=False):
+    def write_store(root, n_train=64, n_val=8, seed=0, sup=False,
+                    speakers=0):
         """A synthetic LJSpeech-shaped ``.npy`` store (75-128 phones,
         500-896 frames of 80 mel bins, CWT pitch, frame energy), in the
         layout ``ctts_torch.data.dataset.Dataset`` reads. ``sup=True``
         writes the ``sup`` store of a forced-aligned corpus instead: the
         same arrays under the ``sup`` names, durations of at least one
         frame summing to each mel length, ``mel2ph``, and phone-level
-        energy (the frame energy averaged over each phone's frames)."""
+        energy (the frame energy averaged over each phone's frames).
+        ``speakers=n`` writes a VCTK-shaped store: n speakers (p225, ...)
+        in turn, 500-1298 frames, ``speakers.json`` and a seeded 512-d
+        ``spker_embed/<speaker>-spker_embed.npy`` each."""
         rng = np.random.RandomState(seed)
+        names = [f"p{225 + i}" for i in range(speakers)] or ["LJSpeech"]
+        t_max = T_VCTK if speakers else T_M
+        if speakers:
+            os.makedirs(os.path.join(root, "spker_embed"), exist_ok=True)
+            for name in names:
+                np.save(os.path.join(root, "spker_embed",
+                                     f"{name}-spker_embed.npy"),
+                        rng.randn(1, 512).astype(np.float32))
         tag = "sup" if sup else "unsup"
         energy_dir = f"energy_{tag}_{'phone' if sup else 'frame'}"
         phones = ("AA1 AE1 AH0 B D EH1 F G HH IY1 K L M N OW1 P R S T UW1 V "
@@ -1837,9 +1879,9 @@ class Smoke:
             os.makedirs(os.path.join(root, d), exist_ok=True)
         lines = []
         for i in range(n_train + n_val):
-            base, spk = f"LJ{i:04d}", "LJSpeech"
+            base, spk = f"LJ{i:04d}", names[i % len(names)]
             T_s = int(rng.randint(75, T_S + 1))
-            T_m = int(rng.randint(500, T_M + 1))
+            T_m = int(rng.randint(500, t_max + 1))
             f0 = (np.abs(rng.randn(T_m)) * 40 + 150).astype(np.float32)
             f0[rng.rand(T_m) < 0.2] = 0.0
             arrays = {
@@ -1871,7 +1913,7 @@ class Smoke:
             with open(os.path.join(root, f"{split}_{tag}.txt"), "w") as f:
                 f.write("\n".join(part) + "\n")
         with open(os.path.join(root, "speakers.json"), "w") as f:
-            json.dump({"LJSpeech": 0}, f)
+            json.dump({name: i for i, name in enumerate(names)}, f)
         with open(os.path.join(root, "stats.json"), "w") as f:
             json.dump({"f0_unsup": [214.2, 63.4],
                        "energy_unsup_frame": [-1.17, 9.09, 37.2, 31.7],
@@ -2483,7 +2525,8 @@ class Smoke:
             os.environ.pop("CTTS_FUSED_LSH", None)
 
     # ---- phase 12: reformer training ------------------------------------ #
-    def run_train_cli(self, raw, tmp, name, max_steps, restore=0):
+    def run_train_cli(self, raw, tmp, name, max_steps, restore=0,
+                      dataset="LJSpeech"):
         """``python -m ctts_torch.train`` with the merged config ``raw``
         under ``tmp/name``; returns its log lines by step."""
         from ctts_torch.config import dump_yaml
@@ -2492,14 +2535,15 @@ class Smoke:
         raw["train"]["path"] = {k: os.path.join(cfg_dir, k)
                                 for k in ("ckpt_path", "log_path",
                                           "result_path")}
-        with open(os.path.join(cfg_dir, "LJSpeech.yaml"), "w") as f:
+        with open(os.path.join(cfg_dir, f"{dataset}.yaml"), "w") as f:
             f.write(dump_yaml(raw))
         cmd = [sys.executable, "-m", "ctts_torch.train", "--dataset",
-               "LJSpeech", "--config_dir", cfg_dir, "--max_steps",
+               dataset, "--config_dir", cfg_dir, "--max_steps",
                str(max_steps), "--restore_step", str(restore)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                              timeout=600)
+        self.cli_stdout = res.stdout
         print(f"$ python -m ctts_torch.train ... --max_steps {max_steps} "
               f"--restore_step {restore} ({time.perf_counter() - t0:.1f} s)")
         print("\n".join("  " + ln for ln in
@@ -2618,6 +2662,491 @@ class Smoke:
         finally:
             os.environ.pop("CTTS_FUSED_LSH", None)
 
+
+    # ---- phase 12b: the rest of the block zoo and the VCTK recipe ------- #
+    ZOO = ("transformer", "fastformer", "lstransformer")
+
+    def block_zoo(self):
+        """Each block of ``ZOO`` in ``configs/LJSpeech.yaml`` with only
+        ``block_type`` changed (full width and depth, bf16, seeded weights;
+        the repo has no trained weights for them): the probe forward at
+        budget 1152 (counted, median of 20, profiled); one counted bf16
+        ``train_unsup`` step at [16, 128, 896] with ``Smoke.train_lengths``
+        in the hard-upsample regime, then timed and profiled; and one
+        float32 step with dropout off on the card and on the CPU at [4, 128,
+        896], every loss term and the mel held to the CPU's."""
+        import copy
+        from ctts_torch.config import get_configs_of
+        from ctts_torch.models.comp_trans_tts import (CompTransTTS,
+                                                      prepare_model_config)
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        from ctts_torch.parallel.train_step import (_apply, batch_to_device,
+                                                    create_train_state,
+                                                    make_train_step,
+                                                    prep_batch)
+        from ctts_torch.synthesize import infer_mels
+        from ctts_torch.utils.model import get_model, init_weights
+        from ctts_torch.utils.optimizer import build_optimizer
+        from ctts_torch.utils.testing import synth_batch
+        man = json.load(open(MANIFEST))["probe"]
+        probe = {"speakers": np.zeros(len(man["src_lens"]), np.int64),
+                 "texts": np.asarray(man["texts"], np.int64),
+                 "src_lens": np.asarray(man["src_lens"], np.int64)}
+        src_lens, mel_lens = self.train_lengths()
+        host = synth_batch(B=B_TRAIN, T_s=T_S, T_m=T_M, seed=0,
+                           src_lens=src_lens, mel_lens=mel_lens, prior=False)
+        host["mels"] = host["mels"].astype(np.float16)     # transfer_dtype
+        batch = batch_to_device(host, "cuda")
+        small = {mode: synth_batch(
+            B=4, T_s=T_S, T_m=T_M, seed=0, src_lens=src_lens[:4],
+            mel_lens=mel_lens[:4], prior=False, sup=mode == "train_sup",
+            phone_energy=mode == "train_sup")
+            for mode in ("train_unsup", "train_sup")}
+        for block in self.ZOO:
+            pre, mc, tr = get_configs_of("LJSpeech")
+            mc["block_type"] = block
+            configs = (pre, mc, tr)
+            attn = {"fused_attention": 10} if block == "transformer" else {}
+            model = get_model(0, configs, device="cuda")
+
+            def forward():
+                out = infer_mels(model, probe, configs,
+                                 max_mel_len=man["budget"])
+                torch.cuda.synchronize()
+                return out
+
+            forward()
+            reset_launch_counts()
+            out = forward()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            times = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                forward()
+                times.append((time.perf_counter() - t0) * 1e3)
+            _, busy, idle, kernels = self.breakdown(
+                forward, f"{block} probe forward")
+            mel = out["postnet_mel_predictions"]
+            print(f"{block}: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}"
+                  f" M parameters, bf16; probe forward at budget "
+                  f"{man['budget']}: launches {counts}; median of 20 "
+                  f"{np.median(times):.2f} ms (min {min(times):.2f}, max "
+                  f"{max(times):.2f}); device busy {busy:.3f} ms, idle share "
+                  f"{idle:.3f}, {kernels} kernels; mel lens "
+                  f"{out['mel_lens'].tolist()}")
+            want = {**attn, "gather_rows": 2}
+            if counts != want:
+                raise AssertionError(f"{block} forward: expected launches "
+                                     f"{want}, got {counts}")
+            if not bool(torch.isfinite(mel).all()) or mel.shape != (
+                    4, man["budget"], 80):
+                raise AssertionError(f"{block}: mel {tuple(mel.shape)} or "
+                                     "non-finite")
+            for name, n in counts.items():
+                self.kernels[name].setdefault(f"launches_{block}_forward", n)
+
+            # bf16 train step, hard upsample
+            mc = prepare_model_config(pre, mc)
+            start = tr["duration"]["binarization_start_steps"]
+            opt, _ = build_optimizer(model, mc, tr, count=start)
+            state = create_train_state(model, opt, step=start,
+                                       seed=tr["seed"])
+            step = make_train_step(pre, mc, tr, "train_unsup")
+            step(state, batch)
+            torch.cuda.synchronize()
+            _, got = self.counted_step(step, state, batch,
+                                       f"{block} train step")
+            want = {**attn, "gather_rows": 2, "scatter_rows": 2, "b_mas": 1,
+                    "ctc_lattice": 1, "ctc_grad": 1}
+            if got != want:
+                raise AssertionError(f"{block} step: expected launches "
+                                     f"{want}, got {got}")
+            for name, n in got.items():
+                self.kernels[name].setdefault(f"launches_{block}_step", n)
+            self.step_timing(step, state, batch, f"{block} train step")
+            del model, opt, state, step
+            torch.cuda.empty_cache()
+
+            # float32, dropout off: the card against the port's CPU path
+            mc32 = dict(mc, compute_dtype="float32")
+            cpu = init_weights(CompTransTTS(pre, mc32, tr), tr["seed"])
+            card = copy.deepcopy(cpu).cuda()
+            outs, comps = {}, []
+            for m, dev in ((cpu, "cpu"), (card, "cuda")):
+                m.eval()
+                for mode, host_b in small.items():
+                    b = prep_batch(batch_to_device(host_b, dev), pre, mode)
+                    with torch.no_grad():
+                        o = _apply(m, b, mode, start + 1)
+                    outs.setdefault(mode, []).append(
+                        (o["postnet_mel_predictions"].float().cpu(),
+                         o["mel2ph"].cpu()))
+                o, _ = build_optimizer(m, mc32, tr, count=start)
+                st = create_train_state(m, o, step=start, seed=tr["seed"])
+                comps.append({k: v.item() for k, v in make_train_step(
+                    pre, mc32, tr, "train_unsup", deterministic=True)(
+                        st, batch_to_device(small["train_unsup"],
+                                            dev)).items()})
+            errs = {mode: ((c[0] - p[0]).abs().max() / p[0].abs().max())
+                    .item() for mode, (p, c) in outs.items()}
+            p, c = outs["train_unsup"]
+            moved = int((p[1] != c[1]).sum())
+            loss_err = {k: abs(comps[1][k] - v) / max(abs(v), 1e-30)
+                        for k, v in comps[0].items() if v != 0}
+            worst = max(loss_err, key=loss_err.get)
+            zeros = [k for k, v in comps[0].items()
+                     if v == 0 and comps[1][k] != 0]
+            print(f"{block}: f32, dropout off, card vs CPU at 4x[{T_S}, "
+                  f"{T_M}]: mel max err over its largest entry, the batch's "
+                  f"durations (train_sup forward) {errs['train_sup']:.3e}, "
+                  f"MAS durations (train_unsup forward) "
+                  f"{errs['train_unsup']:.3e} with {moved} of "
+                  f"{int(mel_lens[:4].sum())} frames on another token "
+                  f"(tol {ZOO_MEL_TOL:g}, the second only where no frame "
+                  f"moved); train_unsup step's loss terms relative: "
+                  + ", ".join(f"{k} {e:.2e}" for k, e in loss_err.items())
+                  + f" (tol {ZOO_LOSS_TOL:g}); total {comps[1]['total']:.6f}"
+                  f" vs {comps[0]['total']:.6f}")
+            if errs["train_sup"] > ZOO_MEL_TOL or (
+                    not moved and errs["train_unsup"] > ZOO_MEL_TOL) \
+                    or loss_err[worst] > ZOO_LOSS_TOL or zeros:
+                raise AssertionError(f"{block}: card vs CPU {errs}, moved "
+                                     f"{moved}, {loss_err}, {zeros}")
+            del cpu, card
+            torch.cuda.empty_cache()
+
+    @staticmethod
+    def vctk_configs():
+        from ctts_torch.config import get_configs_of
+        from ctts_torch.models.comp_trans_tts import prepare_model_config
+        pre, mc, tr = get_configs_of("VCTK")
+        return pre, prepare_model_config(pre, mc), tr
+
+    @staticmethod
+    def vctk_lengths():
+        """Ragged lengths of the VCTK step's batch, from a seed: B=16,
+        T_s=128, T_m=1298 (VCTK's longest utterance); one utterance fills
+        each axis."""
+        rng = np.random.RandomState(T_VCTK)
+        src = rng.randint(75, T_S + 1, B_TRAIN).astype(np.int32)
+        mel = rng.randint(500, T_VCTK + 1, B_TRAIN).astype(np.int32)
+        src[0], mel[0] = T_S, T_VCTK
+        return src, mel
+
+    def vctk_train_cli(self):
+        """``python -m ctts_torch.train --dataset VCTK`` with
+        ``configs/VCTK.yaml``'s model as shipped (``transformer_fs2`` 4 + 6,
+        hidden 256, bf16, external 512-d speaker embeddings; seeded weights)
+        on a synthetic store of 8 speakers (``write_store(speakers=8)``:
+        64 + 8 utterances, 500-1298 frames), batch 16, the device cache,
+        the warm-up cut to 50, the variance losses on: 6 steps validating
+        and saving at 3 and 6, then steps 4-6 again resumed from the step-3
+        checkpoint. The store,
+        a lexicon of the probe texts and the runs stay for the synthesize
+        phase."""
+        from ctts_torch.config import load_yaml
+        tmp = self.vctk_tmp = tempfile.mkdtemp(prefix="ctts_smoke_vctk_")
+        atexit.register(shutil.rmtree, tmp, True)
+        store = os.path.join(tmp, "store")
+        self.write_store(store, speakers=8)
+        raw = load_yaml(open(os.path.join(REPO, "configs", "VCTK.yaml")))
+        raw["preprocess"]["path"].update(
+            preprocessed_path=store,
+            lexicon_path=os.path.join(tmp, "lexicon.txt"))
+        self.probe_lexicon(os.path.join(tmp, "lexicon.txt"))
+        raw["train"]["optimizer"]["warm_up_step"] = 50
+        # the variance losses on from the start, so that the duration head
+        # the synthesize phase runs has trained
+        raw["train"]["step"].update(log_step=1, save_step=3, val_step=3,
+                                    var_start_steps=0)
+        straight = self.run_train_cli(raw, tmp, "straight", 6,
+                                      dataset="VCTK")
+        cached = "device cache:" in self.cli_stdout
+        shutil.copytree(os.path.join(tmp, "straight", "ckpt_path"),
+                        os.path.join(tmp, "resumed", "ckpt_path"))
+        resumed = self.run_train_cli(raw, tmp, "resumed", 6, restore=3,
+                                     dataset="VCTK")
+        totals = [straight[s]["total"] for s in range(1, 7)]
+        bad = [(s, k) for s, r in straight.items() for k, v in r.items()
+               if isinstance(v, float) and not np.isfinite(v)]
+        if bad or not cached:
+            raise AssertionError(f"non-finite loss terms {bad}, device cache "
+                                 f"used {cached}")
+        diff = max(abs(straight[s][k] - resumed[s][k])
+                   / max(1.0, abs(straight[s][k]))
+                   for s in (4, 5, 6) for k in ("total", "mel", "ctc", "pdur"))
+        val = [json.loads(ln) for ln in open(os.path.join(
+            tmp, "straight", "log_path", "val", "log.jsonl"))]
+        launches = [straight[s]["launches_per_step"] for s in range(1, 7)]
+        print(f"VCTK train CLI (device cache used): total over 6 steps "
+              + ", ".join(f"{t:.3f}" for t in totals)
+              + f"; resumed from step 3: steps 4-6 total/mel/ctc/pdur max "
+              f"relative difference {diff:.3e} (tol {RESUME_TOL:g}); "
+              f"validation " + "; ".join(f"step {r['step']} total "
+                                         f"{r['total']:.4f}" for r in val)
+              + f"; launches per step in the log, steps 1-6: {launches}")
+        if diff > RESUME_TOL:
+            raise AssertionError(f"resumed losses differ by {diff}")
+        if [r["step"] for r in val] != [3, 6] or not all(
+                np.isfinite(r["total"]) for r in val):
+            raise AssertionError(f"validation lines {val}")
+        # soft upsample: the gather and the scatter once, for the energy
+        # embedding; validation's launches are not the steps'
+        want = {"fused_attention": 10, "gather_rows": 1, "scatter_rows": 1,
+                "b_mas": 1, "ctc_lattice": 1, "ctc_grad": 1}
+        if any(n != want for n in launches):
+            raise AssertionError(f"CLI launches per step {launches}")
+
+    def vctk_step(self):
+        """The VCTK model (seeded weights, bf16) through one counted
+        ``train_unsup`` step at exactly [16, 128, 1298] (``vctk_lengths``,
+        float16 transfer of the mels and the 512-d embeddings), hard
+        upsample, then timed and profiled; then each kernel of the step at
+        that shape against its plain version (``vctk_kernels``)."""
+        from ctts_torch.parallel.train_step import (batch_to_device,
+                                                    create_train_state,
+                                                    make_train_step)
+        from ctts_torch.utils.model import get_model
+        from ctts_torch.utils.optimizer import build_optimizer
+        from ctts_torch.utils.testing import synth_batch
+        configs = pre, mc, tr = self.vctk_configs()
+        model = get_model(0, configs, device="cuda")
+        src_lens, mel_lens = self.vctk_lengths()
+        host = synth_batch(B=B_TRAIN, T_s=T_S, T_m=T_VCTK, seed=0,
+                           src_lens=src_lens, mel_lens=mel_lens, prior=False)
+        host["mels"] = host["mels"].astype(np.float16)
+        host["spker_embeds"] = np.random.RandomState(5).randn(
+            B_TRAIN, mc["external_speaker_dim"]).astype(np.float16)
+        batch = batch_to_device(host, "cuda")
+        start = tr["duration"]["binarization_start_steps"]
+        opt, _ = build_optimizer(model, mc, tr, count=start)
+        state = create_train_state(model, opt, step=start, seed=tr["seed"])
+        step = make_train_step(pre, mc, tr, "train_unsup")
+        print(f"VCTK: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} "
+              f"M parameters, bf16, batch {B_TRAIN}x[{T_S} tokens, {T_VCTK} "
+              f"frames], src_lens {src_lens.tolist()}, mel_lens "
+              f"{mel_lens.tolist()}")
+        step(state, batch)
+        torch.cuda.synchronize()
+        _, got = self.counted_step(step, state, batch, "VCTK train step")
+        want = {"fused_attention": 10, "gather_rows": 2, "scatter_rows": 2,
+                "b_mas": 1, "ctc_lattice": 1, "ctc_grad": 1}
+        if got != want:
+            raise AssertionError(f"VCTK step: expected launches {want}, got "
+                                 f"{got}")
+        for name, n in got.items():
+            self.kernels[name]["launches_vctk_step"] = n
+        self.step_timing(step, state, batch, "VCTK train step")
+        del model, opt, state, step, batch
+        torch.cuda.empty_cache()
+        self.vctk_kernels(src_lens, mel_lens)
+
+    def vctk_kernels(self, src_lens, mel_lens):
+        """Each kernel of the VCTK step at its shape (B=16, T_s=128,
+        T_m=1298, the step's lengths; seeded values) against its plain
+        version, timed beside the plain version (but MAS's and the CTC
+        lattice's, host loops of a few launches a frame, whose profiles of
+        tens of thousands of kernels late in the process lose their ends),
+        one library call and the bound, counted as in phases 2 and 5;
+        recorded under each kernel's ``vctk`` entry."""
+        from ctts_torch.ops import attention, mas, sort_gather
+        from ctts_torch.ops import forward_sum as fs
+        dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(12)
+        rng = np.random.RandomState(12)
+        B, T, S_tok = B_TRAIN, T_VCTK, T_S
+        il = torch.from_numpy(src_lens).to(dev)
+        ol = torch.from_numpy(mel_lens).to(dev)
+
+        def put(name, shape, err, ms, plain_ms, lib_ms, flops, nbytes):
+            b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            self.kernels[name]["vctk"] = {
+                "shape": shape, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                "bound_by": b_by}
+            lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+            plain = ("not timed (a host loop of a few launches a frame; "
+                     "phase 5 times it at the train shape)"
+                     if plain_ms is None else f"{plain_ms:.4f}")
+            print(f"{name} at the VCTK shape ({shape}): max err {err:.3e}; "
+                  f"device ms kernel {ms:.4f}, plain {plain}, library "
+                  f"{lib}; bound {b_ms:.5f} ms ({b_by}), the kernel at "
+                  f"{b_ms / ms:.3f} of it", flush=True)
+
+        # the decoder's attention: 2 heads of 128, bf16
+        d, scale = 128, 128 ** -0.5
+        lens = torch.from_numpy(np.repeat(mel_lens, 2)).to(dev)
+        N = len(lens)
+        q, k, v = (randn(gen, N, T, d).to(dev, torch.bfloat16)
+                   for _ in range(3))
+        got = attention.fused_attention(q, k, v, lens, scale)
+        ref = attention.attention_plain(q.float(), k.float(), v.float(),
+                                        lens, scale)
+        err, by_row = (got.float() - ref).abs().max().item(), row_err(got,
+                                                                      ref)
+        if err > ATTN_TOL[torch.bfloat16] or by_row > ATTN_ROW_TOL_BF16:
+            raise AssertionError(f"attention at the VCTK shape: {err}, by "
+                                 f"row {by_row}")
+        add_mask = torch.where(
+            torch.arange(T, device=dev)[None, None, :] < lens[:, None, None],
+            0.0, attention.NEG).to(torch.bfloat16)
+        ms, _ = timings(lambda: attention.fused_attention(q, k, v, lens,
+                                                          scale))
+        plain_ms, _ = timings(lambda: attention.attention_plain(
+            q, k, v, lens, scale), iters=10)
+        lib_ms, _ = timings(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=add_mask, scale=scale), iters=10)
+        kv = int(lens.sum())
+        put("fused_attention", f"bf16 N={N} T={T} d={d}, row check "
+            f"{by_row:.2e}", err, ms, plain_ms, lib_ms, 4 * d * T * kv,
+            2 * N * T * d * 2 + 2 * d * 2 * kv + N * 4)
+        del q, k, v, ref, add_mask
+
+        # the length regulator: mel2ph of the step's lengths
+        mel2ph = np.zeros((B, T), np.int32)
+        for g in range(B):
+            cuts = np.sort(rng.choice(np.arange(1, mel_lens[g]),
+                                      src_lens[g] - 1, replace=False))
+            mel2ph[g, :mel_lens[g]] = np.searchsorted(
+                cuts, np.arange(mel_lens[g]), side="right") + 1
+        idx = torch.from_numpy(mel2ph).to(dev)
+        G, Nr, Fw = B, S_tok + 1, 256
+        vals = randn(gen, G, Nr, Fw).to(dev, torch.bfloat16)
+        if not torch.equal(sort_gather.gather_rows(vals, idx),
+                           sort_gather.gather_rows_plain(vals, idx)):
+            raise AssertionError("gather at the VCTK shape differs")
+        full = idx.long()[..., None].expand(G, T, Fw).contiguous()
+        ms, _ = timings(lambda: sort_gather.gather_rows(vals, idx))
+        plain_ms, _ = timings(lambda: sort_gather.gather_rows_plain(vals,
+                                                                    idx))
+        lib_ms, _ = timings(lambda: torch.gather(vals, 1, full))
+        put("gather_rows", f"bf16 G={G} N={Nr} M={T} F={Fw}, mel2ph; "
+            f"bit-exact", 0.0, ms, plain_ms, lib_ms, 0,
+            (G * Nr * Fw + G * T * Fw) * 2 + G * T * 4)
+        vals = torch.from_numpy(rng.randn(G, T, Fw).astype(np.float32)).to(
+            dev)
+        got = sort_gather.scatter_rows(vals, idx, Nr)
+        ref = sort_gather.scatter_rows_plain(vals, idx, Nr)
+        err = (got - ref).abs().max().item()
+        if err > SCATTER_TOL[torch.float32] * ref.abs().max().item():
+            raise AssertionError(f"scatter at the VCTK shape: {err}")
+        t = self.scatter_timing("the VCTK step's length regulator", mel2ph,
+                                Nr, Fw, rng)
+        put("scatter_rows", f"f32 G={G} M={T} n_out={Nr} F={Fw}, mel2ph",
+            err, t["ms"], t["plain_ms"], t["library_ms"], 0, t["nbytes"])
+
+        # MAS
+        attn = torch.softmax(randn(gen, B, T, S_tok) * 3.0, dim=-1).to(dev)
+        if not torch.equal(mas.b_mas(attn, il, ol),
+                           mas.b_mas_plain(attn, il, ol)):
+            raise AssertionError("MAS at the VCTK shape differs")
+        ms, _ = timings(lambda: mas.b_mas(attn, il, ol), only="mas_kernel")
+        put("b_mas", f"f32 B={B} T_m={T} T_s={S_tok}; bit-exact", 0.0, ms,
+            None, None, 0,
+            int(mel_lens.sum()) * S_tok * 4 + B * T * S_tok * 4 + 2 * B * 4)
+        del attn
+
+        # the CTC pair
+        logprob = (randn(gen, B, T, S_tok) * 2.0).to(dev)
+        key = torch.arange(S_tok + 1, device=dev)[None, None, :]
+        logits = torch.cat([logprob.new_full((B, T, 1), fs.BLANK_LOGPROB),
+                            logprob], -1)
+        masked = torch.where(key <= il[:, None, None], logits,
+                             logits.new_full((), fs.NEG))
+        em = fs._interleave(fs._log_softmax(masked)).contiguous()
+        S = em.shape[-1]
+        alpha, beta = fs.ctc_lattice(em, il, ol)
+        alpha_p, beta_p = fs.ctc_alpha_plain(em, ol), fs.ctc_beta_plain(
+            em, il, ol)
+        if not (torch.equal(alpha, alpha_p) and torch.equal(beta, beta_p)):
+            raise AssertionError("CTC lattice at the VCTK shape differs")
+        i2 = 2 * il.long()
+        pick = torch.stack([i2, (i2 - 1).clamp(min=0)], 1)
+        log_l = torch.logsumexp(alpha[:, -1].gather(1, pick), dim=-1)
+        cot = (1.0 / (il.float() * B)).contiguous()
+        dem = fs.ctc_grad(alpha, beta, log_l, cot, ol)
+        dem_p = fs.ctc_grad_plain(alpha_p, beta_p, log_l, cot, ol)
+        g_err = (dem - dem_p).abs().max().item()
+        if g_err > CTC_GRAD_TOL * dem_p.abs().max().item():
+            raise AssertionError(f"CTC gradient at the VCTK shape: {g_err}")
+        lp = F.log_softmax(torch.where(key <= il[:, None, None], logits,
+                                       logits.new_full((), -1e9)),
+                           dim=-1).transpose(0, 1).contiguous()
+        lp.requires_grad_(True)
+        targets = torch.arange(1, S_tok + 1, device=dev).expand(B, S_tok)
+
+        def lib_loss():
+            return F.ctc_loss(lp, targets, ol.long(), il.long(), blank=0,
+                              reduction="mean")
+
+        def lib_both():
+            lp.grad = None
+            lib_loss().backward()
+
+        ms_l, _ = timings(lambda: fs.ctc_lattice(em, il, ol))
+        ms_g, _ = timings(lambda: fs.ctc_grad(alpha, beta, log_l, cot, ol))
+        plain_g, _ = timings(lambda: fs.ctc_grad_plain(alpha, beta, log_l,
+                                                       cot, ol))
+        lib_f, _ = timings(lib_loss, iters=5)
+        lib_fb, _ = timings(lib_both, iters=5)
+        live = int(mel_lens.sum())
+        shape = f"f32 B={B} T_m={T} S={S}"
+        put("ctc_lattice", f"{shape}; bit-exact", 0.0, ms_l, None, lib_f,
+            0, live * S * 4 + B * T * S * 4 + 2 * B * 4)
+        put("ctc_grad", f"{shape}; bit-exact {torch.equal(dem, dem_p)}",
+            g_err, ms_g, plain_g, lib_fb, 0,
+            2 * live * S * 4 + B * T * S * 4 + 3 * B * 4)
+
+    def vctk_synthesize(self):
+        """``python -m ctts_torch.synthesize --mode single --speaker_id``
+        (its ``main``) from the VCTK train CLI's step-6 checkpoint, with
+        HiFi-GAN at seed 0 saved as the VCTK recipe's vocoder checkpoint:
+        the four probe texts as one utterance (a lexicon spells each as one
+        word), for speakers p225 and p229 and p225 again. The two speakers'
+        mels must differ and p225's two runs must be equal bit for bit."""
+        from ctts_torch.synthesize import main as synthesize
+        tmp = self.vctk_tmp
+        try:
+            ckpt = os.path.join(tmp, "ckpt")
+            self.save_seed_vocoder(ckpt, "VCTK")
+            text = " ".join(f"probe{c}" for c in "abcd")
+            mels = {}
+            for run, speaker in (("a", "p225"), ("b", "p229"),
+                                 ("a2", "p225")):
+                out = os.path.join(tmp, f"out_{run}")
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    synthesize(["--mode", "single", "--text", text,
+                                "--speaker_id", speaker, "--dataset", "VCTK",
+                                "--config_dir", os.path.join(tmp, "straight"),
+                                "--restore_step", "6", "--vocoder_ckpt", ckpt,
+                                "--result_dir", out])
+                if "griffin-lim" in buf.getvalue():
+                    raise AssertionError("the vocoder checkpoint was not "
+                                         "loaded")
+                wav = [f for f in os.listdir(out) if f.endswith(".wav")]
+                mels[run] = np.load(os.path.join(out, f"{text}.npy"))
+                print(f"synthesize CLI --speaker_id {speaker}: "
+                      f"{time.perf_counter() - t0:.2f} s in process; mel "
+                      f"[{mels[run].shape[0]}, {mels[run].shape[1]}], "
+                      f"{len(wav)} wav")
+                if not np.isfinite(mels[run]).all() or not wav or \
+                        not len(mels[run]):
+                    raise AssertionError(f"speaker {speaker}: no wav, or an "
+                                         f"empty or non-finite mel")
+            same = mels["a"].shape == mels["a2"].shape and np.array_equal(
+                mels["a"], mels["a2"])
+            differ = mels["a"].shape != mels["b"].shape or not np.array_equal(
+                mels["a"], mels["b"])
+            print(f"VCTK synthesize CLI: mel lengths p225 "
+                  f"{mels['a'].shape[0]}, p229 {mels['b'].shape[0]}; the two "
+                  f"speakers differ: {differ}; p225 again bit for bit: {same}")
+            if not (same and differ):
+                raise AssertionError(f"speakers differ {differ}, repeat "
+                                     f"equal {same}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
     # ---- phase 13: the vocoder's fused ResBlock1 and serving ---------- #
     def resblock_inputs(self):
@@ -2967,12 +3496,13 @@ class Smoke:
             shutil.rmtree(tmp, ignore_errors=True)
 
     @staticmethod
-    def save_seed_vocoder(ckpt_dir):
+    def save_seed_vocoder(ckpt_dir, dataset="LJSpeech"):
         """HiFi-GAN V1 with seed-0 weights as an upstream checkpoint under
-        ``ckpt_dir`` (the synthesize CLI's ``--vocoder_ckpt``)."""
+        ``ckpt_dir`` (the synthesize CLI's ``--vocoder_ckpt``), named for
+        ``dataset``'s vocoder speaker."""
         from ctts_torch.config import get_configs_of
         from ctts_torch.utils.model import get_vocoder
-        mc = get_configs_of("LJSpeech")[1]
+        mc = get_configs_of(dataset)[1]
         _, gen = get_vocoder(mc, ckpt_dir=os.path.join(ckpt_dir, "none"),
                              device="cpu", seed=0)
         os.makedirs(os.path.join(ckpt_dir, "hifigan"))
@@ -3123,6 +3653,11 @@ def main():
          ("LSH chunk kernels vs plain", smoke.lsh_chunk)],
         [("reformer forward", smoke.reformer_forward),
          ("reformer train", smoke.reformer_train)],
+        [("transformer, fastformer, lstransformer: forward and train",
+          smoke.block_zoo),
+         ("VCTK train CLI", smoke.vctk_train_cli),
+         ("VCTK train step at [16, 128, 1298]", smoke.vctk_step),
+         ("VCTK synthesize CLI", smoke.vctk_synthesize)],
         [("fused resblock kernel vs plain", smoke.fused_resblock),
          ("vocoder, fused resblocks", smoke.vocoder_fused),
          ("serve", smoke.serve),

@@ -1,34 +1,31 @@
 """block_type → (TextEncoder, Decoder) (ctts_tpu/models/registry.py).
 
-``transformer_fs2`` (the shipped default), ``conformer`` and ``reformer``
-are ported; the other block types raise and name the ROADMAP item that
-ports them.
+All six block types are ported; each module's TextEncoder returns
+(hidden, token embeddings) and its Decoder (hidden, mask).
 """
 
 import importlib
 
 _BLOCKS = {"transformer_fs2": "ctts_torch.models.transformer_fs2",
+           "transformer": "ctts_torch.models.transformer",
+           "fastformer": "ctts_torch.models.fastformer",
+           "lstransformer": "ctts_torch.models.lstransformer",
            "conformer": "ctts_torch.models.conformer",
            "reformer": "ctts_torch.models.reformer"}
-_NOT_YET = ("transformer", "fastformer", "lstransformer")
 
 
 def get_block(block_type):
-    if block_type in _NOT_YET:
-        raise NotImplementedError(
-            f"block_type {block_type!r} is not ported to ctts_torch yet "
-            "(ROADMAP.md §1 item 5, 'The rest of the block zoo')")
     if block_type not in _BLOCKS:
         raise NotImplementedError(
-            f"unknown block_type {block_type!r}; choose from "
-            f"{sorted(_BLOCKS) + list(_NOT_YET)}")
+            f"unknown block_type {block_type!r}; choose from {sorted(_BLOCKS)}")
     mod = importlib.import_module(_BLOCKS[block_type])
     return mod.TextEncoder, mod.Decoder
 
 
 def block_hidden(model_config):
     """encoder/decoder hidden size for the selected block; a section
-    without them (the reformer's) takes the ``transformer`` section's."""
+    without them (the reformer's), or no section (fastformer,
+    lstransformer), takes the ``transformer`` section's."""
     bt = model_config["block_type"]
     cfg = model_config[bt if bt in model_config else "transformer"]
     if "encoder_hidden" in cfg:

@@ -141,8 +141,10 @@ class VarianceAdaptor(nn.Module):
                 e_control=1.0, d_control=1.0, text_embedding=None,
                 src_len=None, mel=None, mel_len=None, mel_mask=None,
                 pitch_target=None, energy_target=None, duration_target=None,
-                attn_prior=None, step=None):
+                attn_prior=None, speaker_embedding=None, step=None):
         """x: [B, T_s, H] encoder output; src_mask True at padding;
+        ``speaker_embedding`` [B, H] (multi-speaker models) is added to
+        every token of x and handed to the aligner;
         max_mel_len: the frame budget (the padded mel length in training).
         mode: "infer" | "train_unsup" | "train_sup". ``step`` is a host
         int; ``duration_target`` [B, T_s] the supervised durations.
@@ -151,6 +153,8 @@ class VarianceAdaptor(nn.Module):
             raise ValueError(f"unknown mode {mode!r}")
         training = mode != "infer"
         pitch_target = dict(pitch_target) if pitch_target else {}
+        if speaker_embedding is not None:
+            x = x + speaker_embedding[:, None, :]
         log_duration_prediction = self.duration_predictor(
             grad_scale(x, self.predictor_grad), src_mask)
 
@@ -159,8 +163,8 @@ class VarianceAdaptor(nn.Module):
         if mode == "train_unsup":
             if not self.learn_alignment:
                 raise ValueError("train_unsup needs learn_alignment")
-            attn_soft, attn_logprob = self.aligner(mel, text_embedding,
-                                                   src_mask, attn_prior)
+            attn_soft, attn_logprob = self.aligner(
+                mel, text_embedding, src_mask, attn_prior, speaker_embedding)
             attn_hard = b_mas(attn_soft, src_len.to(torch.int32),
                               mel_len.to(torch.int32))
             attn_hard_dur = attn_hard.sum(dim=1)               # [B, T_s]

@@ -72,7 +72,8 @@ def _apply(model, batch, mode, step):
                  pitch_targets=batch["pitch_data"],
                  energy_targets=batch["energies"],
                  duration_targets=batch.get("durations"),
-                 attn_priors=batch.get("attn_priors"), step=step)
+                 attn_priors=batch.get("attn_priors"),
+                 spker_embeds=batch.get("spker_embeds"), step=step)
 
 
 def _check_mode(mode):

@@ -9,7 +9,10 @@ Phone IDs go through CompTransTTS (mode "infer") to a mel, and the vocoder
 turns the mel into a wav. The frame budget follows the JAX CLI's two
 passes: a probe at one bucket (128 frames), then the predicted length
 rounded up to a whole bucket, capped at 2·max_seq_len. Writes
-``<id>.wav`` and ``<id>.npy`` (the mel) per utterance. ``--restore_step N``
+``<id>.wav`` and ``<id>.npy`` (the mel) per utterance. A multi-speaker
+model (``configs/VCTK.yaml``) voices ``--speaker_id``, a key of the store's
+``speakers.json``; with an external speaker embedder its embedding is read
+from ``spker_embed/<speaker>-spker_embed.npy`` there. ``--restore_step N``
 reads the port's checkpoint of step N (written by ``ctts_torch.train``)
 from the config's ``ckpt_path``. Batch mode reads a metadata txt
 (``basename|speaker|{phones}|raw text``) in batches of 8 through
@@ -19,6 +22,7 @@ the order of float sums) and prints the time to the first chunk.
 """
 
 import argparse
+import json
 import os
 import re
 import string
@@ -91,12 +95,17 @@ def infer_mels(model, batch, configs, controls=(1.0, 1.0, 1.0),
     """Run the acoustic model on a batch of phone IDs.
 
     batch: dict with "speakers", "texts" [B, T_s] and "src_lens" [B]
-    (arrays or tensors). Without ``max_mel_len`` the budget comes from a
-    probe pass at ``bucket`` frames (synthesize.py:146-154). Returns the
+    (arrays or tensors), and "spker_embeds" [B, external_speaker_dim]
+    where the model takes external speaker embeddings. Without
+    ``max_mel_len`` the budget comes from a probe pass at ``bucket`` frames
+    (synthesize.py:146-154). Returns the
     model's output dict for the final pass."""
     _, model_config, _ = configs
     p, e, d = controls
     device = next(model.parameters()).device
+    spker = batch.get("spker_embeds")
+    if spker is not None:
+        spker = torch.as_tensor(spker).float().to(device)
 
     def run(mel_budget):
         with torch.no_grad():
@@ -104,7 +113,7 @@ def infer_mels(model, batch, configs, controls=(1.0, 1.0, 1.0),
                 torch.as_tensor(batch["speakers"]).to(device),
                 torch.as_tensor(batch["texts"]).long().to(device),
                 torch.as_tensor(batch["src_lens"]).to(device),
-                mode="infer", max_mel_len=mel_budget,
+                mode="infer", max_mel_len=mel_budget, spker_embeds=spker,
                 p_control=p, e_control=e, d_control=d)
 
     if max_mel_len is None:
@@ -152,6 +161,29 @@ def synthesize(model, batch, configs, vocoder, controls, result_dir,
     return wavs
 
 
+def speaker_inputs(speaker_id, configs):
+    """(speaker index, external embedding [1, dim] or None) for the name
+    ``speaker_id`` (synthesize.py:248-260): its ``speakers.json`` index and,
+    with an external embedder, ``spker_embed/<name>-spker_embed.npy``. A
+    single-speaker model takes speaker 0 and no embedding."""
+    preprocess_config, model_config, _ = configs
+    if not model_config["multi_speaker"]:
+        return 0, None
+    pp = preprocess_config["path"]["preprocessed_path"]
+    with open(os.path.join(pp, "speakers.json")) as f:
+        speaker_map = json.load(f)
+    if speaker_id not in speaker_map:
+        raise ValueError(f"--speaker_id {speaker_id!r} is not a key of "
+                         f"{os.path.join(pp, 'speakers.json')}")
+    embed = None
+    if preprocess_config["preprocessing"].get("speaker_embedder",
+                                              "none") != "none":
+        embed = np.load(os.path.join(
+            pp, "spker_embed", f"{speaker_id}-spker_embed.npy")).astype(
+                np.float32).reshape(1, -1)
+    return speaker_map[speaker_id], embed
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--restore_step", type=int, default=0)
@@ -162,6 +194,9 @@ def main(argv=None):
                         required=True)
     parser.add_argument("--source", type=str, default=None)
     parser.add_argument("--text", type=str, default=None)
+    parser.add_argument("--speaker_id", type=str, default="0",
+                        help="speaker name (a speakers.json key) for "
+                             "multi-speaker models")
     parser.add_argument("--dataset", type=str, required=True)
     parser.add_argument("--config_dir", type=str, default=None)
     parser.add_argument("--vocoder_ckpt", type=str, default="ckpt")
@@ -184,9 +219,6 @@ def main(argv=None):
 
     configs = get_configs_of(args.dataset, args.config_dir)
     preprocess_config, model_config, train_config = configs
-    if model_config["multi_speaker"]:
-        raise NotImplementedError("multi-speaker synthesis is not ported yet "
-                                  "(ROADMAP.md §1 item 7)")
     language = preprocess_config["preprocessing"]["text"]["language"]
     if language != "en":
         raise NotImplementedError(f"language {language!r}: only English is "
@@ -206,10 +238,12 @@ def main(argv=None):
         batches = dataset.batches(batch_size=8)
     else:
         seq = preprocess_english(args.text, preprocess_config)
+        speaker, spker_embed = speaker_inputs(args.speaker_id, configs)
         batches = [{"ids": [args.text[:100]],
-                    "speakers": np.zeros(1, np.int64),
+                    "speakers": np.array([speaker], np.int64),
                     "texts": seq[None].astype(np.int64),
-                    "src_lens": np.array([len(seq)], np.int64)}]
+                    "src_lens": np.array([len(seq)], np.int64),
+                    "spker_embeds": spker_embed}]
     for batch in batches:
         synthesize(model, batch, configs, vocoder, controls, result_dir,
                    stream_chunk=args.stream_chunk)

@@ -193,12 +193,19 @@ def train(configs, restore_step=0, max_steps=None, device=None):
                           f"mel={metrics['mel']:.4f} lr={lr:.2e} "
                           f"{dt * 1000:.0f}ms/step launches/step {per_step}",
                           flush=True)
+                # validation and saving stay out of the next loss line's
+                # time and launches per step
+                t_aside, before = time.perf_counter(), launch_counts()
                 if step % val_step == 0:
                     _validate(val_set, state, eval_step, dev, val_logger,
                               step)
                 if step % save_step == 0:
                     save_checkpoint(ckpt_dir, state, step)
                     print(f"saved checkpoint @ {step}", flush=True)
+                t_last += time.perf_counter() - t_aside
+                after = launch_counts()
+                launches_last = {k: launches_last[k] + after[k] - before[k]
+                                 for k in after}
                 if step >= total_step:
                     break
             epoch, start = epoch + 1, 0

@@ -21,6 +21,19 @@ state_dict straight back. Layout changes:
   ``ff`` (``w1``, ``w2``) Dense kernels and each layer's ``norm_f_i`` /
   ``norm_g_i`` → ``layer_stack.net.layers.irrev_blocks.{i}.{f,g}.*``, the
   tied weights under every ``i`` as an upstream state_dict holds them;
+- classic transformer stacks: each ``layer_stack_{i}``'s ``DenseGeneral``
+  q/k/v ``[C, H, Dh]`` and fc ``[H, Dh, C]`` → the upstream ``LinearNorm``
+  weights ``slf_attn.{w_qs,w_ks,w_vs,fc}.linear.weight [C, C]``, its two
+  LayerNorms → ``slf_attn.layer_norm`` and ``pos_ffn.layer_norm``;
+- fastformer and lstransformer stacks: the one ``layer_stack`` node's
+  ``norm_attn_i`` / ``attn_i`` / ``norm_ff_i`` / ``ff_i`` →
+  ``layer_stack.layers.{i}.{0,1}.{norm,fn}``; the fastformer's tied
+  ``to_q_attn_logits`` / ``to_k_attn_logits`` under every ``i``, read back
+  from layer 0;
+- the speaker table (``speaker_emb.embedding``) → ``speaker_emb.weight``,
+  or the external embedding's projection (a Dense) → ``speaker_emb``'s
+  Linear; the aligner's ``key_spk_proj`` / ``query_spk_proj`` →
+  ``variance_adaptor.aligner.{key,query}_spk_proj.linear.weight``;
 - the duration CRF (``variance_adaptor/dur_crf``) →
   ``variance_adaptor.duration_predictor.crf.{start_transitions,
   end_transitions, transitions}`` (torchcrf's names, under the predictor as
@@ -44,6 +57,7 @@ import numpy as np
 import torch
 
 _ALIGNER_CONVS = (("key_proj", (0, 2)), ("query_proj", (0, 2, 4)))
+_ALIGNER_SPK = ("key_spk_proj", "query_spk_proj")
 
 
 def _conv(kernel):
@@ -156,6 +170,64 @@ def _reformer_stack(sd, prefix, node):
         i += 1
 
 
+_CLASSIC_QKV = ("w_qs", "w_ks", "w_vs")
+
+
+def _classic_stack(sd, prefix, node):
+    """``{prefix}.layer_stack.{i}`` from the JAX ``layer_stack_{i}`` nodes
+    (the upstream layout ``torch_import.py:_classic_layer`` reads)."""
+    i = 0
+    while f"layer_stack_{i}" in node:
+        layer = node[f"layer_stack_{i}"]
+        p = f"{prefix}.layer_stack.{i}"
+        att = layer["slf_attn"]
+        C = att["w_qs"]["kernel"].shape[0]
+        for name in _CLASSIC_QKV:
+            sd[f"{p}.slf_attn.{name}.linear.weight"] = \
+                att[name]["kernel"].reshape(C, -1).T
+        sd[f"{p}.slf_attn.fc.linear.weight"] = \
+            att["fc"]["kernel"].reshape(-1, C).T
+        _ln(sd, f"{p}.slf_attn.layer_norm", att["LayerNorm_0"])
+        ffn = layer["pos_ffn"]
+        for name in ("w_1", "w_2"):
+            _conv_params(sd, f"{p}.pos_ffn.{name}", ffn[name]["Conv_0"])
+        _ln(sd, f"{p}.pos_ffn.layer_norm", ffn["LayerNorm_0"])
+        i += 1
+
+
+_FAST_ATTN = ("query", "key", "transform")
+_FAST_TIED = ("to_q_attn_logits", "to_k_attn_logits")
+_LS_DENSE = ("to_q", "to_kv", "to_dynamic_proj", "to_out")
+_LS_NORMS = ("local_norm", "global_norm")
+
+
+def _prenorm_stack(sd, prefix, node):
+    """``{prefix}.layer_stack.layers.{i}.{0,1}`` from a fastformer or
+    lstransformer ``layer_stack`` node (the upstream layouts
+    ``torch_import.py:_fastformer_stack`` / ``_lstransformer_stack`` read);
+    the fastformer's tied logit projections under every ``i``."""
+    i = 0
+    while f"norm_attn_{i}" in node:
+        p = f"{prefix}.layer_stack.layers.{i}"
+        _ln(sd, f"{p}.0.norm", node[f"norm_attn_{i}"])
+        att = node[f"attn_{i}"]
+        if "to_q_attn_logits" in node:                       # fastformer
+            for name in _FAST_ATTN:
+                _dense(sd, f"{p}.0.fn.{name}", att[name])
+            for name in _FAST_TIED:
+                _dense(sd, f"{p}.0.fn.{name}", node[name])
+        else:
+            for name in _LS_DENSE:
+                _dense(sd, f"{p}.0.fn.{name}", att[name])
+            for name in _LS_NORMS:
+                _ln(sd, f"{p}.0.fn.{name}", att[name])
+        _ln(sd, f"{p}.1.norm", node[f"norm_ff_{i}"])
+        for name in ("w_1", "w_2"):
+            _conv_params(sd, f"{p}.1.fn.{name}",
+                         node[f"ff_{i}"][name]["Conv_0"])
+        i += 1
+
+
 _GATES = ("r", "z", "n")
 
 
@@ -203,7 +275,7 @@ def state_dict_from_jax(tree):
     params = tree["params"]
     stats = tree.get("batch_stats") or {}
     known = {"encoder", "decoder", "mel_linear", "postnet",
-             "variance_adaptor"}
+             "variance_adaptor", "speaker_emb"}
     extra = set(params) - known
     if extra:
         raise NotImplementedError(
@@ -219,11 +291,24 @@ def state_dict_from_jax(tree):
         for side in ("encoder", "decoder"):
             _conformer_stack(sd, side, params[side]["stack"],
                              stats[side]["stack"])
+    elif "layer_stack_0" in enc:                     # classic transformer
+        sd["encoder.src_word_emb.weight"] = enc["src_word_emb"]["embedding"]
+        for side in ("encoder", "decoder"):
+            _classic_stack(sd, side, params[side])
+    elif "layer_stack" in enc:                      # fastformer, lstransformer
+        sd["encoder.src_word_emb.weight"] = enc["src_word_emb"]["embedding"]
+        for side in ("encoder", "decoder"):
+            _prenorm_stack(sd, side, params[side]["layer_stack"])
     else:
         sd["encoder.embed_tokens.weight"] = enc["embed_tokens"]["embedding"]
         _fft_stack(sd, "encoder", enc["fft"])
         _fft_stack(sd, "decoder", params["decoder"]["fft"])
     _dense(sd, "mel_linear", params["mel_linear"])
+    spk = params.get("speaker_emb")
+    if spk is not None and "embedding" in spk:
+        sd["speaker_emb.weight"] = spk["embedding"]
+    elif spk is not None:
+        _dense(sd, "speaker_emb", spk)
 
     pn, pn_stats = params["postnet"], stats["postnet"]
     i = 0
@@ -269,6 +354,9 @@ def state_dict_from_jax(tree):
             for j, slot in enumerate(slots):
                 _conv_params(sd, f"{p}.aligner.{name}.{slot}.conv",
                              va["aligner"][f"{name}_{j}"]["Conv_0"])
+        for name in _ALIGNER_SPK:
+            if name in va["aligner"]:
+                _dense(sd, f"{p}.aligner.{name}.linear", va["aligner"][name])
     return _to_tensors(sd)
 
 
@@ -376,6 +464,52 @@ def _inv_reformer_stack(sd, prefix):
     return {"stack": {"reformer": node}}
 
 
+def _inv_classic_stack(sd, prefix, num_heads):
+    """The JAX ``layer_stack_{i}`` nodes of a classic transformer stack."""
+    node = {}
+    i = 0
+    while f"{prefix}.layer_stack.{i}.slf_attn.fc.linear.weight" in sd:
+        p = f"{prefix}.layer_stack.{i}"
+        fc = sd[f"{p}.slf_attn.fc.linear.weight"]
+        C = fc.shape[0]
+        att = {name: {"kernel": sd[f"{p}.slf_attn.{name}.linear.weight"].T
+                      .reshape(C, num_heads, -1)} for name in _CLASSIC_QKV}
+        att["fc"] = {"kernel": fc.T.reshape(num_heads, -1, C)}
+        att["LayerNorm_0"] = _inv_ln(sd, f"{p}.slf_attn.layer_norm")
+        ffn = {name: {"Conv_0": _inv_conv(sd, f"{p}.pos_ffn.{name}")}
+               for name in ("w_1", "w_2")}
+        ffn["LayerNorm_0"] = _inv_ln(sd, f"{p}.pos_ffn.layer_norm")
+        node[f"layer_stack_{i}"] = {"slf_attn": att, "pos_ffn": ffn}
+        i += 1
+    return node
+
+
+def _inv_prenorm_stack(sd, prefix):
+    """The JAX ``layer_stack`` node of a fastformer or lstransformer stack;
+    the fastformer's tied projections are read from layer 0."""
+    layers = f"{prefix}.layer_stack.layers"
+    fast = f"{layers}.0.0.fn.to_q_attn_logits.weight" in sd
+    node = {}
+    i = 0
+    while f"{layers}.{i}.0.norm.weight" in sd:
+        p = f"{layers}.{i}"
+        node[f"norm_attn_{i}"] = _inv_ln(sd, f"{p}.0.norm")
+        if fast:
+            att = {n: _inv_dense(sd, f"{p}.0.fn.{n}") for n in _FAST_ATTN}
+        else:
+            att = {n: _inv_dense(sd, f"{p}.0.fn.{n}") for n in _LS_DENSE}
+            att.update({n: _inv_ln(sd, f"{p}.0.fn.{n}") for n in _LS_NORMS})
+        node[f"attn_{i}"] = att
+        node[f"norm_ff_{i}"] = _inv_ln(sd, f"{p}.1.norm")
+        node[f"ff_{i}"] = {n: {"Conv_0": _inv_conv(sd, f"{p}.1.fn.{n}")}
+                           for n in ("w_1", "w_2")}
+        i += 1
+    if fast:
+        node.update({n: _inv_dense(sd, f"{layers}.0.0.fn.{n}")
+                     for n in _FAST_TIED})
+    return node
+
+
 def _inv_predictor(sd, prefix):
     conv = {}
     i = 0
@@ -409,14 +543,26 @@ def jax_tree_from_state_dict(state_dict, model_config):
     "batch_stats": ...}`` of numpy arrays in the JAX package's layout (the
     inverse of :func:`state_dict_from_jax`)."""
     sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
-    cfg = model_config[model_config["block_type"]]
+    block = model_config["block_type"]
+    # fastformer and lstransformer have no section of their own
+    cfg = model_config.get(block) or model_config["transformer"]
     batch_stats = {}
-    if model_config["block_type"] == "reformer":
+    if block in ("fastformer", "lstransformer"):
+        params = {side: {"layer_stack": _inv_prenorm_stack(sd, side)}
+                  for side in ("encoder", "decoder")}
+        params["encoder"]["src_word_emb"] = {
+            "embedding": sd["encoder.src_word_emb.weight"]}
+    elif block == "transformer":
+        params = {side: _inv_classic_stack(sd, side, cfg[f"{side}_head"])
+                  for side in ("encoder", "decoder")}
+        params["encoder"]["src_word_emb"] = {
+            "embedding": sd["encoder.src_word_emb.weight"]}
+    elif block == "reformer":
         params = {side: _inv_reformer_stack(sd, side)
                   for side in ("encoder", "decoder")}
         params["encoder"]["src_word_emb"] = {
             "embedding": sd["encoder.src_word_emb.weight"]}
-    elif model_config["block_type"] == "conformer":
+    elif block == "conformer":
         params = {}
         for side in ("encoder", "decoder"):
             sp, ss = _inv_conformer_stack(sd, side, cfg[f"{side}_head"])
@@ -433,6 +579,10 @@ def jax_tree_from_state_dict(state_dict, model_config):
             "decoder": {"fft": _inv_fft_stack(sd, "decoder",
                                               cfg["decoder_head"])}}
     params["mel_linear"] = _inv_dense(sd, "mel_linear")
+    if "speaker_emb.bias" in sd:                 # external embedding's Dense
+        params["speaker_emb"] = _inv_dense(sd, "speaker_emb")
+    elif "speaker_emb.weight" in sd:
+        params["speaker_emb"] = {"embedding": sd["speaker_emb.weight"]}
     pn, pn_stats = {}, {}
     i = 0
     while f"postnet.convolutions.{i}.0.conv.weight" in sd:
@@ -471,6 +621,10 @@ def jax_tree_from_state_dict(state_dict, model_config):
                 sd, f"{p}.aligner.{name}.{slot}.conv")}
             for name, slots in _ALIGNER_CONVS
             for j, slot in enumerate(slots)}
+        for name in _ALIGNER_SPK:
+            if f"{p}.aligner.{name}.linear.weight" in sd:
+                va["aligner"][name] = _inv_dense(sd,
+                                                 f"{p}.aligner.{name}.linear")
     params["variance_adaptor"] = va
     batch_stats["postnet"] = pn_stats
     return {"params": params, "batch_stats": batch_stats}

@@ -1332,3 +1332,102 @@ def test_flip_kernel_bit_exact(N, T, BQ, variant):
     torch.cuda.synchronize()
     assert flip.launches == before + 1
     assert torch.equal(got, flip.flip_plain(x, variant, BQ))
+
+
+# ---- the rest of the block zoo, and the kernels at the VCTK shape -------------- #
+
+# the VCTK recipe's longest utterance (configs/VCTK.yaml, max_seq_len's
+# comment) and its train step's batch and tokens
+T_VCTK, B_VCTK, S_VCTK = 1298, 16, 128
+# a bf16 stack against its float32 CPU twin: relative to the largest output
+# entry, after 2 layers
+ZOO_BF16_TOL = 5e-2
+
+
+@pytest.mark.parametrize("block", ["transformer", "fastformer",
+                                   "lstransformer"])
+def test_block_stacks_bf16_on_the_card(block):
+    """Each new block's encoder (96 tokens, a padded row) and decoder (300
+    frames, past two of the lstransformer's windows) at width 256 with 2
+    heads of 128, 2 layers each, seeded weights, in bf16 on the card
+    against the same weights in float32 on the CPU: each output within
+    5e-2 of its largest entry, padded rows zero; the transformer launches
+    the attention kernel once a layer."""
+    dev = _need_card()
+    from ctts_torch.models.registry import get_block
+    from ctts_torch.ops import attention
+    from ctts_torch.utils.model import init_weights
+    from ctts_torch.utils.testing import tiny_configs
+    _, mc, _ = tiny_configs()
+    mc["block_type"] = block
+    mc["transformer"].update(encoder_layer=2, decoder_layer=2,
+                             encoder_hidden=256, decoder_hidden=256)
+    rng = np.random.RandomState(7)
+    lens = {"encoder": (96, 61), "decoder": (300, 211)}
+    inputs = {"encoder": torch.from_numpy(rng.randint(1, 300, (2, 96))),
+              "decoder": torch.from_numpy(rng.randn(2, 300, 256).astype(
+                  np.float32))}
+    for cls, side in zip(get_block(block), ("encoder", "decoder")):
+        cpu = init_weights(cls(dict(mc, compute_dtype="float32")), 3).eval()
+        card = cls(dict(mc, compute_dtype="bfloat16")).eval()
+        card.load_state_dict(cpu.state_dict())
+        card.to(dev)
+        T, short = lens[side]
+        mask = torch.arange(T)[None] >= torch.tensor([T, short])[:, None]
+        before = attention.launches
+        with torch.no_grad():
+            want = cpu(inputs[side], mask)[0]
+            got = card(inputs[side].to(dev), mask.to(dev))[0]
+        torch.cuda.synchronize()
+        assert attention.launches - before == (2 if block == "transformer"
+                                               else 0)
+        err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        assert err <= ZOO_BF16_TOL, (side, err)
+        assert not got[1, short:].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_attention_kernel_at_the_vctk_decoder_shape(dtype, tol):
+    """N = 32 (16 utterances, 2 heads), T = 1298, d = 128, ragged mel
+    lengths 500-1298: the VCTK train step's decoder."""
+    dev = _need_card()
+    from ctts_torch.ops import attention
+    rng = np.random.RandomState(T_VCTK)
+    mel = _ragged(rng, B_VCTK, 500, T_VCTK)
+    q, k, v, lens = _attention_case(rng, dev, 2 * B_VCTK, T_VCTK, 128,
+                                    np.repeat(mel, 2).tolist())
+    ref = attention.attention_plain(q, k, v, lens, 128 ** -0.5)
+    before = attention.launches
+    args = [t.to(dtype) for t in (q, k, v)]
+    got = attention.fused_attention(*args, lens)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    _check_attention(got, ref, args, lens, 128 ** -0.5, tol)
+
+
+@pytest.mark.parametrize("kind", ["seeded", "ties"])
+def test_mas_kernel_bit_exact_at_the_vctk_shape(kind):
+    """B = 16, T_m = 1298, T_s = 128: bit for bit ``b_mas_plain``."""
+    dev = _need_card()
+    from ctts_torch.ops import mas
+    rng = np.random.RandomState(T_VCTK)
+    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
+                               _mas_case(rng, B_VCTK, T_VCTK, S_VCTK, kind))
+    before = mas.launches
+    got = mas.b_mas(attn, in_lens, out_lens)
+    torch.cuda.synchronize()
+    assert mas.launches == before + 1
+    assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
+
+
+def test_ctc_kernels_match_plain_at_the_vctk_shape():
+    """The CTC lattice and gradient at B = 16, T_m = 1298, 257 states,
+    ragged lengths: the tolerances of ``_check_ctc``."""
+    dev = _need_card()
+    rng = np.random.RandomState(T_VCTK + 1)
+    in_lens = torch.from_numpy(_ragged(rng, B_VCTK, 75, S_VCTK)).to(dev)
+    out_lens = torch.from_numpy(_ragged(rng, B_VCTK, 500, T_VCTK)).to(dev)
+    em = _ctc_em(rng, dev, B_VCTK, T_VCTK, S_VCTK, in_lens, out_lens)
+    cot = torch.from_numpy(rng.rand(B_VCTK).astype(np.float32) + 0.5).to(dev)
+    _check_ctc(em, in_lens, out_lens, cot)

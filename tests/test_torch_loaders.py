@@ -174,14 +174,14 @@ def test_unported_options_raise(tmp_path):
     from ctts_torch.models.registry import get_block
     from ctts_torch.config import get_configs_of
     from ctts_torch.utils.model import get_model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_block("fastformer")
+    with pytest.raises(NotImplementedError, match="unknown block_type"):
+        get_block("performer")
     configs = get_configs_of("LJSpeech")
     configs[2]["path"]["ckpt_path"] = str(tmp_path)
     with pytest.raises(FileNotFoundError):     # no checkpoint at step 5
         get_model(5, configs, device="cpu")
-    configs[1]["multi_speaker"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
+    configs[1]["prosody_modeling"]["model_type"] = "du2021"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
         get_model(0, configs, device="cpu")
 
 
