@@ -98,6 +98,19 @@ suppresses the final line:
    utterance), the attention, gather, scatter, MAS and CTC kernels at that
    shape against their plain versions with their bounds, and the
    synthesize CLI with ``--speaker_id`` for two speakers;
+12c. the prosody models, "LJSpeech du2021" and "LJSpeech liu2021"
+   (``configs/LJSpeech.yaml`` with ``learn_alignment: False`` and
+   ``prosody_modeling.model_type`` changed, full width and depth, bf16,
+   seeded weights): the probe forward at budget 1152 (counted, median of
+   10, profiled, repeated bit for bit), one counted ``train_sup`` step at
+   [16, 128 tokens, 896 frames] with the prosody term on, timed and
+   profiled (liu2021 also one counted ``train_unsup`` step with MAS and the
+   CTC pair), the same step in float32 with dropout off on the card and on
+   the CPU at [4, 128, 896] (and with TF32 on the card, a control that must
+   fail that check), ``python -m ctts_torch.train`` on a synthetic
+   supervised store (4 steps, and a resume from step 2; validation's
+   prosody term 0) and ``python -m ctts_torch.synthesize`` from its step-4
+   checkpoint;
 13. serving: the fused HiFi-GAN ResBlock1 kernel against its plain version
    at levels 1-3 of the probe (C = 128, 64, 32; k = 3, 7, 11; bf16 and
    f32; the generator's own weights and inputs) plus two and ragged tiles,
@@ -207,6 +220,15 @@ RESUME_TOL = 1e-3
 # the attention kernel's bf16 hi + lo products)
 VARIANCE_MEL_TOL = 1e-3
 VARIANCE_LOSS_TOL = 1e-4
+# the prosody models in float32 with dropout off, the card against the
+# port's CPU path as for the variance configurations: the postnet mel, each
+# loss term, and the gradient norm (through every backward sum, cuDNN's GRUs
+# among them). Sound runs on an H100 read at most 2.52e-6, 1.18e-6 (sdur)
+# and 1.16e-5; the same step with TF32 matmuls and convs on the card must
+# fail the check (the control)
+PROSODY_MEL_TOL = 1e-5
+PROSODY_LOSS_TOL = 1e-5
+PROSODY_GRAD_NORM_TOL = 5e-5
 # the transformer, fastformer and lstransformer models in float32 with
 # dropout off, one train_unsup step on the card against the port's CPU path
 # on the same weights and batch: the postnet mel's max |difference| over its
@@ -2526,15 +2548,19 @@ class Smoke:
 
     # ---- phase 12: reformer training ------------------------------------ #
     def run_train_cli(self, raw, tmp, name, max_steps, restore=0,
-                      dataset="LJSpeech"):
+                      dataset="LJSpeech", ckpt_from=None):
         """``python -m ctts_torch.train`` with the merged config ``raw``
-        under ``tmp/name``; returns its log lines by step."""
+        under ``tmp/name`` (its checkpoints under ``tmp/ckpt_from`` when
+        given); returns its log lines by step."""
         from ctts_torch.config import dump_yaml
         cfg_dir = os.path.join(tmp, name)
         os.makedirs(cfg_dir, exist_ok=True)
         raw["train"]["path"] = {k: os.path.join(cfg_dir, k)
                                 for k in ("ckpt_path", "log_path",
                                           "result_path")}
+        if ckpt_from:
+            raw["train"]["path"]["ckpt_path"] = os.path.join(
+                tmp, ckpt_from, "ckpt_path")
         with open(os.path.join(cfg_dir, f"{dataset}.yaml"), "w") as f:
             f.write(dump_yaml(raw))
         cmd = [sys.executable, "-m", "ctts_torch.train", "--dataset",
@@ -3148,6 +3174,283 @@ class Smoke:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- phase 12c: the prosody models ----------------------------------- #
+    @staticmethod
+    def prosody_configs(model_type, learn_alignment=False):
+        """``configs/LJSpeech.yaml`` with ``learn_alignment`` (False unless
+        asked) and ``prosody_modeling.model_type`` changed, with the energy
+        range of no store."""
+        from ctts_torch.config import get_configs_of
+        from ctts_torch.models.comp_trans_tts import prepare_model_config
+        pre, mc, tr = get_configs_of("LJSpeech")
+        mc["duration_modeling"]["learn_alignment"] = learn_alignment
+        mc["prosody_modeling"]["model_type"] = model_type
+        return pre, prepare_model_config(pre, mc), tr
+
+    def prosody_du2021(self):
+        self.prosody("du2021")
+
+    def prosody_liu2021(self):
+        self.prosody("liu2021")
+
+    def prosody(self, model_type):
+        """``model_type`` (du2021 or liu2021) in "LJSpeech supervised" at
+        full width with seeded weights (the repo has no prosody checkpoint):
+        the probe forward at budget 1152 (counted, median of 10, profiled;
+        du2021's draws from seed 0 at each forward, so two forwards give
+        the same mel); one counted bf16 ``train_sup`` step at [16, 128, 896]
+        with durations summing to the mel lengths and the prosody term on,
+        then timed and profiled; liu2021 also one counted ``train_unsup``
+        step (hard upsample, MAS and the CTC pair); the ``train_sup`` step
+        in float32 with dropout off on the card and on the CPU at [4, 128,
+        896], within PROSODY_MEL_TOL, PROSODY_LOSS_TOL and
+        PROSODY_GRAD_NORM_TOL, and again on the card with TF32 on, which
+        must fail that check; ``python -m ctts_torch.train`` on a synthetic
+        supervised store (4 steps, and a resume from step 2; validation
+        reads the prosody term 0) and ``python -m ctts_torch.synthesize``
+        from its step-4 checkpoint."""
+        import copy
+        from ctts_torch.config import load_yaml
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        from ctts_torch.parallel.train_step import (_apply, batch_to_device,
+                                                    create_train_state,
+                                                    make_train_step)
+        from ctts_torch.synthesize import infer_mels
+        from ctts_torch.utils.model import get_model
+        from ctts_torch.utils.optimizer import build_optimizer
+        from ctts_torch.utils.testing import synth_batch
+        man = json.load(open(MANIFEST))["probe"]
+        probe = {"speakers": np.zeros(len(man["src_lens"]), np.int64),
+                 "texts": np.asarray(man["texts"], np.int64),
+                 "src_lens": np.asarray(man["src_lens"], np.int64)}
+        configs = pre, mc, tr = self.prosody_configs(model_type)
+        gate = tr["prosody"]["prosody_loss_enable_steps"]
+        model = get_model(0, configs, device="cuda")
+        n_par = sum(p.numel() for p in model.parameters()) / 1e6
+        prosody_par = sum(p.numel() for n, p in model.named_parameters()
+                          if "prosody" in n) / 1e6
+
+        def forward():
+            out = infer_mels(model, probe, configs, max_mel_len=man["budget"])
+            torch.cuda.synchronize()
+            return out
+
+        first = forward()
+        reset_launch_counts()
+        out = forward()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            forward()
+            times.append((time.perf_counter() - t0) * 1e3)
+        _, busy, idle, kernels = self.breakdown(
+            forward, f"{model_type} probe forward")
+        mel = out["postnet_mel_predictions"]
+        same = torch.equal(mel, first["postnet_mel_predictions"])
+        print(f"{model_type}: {n_par:.2f} M parameters ({prosody_par:.2f} M "
+              f"in the prosody modules), bf16 stacks; probe forward at "
+              f"budget {man['budget']}: launches {counts}; median of 10 "
+              f"{np.median(times):.2f} ms (min {min(times):.2f}, max "
+              f"{max(times):.2f}); device busy {busy:.3f} ms, idle share "
+              f"{idle:.3f}, {kernels} kernels; mel lens "
+              f"{out['mel_lens'].tolist()}; two forwards bit for bit: {same}")
+        if counts != {"fused_attention": 10, "gather_rows": 2}:
+            raise AssertionError(f"{model_type} forward: launches {counts}")
+        if not bool(torch.isfinite(mel).all()) or mel.shape != (
+                4, man["budget"], 80) or not same:
+            raise AssertionError(f"{model_type}: mel {tuple(mel.shape)}, "
+                                 f"non-finite or not repeated")
+        for name, n in counts.items():
+            self.kernels.setdefault(name, {}).setdefault(
+                f"launches_{model_type}_forward", n)
+
+        # bf16 train_sup step, the prosody term on
+        start = gate
+        opt, _ = build_optimizer(model, mc, tr, count=start)
+        state = create_train_state(model, opt, step=start, seed=tr["seed"])
+        host = self.sup_batch()
+        host["mels"] = host["mels"].astype(np.float16)     # transfer_dtype
+        batch = batch_to_device(host, "cuda")
+        step = make_train_step(pre, mc, tr, "train_sup")
+        metrics, got = self.counted_step(step, state, batch,
+                                         f"{model_type} train_sup step")
+        want = {"fused_attention": 10, "gather_rows": 2, "scatter_rows": 2}
+        if got != want or not metrics["prosody"] > 0:
+            raise AssertionError(f"{model_type} step: launches {got}, "
+                                 f"prosody {metrics['prosody']}")
+        for name, n in got.items():
+            self.kernels.setdefault(name, {}).setdefault(
+                f"launches_{model_type}_step", n)
+        self.step_timing(step, state, batch, f"{model_type} train_sup step")
+        del model, opt, state, step, batch
+        torch.cuda.empty_cache()
+
+        if model_type == "liu2021":
+            configs_u = pre_u, mc_u, tr_u = self.prosody_configs(
+                model_type, learn_alignment=True)
+            model = self.sup_model(configs_u)
+            opt, _ = build_optimizer(model, mc_u, tr_u, count=start)
+            state = create_train_state(model, opt, step=start,
+                                       seed=tr_u["seed"])
+            src_lens, mel_lens = self.train_lengths()
+            host_u = synth_batch(B=B_TRAIN, T_s=T_S, T_m=T_M, seed=0,
+                                 src_lens=src_lens, mel_lens=mel_lens,
+                                 prior=False)
+            host_u["mels"] = host_u["mels"].astype(np.float16)
+            metrics, got = self.counted_step(
+                make_train_step(pre_u, mc_u, tr_u, "train_unsup"), state,
+                batch_to_device(host_u, "cuda"), "liu2021 train_unsup step")
+            want_u = {"fused_attention": 10, "gather_rows": 2,
+                      "scatter_rows": 2, "b_mas": 1, "ctc_lattice": 1,
+                      "ctc_grad": 1}
+            if got != want_u or not metrics["prosody"] > 0 or \
+                    not metrics["bin"] > 0:
+                raise AssertionError(f"liu2021 train_unsup step: launches "
+                                     f"{got}, prosody {metrics['prosody']}")
+            for name, n in got.items():
+                self.kernels.setdefault(name, {}).setdefault(
+                    "launches_liu2021_unsup_step", n)
+            del model, opt, state
+            torch.cuda.empty_cache()
+
+        # float32, dropout off: the card against the port's CPU path, then
+        # the same on the card with TF32 on, which must fail the check
+        mc32 = dict(mc, compute_dtype="float32")
+        cpu = self.sup_model((pre, mc32, tr), "cpu")
+        weights = copy.deepcopy(cpu.state_dict())
+        small = self.sup_batch(B=4)
+
+        def f32_step(dev):
+            m = cpu if dev == "cpu" else copy.deepcopy(cpu).cuda()
+            m.load_state_dict(weights)
+            b = batch_to_device(small, dev)
+            m.eval()
+            with torch.no_grad():
+                mel = _apply(m, b, "train_sup", start + 1)[
+                    "postnet_mel_predictions"].float().cpu()
+            o, _ = build_optimizer(m, mc32, tr, count=start)
+            st = create_train_state(m, o, step=start, seed=tr["seed"])
+            return mel, {k: v.item() for k, v in make_train_step(
+                pre, mc32, tr, "train_sup", deterministic=True)(
+                    st, b).items()}
+
+        def against_cpu(card):
+            mel_err = ((card[0] - ref[0]).abs().max()
+                       / ref[0].abs().max()).item()
+            errs = {k: abs(card[1][k] - v) / max(abs(v), 1e-30)
+                    for k, v in ref[1].items() if v != 0}
+            loss_err = max(e for k, e in errs.items() if k != "grad_norm")
+            zeros = [k for k, v in ref[1].items()
+                     if v == 0 and card[1][k] != 0]
+            bad = (mel_err > PROSODY_MEL_TOL or loss_err > PROSODY_LOSS_TOL
+                   or errs["grad_norm"] > PROSODY_GRAD_NORM_TOL or zeros)
+            return mel_err, errs, zeros, bad
+
+        ref = f32_step("cpu")
+        mel_err, errs, zeros, bad = against_cpu(f32_step("cuda"))
+        print(f"{model_type}: f32, dropout off, card vs CPU at 4x[{T_S}, "
+              f"{T_M}]: mel max err over its largest entry {mel_err:.3e} "
+              f"(tol {PROSODY_MEL_TOL:g}); loss terms relative: "
+              + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+              + f" (tol {PROSODY_LOSS_TOL:g}, grad_norm "
+              f"{PROSODY_GRAD_NORM_TOL:g}); prosody "
+              f"{ref[1]['prosody']:.6f}")
+        if bad:
+            raise AssertionError(f"{model_type}: card vs CPU {mel_err}, "
+                                 f"{errs}, {zeros}")
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            mel_err, errs, _, bad = against_cpu(f32_step("cuda"))
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        print(f"{model_type}: control, the same with TF32 on the card: mel "
+              f"{mel_err:.3e}, loss terms relative: "
+              + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+              + f"; fails the check: {bad}")
+        if not bad:
+            raise AssertionError(f"{model_type}: the TF32 control passed "
+                                 "the card-vs-CPU check")
+        del cpu, weights
+        torch.cuda.empty_cache()
+
+        # the train CLI with a resume, then the synthesize CLI
+        tmp = tempfile.mkdtemp(prefix=f"ctts_smoke_{model_type}_")
+        try:
+            store = os.path.join(tmp, "store")
+            self.write_store(store, sup=True)
+            raw = load_yaml(open(os.path.join(REPO, "configs",
+                                              "LJSpeech.yaml")))
+            raw["model"]["duration_modeling"]["learn_alignment"] = False
+            raw["model"]["prosody_modeling"]["model_type"] = model_type
+            raw["preprocess"]["path"]["preprocessed_path"] = store
+            raw["train"]["optimizer"]["warm_up_step"] = 50
+            raw["train"]["step"].update(log_step=1, save_step=2, val_step=2,
+                                        var_start_steps=0)
+            raw["train"]["prosody"]["prosody_loss_enable_steps"] = 0
+            straight = self.run_train_cli(raw, tmp, "straight", 4)
+            raw_r = copy.deepcopy(raw)
+            resumed = self.run_train_cli(raw_r, tmp, "resumed", 4, restore=2,
+                                         ckpt_from="straight")
+            bad = [(s, k) for s, r in straight.items() for k, v in r.items()
+                   if isinstance(v, float) and not np.isfinite(v)]
+            val = [json.loads(ln) for ln in open(os.path.join(
+                tmp, "straight", "log_path", "val", "log.jsonl"))]
+            if bad or not all(straight[s]["prosody"] > 0 for s in straight):
+                raise AssertionError(f"non-finite {bad} or a zero prosody "
+                                     f"term in the log")
+            if not val or any(r["prosody"] != 0 for r in val):
+                raise AssertionError(f"validation's prosody term is not 0: "
+                                     f"{val}")
+            diff = max(abs(straight[s][k] - resumed[s][k]) /
+                       max(1.0, abs(straight[s][k]))
+                       for s in (3, 4) for k in ("total", "mel", "prosody"))
+            print(f"{model_type} train CLI: total "
+                  + ", ".join(f"{straight[s]['total']:.3f}"
+                              for s in sorted(straight))
+                  + ", prosody " + ", ".join(
+                      f"{straight[s]['prosody']:.4f}" for s in
+                      sorted(straight))
+                  + f"; resume from step 2: steps 3-4 max relative "
+                  f"difference {diff:.3e} (tol {RESUME_TOL:g}); launches per "
+                  f"step {straight[3]['launches_per_step']}")
+            if diff > RESUME_TOL or straight[3]["launches_per_step"] != want:
+                raise AssertionError(f"resume {diff}, launches "
+                                     f"{straight[3]['launches_per_step']}")
+            self.save_seed_vocoder(os.path.join(tmp, "ckpt"))
+            meta = os.path.join(tmp, "meta.txt")
+            self.write_probe_meta(meta)
+            out = os.path.join(tmp, "out")
+            cmd = [sys.executable, "-m", "ctts_torch.synthesize", "--mode",
+                   "batch", "--source", meta, "--dataset", "LJSpeech",
+                   "--config_dir", os.path.join(tmp, "straight"),
+                   "--restore_step", "4",
+                   "--vocoder_ckpt", os.path.join(tmp, "ckpt"),
+                   "--result_dir", out]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=REPO, capture_output=True,
+                                 text=True, timeout=600)
+            if res.returncode != 0:
+                print(res.stderr[-3000:])
+                raise AssertionError(f"synthesize exited {res.returncode}")
+            mels = [np.load(os.path.join(out, f"probe{i}.npy"))
+                    for i in range(4)]
+            wavs = [f for f in os.listdir(out) if f.endswith(".wav")]
+            lens = [m.shape[0] for m in mels]
+            print(f"{model_type} synthesize CLI from the step-4 checkpoint: "
+                  f"{time.perf_counter() - t0:.1f} s (process start "
+                  f"included); mel lengths {lens}, {len(wavs)} wavs")
+            if not all(np.isfinite(m).all() for m in mels) or \
+                    len(wavs) != 4 or "griffin-lim" in res.stdout:
+                raise AssertionError(f"synthesized: lengths {lens}, "
+                                     f"{len(wavs)} wavs")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
     # ---- phase 13: the vocoder's fused ResBlock1 and serving ---------- #
     def resblock_inputs(self):
         """HiFi-GAN V1 at full width with seed-0 weights (bf16, as served)
@@ -3658,6 +3961,8 @@ def main():
          ("VCTK train CLI", smoke.vctk_train_cli),
          ("VCTK train step at [16, 128, 1298]", smoke.vctk_step),
          ("VCTK synthesize CLI", smoke.vctk_synthesize)],
+        [("prosody du2021", smoke.prosody_du2021),
+         ("prosody liu2021", smoke.prosody_liu2021)],
         [("fused resblock kernel vs plain", smoke.fused_resblock),
          ("vocoder, fused resblocks", smoke.vocoder_fused),
          ("serve", smoke.serve),

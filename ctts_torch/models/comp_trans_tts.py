@@ -8,7 +8,8 @@ A multi-speaker model adds one vector a batch row to the encoder output
 (and hands it to the aligner): the row of a speaker table indexed by
 ``speakers`` when ``preprocessing.speaker_embedder`` is ``none``, else a
 Linear projection of the batch's external embeddings ``spker_embeds``
-([B, external_speaker_dim], e.g. DeepSpeaker's 512)."""
+([B, external_speaker_dim], e.g. DeepSpeaker's 512). The prosody model of
+``prosody_modeling.model_type`` lives in the variance adaptor."""
 
 import json
 import os
@@ -91,8 +92,7 @@ class CompTransTTS(nn.Module):
         max_mel_len is the frame budget. ``speakers`` [B] indexes the
         speaker table and ``spker_embeds`` [B, external_speaker_dim] feeds
         the external embedding's projection; a single-speaker model reads
-        neither. Returns the JAX model's output dict
-        (without the entries of unported options).
+        neither. Returns the JAX model's output dict.
         """
         src_masks = get_mask_from_lengths(src_lens, texts.shape[1])
         mel_masks = None
@@ -134,6 +134,7 @@ class CompTransTTS(nn.Module):
             "src_lens": src_lens,
             "mel_lens": va["mel_len"],
             "attn_outs": va["attn_out"],
+            "prosody_info": va.get("prosody_info"),
             "pitch_targets": va["pitch_target"],
             "energy_targets": va["energy_target"],
             "mel2ph": va["mel2ph"],

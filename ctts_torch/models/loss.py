@@ -13,12 +13,16 @@
 * with ``learn_alignment``, ForwardSum CTC and the binarization loss with
   its warm-up weight; without it the durations come from the batch and
   both are zero;
+* in training, the prosody term past ``prosody_loss_enable_steps``: the
+  GMM-MDN's negative log-likelihood of the extractor's embeddings (their
+  gradient stopped) times ``gmm_mdn_beta`` (du2021), or the L1 of the
+  predicted utterance and phone prosody against the encoders' (liu2021);
 * the ``var_start_steps`` gate on the variance terms.
 
-``step`` is a host int, so each schedule gate is plain arithmetic. The
-prosody terms are not ported yet and raise ``NotImplementedError`` naming
-the ROADMAP item that will lift them.
+``step`` is a host int, so each schedule gate is plain arithmetic.
 """
+
+import math
 
 import torch
 
@@ -165,19 +169,43 @@ def energy_loss(pred, target, feature_level, src_pad_mask, mel_pad_mask):
     return _masked_mean((pred - target).abs(), (~mask).float())
 
 
+def mdn_loss(w, sigma, mu, target, src_pad_mask):
+    """The mixture's mean negative log-likelihood of ``target`` [B, T, D]
+    (its gradient stopped) over [B, T], padded phones counted as 0."""
+    target = target.detach()[:, :, None, :]
+    sigma = torch.clamp(sigma, min=1e-6)
+    logp = (-torch.log(sigma) - 0.5 * math.log(2 * math.pi)
+            - 0.5 * ((target - mu) / sigma) ** 2)
+    logp = logp.masked_fill(src_pad_mask[:, :, None, None], 0.0).sum(dim=3)
+    prob = torch.log(torch.clamp(w, min=1e-12)) + logp     # [B, T, G]
+    nll = -torch.logsumexp(prob, dim=2)
+    return nll.masked_fill(src_pad_mask, 0.0).mean()
+
+
+def prosody_loss(info, model_type, src_pad_mask, prosody_cfg):
+    """The prosody term before its schedule gate."""
+    if model_type == "du2021":
+        w, sigma, mu, emb = info
+        return prosody_cfg["gmm_mdn_beta"] * mdn_loss(w, sigma, mu, emb,
+                                                      src_pad_mask)
+    up_tgt, pp_tgt, up_vec, pp_vec, _ = info
+    nonpad = (~src_pad_mask)[..., None].float().expand(pp_tgt.shape)
+    return torch.mean(torch.abs(up_tgt - up_vec)) \
+        + _masked_mean(torch.abs(pp_tgt - pp_vec), nonpad)
+
+
 def compute_loss(inputs, predictions, step, preprocess_config, model_config,
-                 train_config):
+                 train_config, training=True):
     """Returns (total, dict of component losses), all 0-d tensors.
 
     inputs: dict with texts, mels, src_lens, mel_lens (and durations
     without ``learn_alignment``). predictions: the
-    model's output dict. step: host int.
+    model's output dict. step: host int. The prosody term is added only
+    when ``training`` (validation reads it as 0).
     """
     loss_cfg = train_config["loss"]
     pitch_cfg = preprocess_config["preprocessing"]["pitch"]
-    if model_config["prosody_modeling"]["model_type"] != "none":
-        raise NotImplementedError(
-            "the prosody losses are not ported yet (ROADMAP.md §1 item 8)")
+    model_type = model_config["prosody_modeling"]["model_type"]
     use_pitch = model_config["variance_embedding"]["use_pitch_embed"]
     use_energy = model_config["variance_embedding"]["use_energy_embed"]
     energy_level = preprocess_config["preprocessing"]["energy"]["feature"]
@@ -207,6 +235,12 @@ def compute_loss(inputs, predictions, step, preprocess_config, model_config,
         duration_targets = inputs["durations"]
         L["ctc"] = L["bin"] = zero
     L["prosody"] = zero
+    if training and model_type != "none":
+        gate = float(step > train_config["prosody"][
+            "prosody_loss_enable_steps"])
+        L["prosody"] = gate * prosody_loss(predictions["prosody_info"],
+                                           model_type, src_masks,
+                                           train_config["prosody"])
     total = L["mel"] + L["postnet_mel"] + L["ctc"] + L["bin"] + L["prosody"]
 
     # variance losses, gated by var_start_steps

@@ -26,7 +26,14 @@ store's phone-level values) or ``frame_level`` (predicted on the frame
 hidden under the frame mask). The embeddings take their buckets from the
 targets in training. Each predictor's input passes :func:`grad_scale`.
 
-Prosody models are not ported yet and raise.
+Prosody (``prosody_modeling.model_type``), before the duration head:
+``du2021`` predicts a Gaussian mixture a phone from the text hidden before
+the speaker vector is added, and adds (bias-free ``prosody_linear``) the
+extractor's embeddings of the target mel in training (it needs the
+batch's durations), a draw from the mixture at inference; ``liu2021`` adds
+the utterance and phone prosody of its reference encoders in training and
+of its predictors at inference. ``prosody_info`` (in the output dict of
+a prosody model only) carries what the loss reads.
 """
 
 import numpy as np
@@ -35,9 +42,12 @@ from torch import nn
 
 from ctts_torch.models.aligner import AlignmentEncoder
 from ctts_torch.models.blocks import Linear, grad_scale
+from ctts_torch.models.conformer import LinearNorm
 from ctts_torch.models.predictors import (CwtStatsLayers, DurationPredictor,
                                           EnergyPredictor, PitchPredictor,
                                           PitchPredictorAR, mog_mean)
+from ctts_torch.models.prosody import (DuProsodyExtractor, DuProsodyPredictor,
+                                       liu_prosody, liu_prosody_modules)
 from ctts_torch.ops.cwt import cwt2f0_norm
 from ctts_torch.ops.length_regulator import dur_to_mel2ph, gather_by_mel2ph
 from ctts_torch.ops.mas import b_mas
@@ -74,9 +84,9 @@ class VarianceAdaptor(nn.Module):
         self.predictor_grad = vp["predictor_grad"]
         self.dur_loss = tc["loss"]["dur_loss"]
 
-        if mc["prosody_modeling"]["model_type"] != "none":
-            raise NotImplementedError(
-                "prosody models are not ported yet (ROADMAP.md §1 item 8)")
+        self.model_type = mc["prosody_modeling"]["model_type"]
+        if self.model_type not in ("none", "du2021", "liu2021"):
+            raise ValueError(f"unknown prosody model {self.model_type!r}")
         if self.pitch_type not in ("cwt", "frame", "ph"):
             raise ValueError(f"unknown pitch_type {self.pitch_type!r}")
         if self.energy_feature_level not in ("phoneme_level", "frame_level"):
@@ -137,6 +147,19 @@ class VarianceAdaptor(nn.Module):
                 temperature=mc["duration_modeling"]["aligner_temperature"],
                 multi_speaker=mc["multi_speaker"])
 
+        if self.model_type == "du2021":
+            du = mc["prosody_modeling"]["du2021"]
+            self.prosody_extractor = DuProsodyExtractor(
+                pc["preprocessing"]["mel"]["n_mel_channels"], d_model,
+                du["extractor_kernel_size"])
+            self.prosody_predictor = DuProsodyPredictor(
+                d_model, tuple(du["predictor_kernel_size"]),
+                du["predictor_num_gaussians"], du["predictor_dropout"])
+            self.prosody_linear = LinearNorm(2 * d_model, d_model, bias=False)
+        elif self.model_type == "liu2021":
+            for name, m in liu_prosody_modules(pc, mc).items():
+                self.add_module(name, m)
+
     def forward(self, x, src_mask, mode, max_mel_len, p_control=1.0,
                 e_control=1.0, d_control=1.0, text_embedding=None,
                 src_len=None, mel=None, mel_len=None, mel_mask=None,
@@ -153,8 +176,28 @@ class VarianceAdaptor(nn.Module):
             raise ValueError(f"unknown mode {mode!r}")
         training = mode != "infer"
         pitch_target = dict(pitch_target) if pitch_target else {}
+        x_text = x
         if speaker_embedding is not None:
             x = x + speaker_embedding[:, None, :]
+        prosody_info = None
+        if self.model_type == "du2021":
+            w, sigma, mu = self.prosody_predictor(x_text, src_mask, training)
+            if training:
+                if duration_target is None:
+                    raise ValueError("du2021 extracts prosody over the "
+                                     "batch's durations (learn_alignment: "
+                                     "False)")
+                emb = self.prosody_extractor(mel, duration_target, src_mask)
+            else:
+                # drawn from seed 0 at each call, as the JAX model's
+                # default key
+                emb = DuProsodyPredictor.sample(w, sigma, mu,
+                                                src_mask=src_mask)
+            x = x + self.prosody_linear(emb)
+            prosody_info = (w, sigma, mu, emb)
+        elif self.model_type == "liu2021":
+            x, prosody_info = liu_prosody(self, x, src_mask, mel, mel_mask,
+                                          training)
         log_duration_prediction = self.duration_predictor(
             grad_scale(x, self.predictor_grad), src_mask)
 
@@ -242,7 +285,7 @@ class VarianceAdaptor(nn.Module):
                     x, target, e_control, src_mask)
                 energy_embedding = gather_by_mel2ph(ph_embedding, mel2ph)
 
-        return {
+        out = {
             "x": x_up + pitch_embedding + energy_embedding,
             "pitch_target": pitch_target if pitch_target else None,
             "pitch_predictions": pitch_predictions,
@@ -256,6 +299,9 @@ class VarianceAdaptor(nn.Module):
             "mel2ph": mel2ph,
             "attn_out": attn_out,
         }
+        if self.model_type != "none":
+            out["prosody_info"] = prosody_info
+        return out
 
     def _pitch(self, decoder_inp, encoder_out, f0, uv, mel2ph, control,
                frame_mask, src_mask):

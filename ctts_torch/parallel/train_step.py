@@ -122,7 +122,8 @@ def make_eval_step(preprocess_config, model_config, train_config, mode):
         with torch.no_grad():
             out = _apply(state.model, batch, mode, state.step)
             _, comps = compute_loss(batch, out, state.step, preprocess_config,
-                                    model_config, train_config)
+                                    model_config, train_config,
+                                    training=False)
         return comps, out
 
     return eval_step

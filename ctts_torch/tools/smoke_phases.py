@@ -19,7 +19,10 @@ import os
 import subprocess
 import sys
 
-RUN = ("import sys, chip_smoke as c\n"
+# TF32 off, as chip_smoke.main sets it
+RUN = ("import sys, torch, chip_smoke as c\n"
+       "torch.backends.cuda.matmul.allow_tf32 = False\n"
+       "torch.backends.cudnn.allow_tf32 = False\n"
        "s = c.Smoke()\n"
        "for p in sys.argv[1:]:\n"
        "    s.phase(p, getattr(s, p))\n"

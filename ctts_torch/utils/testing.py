@@ -9,7 +9,8 @@ from ctts_torch.config import get_configs_of
 
 
 def tiny_configs():
-    """The LJSpeech configs cut to one layer of width 32, float32."""
+    """The LJSpeech configs cut to one layer of width 32, float32 (the
+    prosody models, when switched on, at the JAX package's test sizes)."""
     preprocess, model, train = (copy.deepcopy(c)
                                 for c in get_configs_of("LJSpeech"))
     model["block_type"] = "transformer_fs2"
@@ -28,6 +29,10 @@ def tiny_configs():
     model["transformer"]["conv_filter_size"] = 48
     model["variance_predictor"]["filter_size"] = 32
     model["variance_predictor"]["cwt_hidden_size"] = 16
+    liu = model["prosody_modeling"]["liu2021"]
+    liu.update(ref_enc_filters=[4, 4, 8], ref_enc_gru_size=8, token_num=4,
+               bottleneck_size_u=16)
+    model["prosody_modeling"]["du2021"]["predictor_num_gaussians"] = 3
     model["_energy_stats"] = (-1.5, 8.5)
     preprocess["preprocessing"]["pitch"]["pitch_type"] = "cwt"
     preprocess["preprocessing"]["energy"]["feature"] = "phoneme_level"

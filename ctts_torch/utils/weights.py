@@ -45,7 +45,15 @@ state_dict straight back. Layout changes:
   ``bias_hh_l0`` = [0 | 0 | b_hn], and ``ar/head`` → ``pitch_predictor.head``
   (upstream has no such module; the port chose these names). The port's
   cell runs with [0 | 0 | b_hn] whatever ``bias_hh_l0[:2H]`` holds, so the
-  inverse reads only its n part.
+  inverse reads only its n part;
+- prosody (upstream's names, as ``torch_import.py:import_du_extractor``,
+  ``import_du_predictor`` and ``import_liu_prosody`` read them): 2-D conv
+  kernels ``[kh, kw, in, out]`` → ``[out, in, kh, kw]``; the JAX GRU cells
+  (``wi``, ``wh``, ``bi``, ``bh``: torch's layout transposed) →
+  ``weight_ih`` / ``weight_hh`` / ``bias_ih`` / ``bias_hh`` with ``_l0``
+  (``_l0_reverse`` for a backward scan) or, for the autoregressive cells,
+  no suffix; each BatchNorm's statistics from ``batch_stats``; the liu2021
+  modules straight under ``variance_adaptor.``, as upstream hangs them.
 
 :func:`jax_tree_from_state_dict` is the inverse for the acoustic model, so a
 test can compare the port's parameters with the JAX tree after a step.
@@ -256,6 +264,135 @@ def _predictor(sd, prefix, node):
         _dense(sd, f"{prefix}.head", node["ar"]["head"])
 
 
+_MDN = (("w", "w.0"), ("sigma", "sigma"), ("mu", "mu"))
+_STL = ("W_query", "W_key", "W_value")
+_LIU_ENCODERS = ("utterance_prosody_encoder", "phoneme_prosody_encoder")
+_LIU_PREDICTORS = ("utterance_prosody_predictor", "phoneme_prosody_predictor")
+_LIU_PRJ = ("utterance_prosody_prj", "phoneme_prosody_prj")
+
+
+def _conv2d(kernel):          # flax [kh, kw, in, out] → [out, in, kh, kw]
+    return np.transpose(kernel, (3, 2, 0, 1))
+
+
+def _bn(sd, prefix, node, stats):
+    _ln(sd, prefix, node)
+    sd[f"{prefix}.running_mean"] = stats["mean"]
+    sd[f"{prefix}.running_var"] = stats["var"]
+    sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _gru(sd, prefix, node, suffix="_l0"):
+    cell = node["gru"]
+    for jax_name, name in (("wi", "weight_ih"), ("wh", "weight_hh")):
+        sd[f"{prefix}.{name}{suffix}"] = np.asarray(cell[jax_name]).T
+    sd[f"{prefix}.bias_ih{suffix}"] = cell["bi"]
+    sd[f"{prefix}.bias_hh{suffix}"] = cell["bh"]
+
+
+def gru_sd(sd, p, node):
+    """A JAX ``GRU`` (``fwd``, and ``bwd`` when bidirectional) → one
+    ``nn.GRU``."""
+    _gru(sd, p, node["fwd"]["cell"])
+    if "bwd" in node:
+        _gru(sd, p, node["bwd"]["cell"], "_l0_reverse")
+
+
+def conv_block_2d_sd(sd, p, node, stats):
+    """A ``ConvBlock2D`` (the JAX ``_ConvBlock2DMel``)."""
+    sd[f"{p}.conv_layer.0.conv.weight"] = _conv2d(node["Conv_0"]["kernel"])
+    _bn(sd, f"{p}.conv_layer.1", node["BatchNorm_0"], stats["BatchNorm_0"])
+
+
+def du_extractor_sd(sd, p, node, stats):
+    """``{p}.*`` of a ``DuProsodyExtractor`` from its JAX params and
+    batch_stats."""
+    for i in (0, 1):
+        conv_block_2d_sd(sd, f"{p}.conv_stack.{i}", node[f"conv_{i}"],
+                         stats[f"conv_{i}"])
+    gru_sd(sd, f"{p}.gru", {"fwd": node["gru_fwd"], "bwd": node["gru_bwd"]})
+
+
+def masked_conv_block_sd(sd, p, node):
+    """``{p}.*`` of a ``ConvBlock`` (the JAX ``_MaskedConvBlock``)."""
+    _conv_params(sd, f"{p}.conv_layer.0.conv", node["ConvNorm_0"]["Conv_0"])
+    _ln(sd, f"{p}.conv_layer.1", node["LayerNorm_0"])
+
+
+def mdn_sd(sd, p, node):
+    for name, slot in _MDN:
+        _dense(sd, f"{p}.{slot}", node[name])
+
+
+def du_predictor_sd(sd, p, node):
+    for i in (0, 1):
+        masked_conv_block_sd(sd, f"{p}.conv_stack.{i}", node[f"conv_{i}"])
+    _gru(sd, f"{p}.gru_cell", node["gru_cell"], "")
+    mdn_sd(sd, f"{p}.gmm_mdn", node["gmm_mdn"])
+
+
+def coord_conv_sd(sd, p, node):
+    sd[f"{p}.conv.weight"] = _conv2d(node["Conv_0"]["kernel"])
+    sd[f"{p}.conv.bias"] = node["Conv_0"]["bias"]
+
+
+def reference_encoder_sd(sd, p, node, stats):
+    coord_conv_sd(sd, f"{p}.convs.0", node["conv_0"])
+    i = 0
+    while f"bn_{i}" in node:
+        if i:
+            sd[f"{p}.convs.{i}.weight"] = _conv2d(node[f"conv_{i}"]["kernel"])
+            sd[f"{p}.convs.{i}.bias"] = node[f"conv_{i}"]["bias"]
+        _bn(sd, f"{p}.bns.{i}", node[f"bn_{i}"], stats[f"bn_{i}"])
+        i += 1
+    gru_sd(sd, f"{p}.gru", node["gru"])
+
+
+def stl_sd(sd, p, node):
+    sd[f"{p}.embed"] = node["embed"]
+    for name in _STL:
+        _dense(sd, f"{p}.attention.{name}", node["attention"][name])
+
+
+def prosody_encoder_sd(sd, p, node, stats):
+    """An utterance- or phone-level prosody encoder."""
+    reference_encoder_sd(sd, f"{p}.encoder", node["encoder"],
+                         stats["encoder"])
+    for name in ("encoder_prj", "encoder_bottleneck"):
+        _dense(sd, f"{p}.{name}", node[name])
+    if "stl" in node:
+        stl_sd(sd, f"{p}.stl", node["stl"])
+    for j, name in enumerate(("q_lin", "k_lin")):
+        if name in node:
+            _dense(sd, f"{p}.linears.{j}.linear", node[name])
+
+
+def parallel_predictor_sd(sd, p, node):
+    for i in (1, 2):
+        c = f"{p}.conv_layer"
+        _conv_params(sd, f"{c}.conv1d_{i}.conv", node[f"conv1d_{i}"]["Conv_0"])
+        _ln(sd, f"{c}.layer_norm_{i}", node[f"LayerNorm_{i - 1}"])
+    gru_sd(sd, f"{p}.gru", node["gru"])
+    _dense(sd, f"{p}.predictor_bottleneck", node["predictor_bottleneck"])
+
+
+def nonparallel_predictor_sd(sd, p, node):
+    for i in (0, 1):
+        masked_conv_block_sd(sd, f"{p}.conv_stack.{i}", node[f"conv_{i}"])
+    _gru(sd, f"{p}.gru_cell", node["gru_cell"], "")
+    _dense(sd, f"{p}.predictor_bottleneck", node["predictor_bottleneck"])
+
+
+def liu_prosody_sd(sd, p, node, stats):
+    """The JAX ``liu_prosody`` subtree → its modules under ``{p}.``."""
+    for enc in _LIU_ENCODERS:
+        prosody_encoder_sd(sd, f"{p}.{enc}", node[enc], stats[enc])
+    for pred in _LIU_PREDICTORS:
+        parallel_predictor_sd(sd, f"{p}.{pred}", node[pred])
+    for name in _LIU_PRJ:
+        _dense(sd, f"{p}.{name}", node[name])
+
+
 def _to_tensors(sd):
     """numpy leaves → tensors: floats as float32, integers kept."""
     out = {}
@@ -325,7 +462,8 @@ def state_dict_from_jax(tree):
     va_known = {"duration_predictor", "dur_crf", "pitch_embed",
                 "cwt_in_proj", "cwt_predictor", "cwt_stats_layers",
                 "pitch_predictor", "energy_predictor", "energy_embedding",
-                "aligner"}
+                "aligner", "prosody_extractor", "prosody_predictor",
+                "prosody_linear", "liu_prosody"}
     extra = set(va) - va_known
     if extra:
         raise NotImplementedError(
@@ -357,6 +495,14 @@ def state_dict_from_jax(tree):
         for name in _ALIGNER_SPK:
             if name in va["aligner"]:
                 _dense(sd, f"{p}.aligner.{name}.linear", va["aligner"][name])
+    va_stats = stats.get("variance_adaptor", {})
+    if "prosody_extractor" in va:
+        du_extractor_sd(sd, f"{p}.prosody_extractor", va["prosody_extractor"],
+                        va_stats["prosody_extractor"])
+        du_predictor_sd(sd, f"{p}.prosody_predictor", va["prosody_predictor"])
+        _dense(sd, f"{p}.prosody_linear.linear", va["prosody_linear"])
+    if "liu_prosody" in va:
+        liu_prosody_sd(sd, p, va["liu_prosody"], va_stats["liu_prosody"])
     return _to_tensors(sd)
 
 
@@ -538,6 +684,98 @@ def _inv_predictor(sd, prefix):
     return node
 
 
+def _inv_bn(sd, prefix):
+    return _inv_ln(sd, prefix), {"mean": sd[f"{prefix}.running_mean"],
+                                 "var": sd[f"{prefix}.running_var"]}
+
+
+def _inv_gru(sd, prefix, suffix="_l0"):
+    return {"gru": {"wi": sd[f"{prefix}.weight_ih{suffix}"].T,
+                    "wh": sd[f"{prefix}.weight_hh{suffix}"].T,
+                    "bi": sd[f"{prefix}.bias_ih{suffix}"],
+                    "bh": sd[f"{prefix}.bias_hh{suffix}"]}}
+
+
+def _inv_conv2d(sd, prefix):
+    # [out, in, kh, kw] → [kh, kw, in, out]
+    return np.transpose(sd[f"{prefix}.weight"], (2, 3, 1, 0))
+
+
+def _inv_du_prosody(sd, p):
+    """(params, batch_stats) of the du2021 subtrees of the adaptor."""
+    ext, ext_stats, pred = {}, {}, {}
+    for i in (0, 1):
+        c = f"{p}.prosody_extractor.conv_stack.{i}.conv_layer"
+        bn, bn_stats = _inv_bn(sd, f"{c}.1")
+        ext[f"conv_{i}"] = {
+            "Conv_0": {"kernel": _inv_conv2d(sd, f"{c}.0.conv")},
+            "BatchNorm_0": bn}
+        ext_stats[f"conv_{i}"] = {"BatchNorm_0": bn_stats}
+        c = f"{p}.prosody_predictor.conv_stack.{i}.conv_layer"
+        pred[f"conv_{i}"] = {
+            "ConvNorm_0": {"Conv_0": _inv_conv(sd, f"{c}.0.conv")},
+            "LayerNorm_0": _inv_ln(sd, f"{c}.1")}
+    ext["gru_fwd"] = {"cell": _inv_gru(sd, f"{p}.prosody_extractor.gru")}
+    ext["gru_bwd"] = {"cell": _inv_gru(sd, f"{p}.prosody_extractor.gru",
+                                       "_l0_reverse")}
+    pred["gru_cell"] = _inv_gru(sd, f"{p}.prosody_predictor.gru_cell", "")
+    pred["gmm_mdn"] = {name: _inv_dense(sd, f"{p}.prosody_predictor.gmm_mdn."
+                                            f"{slot}") for name, slot in _MDN}
+    params = {"prosody_extractor": ext, "prosody_predictor": pred,
+              "prosody_linear": _inv_dense(sd, f"{p}.prosody_linear.linear")}
+    return params, {"prosody_extractor": ext_stats}
+
+
+def _inv_ref_encoder(sd, p):
+    conv0 = {"kernel": _inv_conv2d(sd, f"{p}.convs.0.conv"),
+             "bias": sd[f"{p}.convs.0.conv.bias"]}
+    node = {"conv_0": {"Conv_0": conv0}}
+    stats = {}
+    i = 0
+    while f"{p}.bns.{i}.weight" in sd:
+        if i:
+            node[f"conv_{i}"] = {"kernel": _inv_conv2d(sd, f"{p}.convs.{i}"),
+                                 "bias": sd[f"{p}.convs.{i}.bias"]}
+        node[f"bn_{i}"], stats[f"bn_{i}"] = _inv_bn(sd, f"{p}.bns.{i}")
+        i += 1
+    node["gru"] = {"fwd": {"cell": _inv_gru(sd, f"{p}.gru")}}
+    return node, stats
+
+
+def _inv_liu_prosody(sd, p):
+    """(params, batch_stats) of the JAX ``liu_prosody`` subtree."""
+    node, stats = {}, {}
+    for enc in _LIU_ENCODERS:
+        e, s = _inv_ref_encoder(sd, f"{p}.{enc}.encoder")
+        node[enc] = {"encoder": e}
+        stats[enc] = {"encoder": s}
+        for name in ("encoder_prj", "encoder_bottleneck"):
+            node[enc][name] = _inv_dense(sd, f"{p}.{enc}.{name}")
+    u = f"{p}.utterance_prosody_encoder.stl"
+    node["utterance_prosody_encoder"]["stl"] = {
+        "embed": sd[f"{u}.embed"],
+        "attention": {n: _inv_dense(sd, f"{u}.attention.{n}") for n in _STL}}
+    for j, name in enumerate(("q_lin", "k_lin")):
+        node["phoneme_prosody_encoder"][name] = _inv_dense(
+            sd, f"{p}.phoneme_prosody_encoder.linears.{j}.linear")
+    for pred in _LIU_PREDICTORS:
+        c = f"{p}.{pred}.conv_layer"
+        q = {}
+        for i in (1, 2):
+            q[f"conv1d_{i}"] = {
+                "Conv_0": _inv_conv(sd, f"{c}.conv1d_{i}.conv")}
+            q[f"LayerNorm_{i - 1}"] = _inv_ln(sd, f"{c}.layer_norm_{i}")
+        q["gru"] = {"fwd": {"cell": _inv_gru(sd, f"{p}.{pred}.gru")},
+                    "bwd": {"cell": _inv_gru(sd, f"{p}.{pred}.gru",
+                                             "_l0_reverse")}}
+        q["predictor_bottleneck"] = _inv_dense(
+            sd, f"{p}.{pred}.predictor_bottleneck")
+        node[pred] = q
+    for name in _LIU_PRJ:
+        node[name] = _inv_dense(sd, f"{p}.{name}")
+    return node, stats
+
+
 def jax_tree_from_state_dict(state_dict, model_config):
     """The port's CompTransTTS ``state_dict`` → ``{"params": ...,
     "batch_stats": ...}`` of numpy arrays in the JAX package's layout (the
@@ -625,6 +863,14 @@ def jax_tree_from_state_dict(state_dict, model_config):
             if f"{p}.aligner.{name}.linear.weight" in sd:
                 va["aligner"][name] = _inv_dense(sd,
                                                  f"{p}.aligner.{name}.linear")
+    if f"{p}.prosody_linear.linear.weight" in sd:
+        du, du_stats = _inv_du_prosody(sd, p)
+        va.update(du)
+        batch_stats["variance_adaptor"] = du_stats
+    if f"{p}.utterance_prosody_prj.weight" in sd:
+        liu, liu_stats = _inv_liu_prosody(sd, p)
+        va["liu_prosody"] = liu
+        batch_stats["variance_adaptor"] = {"liu_prosody": liu_stats}
     params["variance_adaptor"] = va
     batch_stats["postnet"] = pn_stats
     return {"params": params, "batch_stats": batch_stats}

@@ -1431,3 +1431,38 @@ def test_ctc_kernels_match_plain_at_the_vctk_shape():
     em = _ctc_em(rng, dev, B_VCTK, T_VCTK, S_VCTK, in_lens, out_lens)
     cot = torch.from_numpy(rng.rand(B_VCTK).astype(np.float32) + 0.5).to(dev)
     _check_ctc(em, in_lens, out_lens, cot)
+
+
+@pytest.mark.parametrize("case", ["zeros", "first_zero", "overrun"])
+def test_segment_gru_packed_matches_loop_on_the_card(case):
+    """The du2021 extractor's packed bidirectional GRU (cuDNN) against its
+    frame-by-frame oracle (``torch.gru_cell``) on the card, float32: the
+    outputs and the input's gradient within 1e-5 of their largest entry,
+    in eval mode (the train step with dropout off) and in train mode."""
+    dev = _need_card()
+    from ctts_torch.models.prosody import segment_gru, segment_gru_loop
+    from ctts_torch.ops.length_regulator import dur_to_mel2ph
+    rng = np.random.RandomState(len(case))
+    B, T_s, T_m = 4, 40, 300
+    dur = rng.randint(0, 14, (B, T_s)).astype(np.float32)
+    if case == "first_zero":
+        dur[:, 0] = 0
+    if case == "overrun":
+        dur[:, :] += 4
+    src_mask = np.arange(T_s)[None] >= np.asarray([40, 33, 20, 5])[:, None]
+    mel2ph = dur_to_mel2ph(torch.from_numpy(dur).to(dev),
+                           torch.from_numpy(src_mask).to(dev), max_len=T_m)
+    gru = torch.nn.GRU(80, 64, batch_first=True, bidirectional=True).to(dev)
+    x = torch.from_numpy(rng.randn(B, T_m, 80).astype(np.float32)).to(dev)
+    cot = torch.from_numpy(rng.randn(B, T_m, 128).astype(np.float32)).to(dev)
+    for train in (False, True):
+        gru.train(train)
+        outs = []
+        for fn in (segment_gru, segment_gru_loop):
+            xi = x.clone().requires_grad_(True)
+            y = fn(gru, xi, mel2ph)
+            (g,) = torch.autograd.grad((y * cot).sum(), xi)
+            outs.append((y.detach(), g))
+        for got, ref in zip(outs[0], outs[1]):
+            err = ((got - ref).abs().max() / ref.abs().max()).item()
+            assert err <= 1e-5, (train, err)

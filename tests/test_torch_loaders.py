@@ -180,9 +180,10 @@ def test_unported_options_raise(tmp_path):
     configs[2]["path"]["ckpt_path"] = str(tmp_path)
     with pytest.raises(FileNotFoundError):     # no checkpoint at step 5
         get_model(5, configs, device="cpu")
-    configs[1]["prosody_modeling"]["model_type"] = "du2021"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
-        get_model(0, configs, device="cpu")
+    # a JAX parameter tree with a subtree the port has no module for
+    from ctts_torch.utils.weights import state_dict_from_jax
+    with pytest.raises(NotImplementedError, match="no module in ctts_torch"):
+        state_dict_from_jax({"params": {"encoder": {}, "performer": {}}})
 
 
 @pytest.mark.parametrize("B", [1, 3])
