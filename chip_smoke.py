@@ -44,7 +44,8 @@ suppresses the final line:
    (attention 10, gather 2, scatter 2, no MAS, no CTC), one with the
    variance losses on, then timed and profiled beside phase 6's step;
    ``python -m ctts_torch.train`` on a synthetic supervised store (8
-   steps, and 4 + a resume for 4 more, validating every 4) and
+   steps, and a resume from their step-4 checkpoint for steps 5-8,
+   validating every 4) and
    ``python -m ctts_torch.synthesize`` from its step-8 checkpoint on the
    probe texts; the four variance configurations (frame and ph pitch,
    ``pitch_ar``, frame energy, huber, mog and crf durations, LEFT padding,
@@ -65,7 +66,8 @@ suppresses the final line:
    the plain relpos on the card (the encoder on the probe texts, the decoder
    on seeded frames with seeded lengths near the budget, the durations);
 9. ``python -m ctts_torch.train`` on a synthetic LJSpeech-shaped store with
-   the conformer config: 8 steps, and 4 + a resume for 4 more, the loss
+   the conformer config: 8 steps, and a resume from their step-4
+   checkpoint for steps 5-8, the loss
    falling and the resumed losses matching; then steps of the same model in
    this process with the counters zeroed just before one step and read
    just after, and one step under ``torch.profiler``;
@@ -82,7 +84,8 @@ suppresses the final line:
    and ``CTTS_FUSED_LSH=1``): counted forward, latency, profile, and the
    same model with the plain versions on the card fed the same hash sorts;
 12. ``python -m ctts_torch.train`` with the reformer config: 6 steps, and
-   3 + a resume for 3 more; then counted, timed and profiled steps at
+   a resume from their step-3 checkpoint for steps 4-6; then counted,
+   timed and profiled steps at
    [16, 128 tokens, 896 frames] on both routes;
 12b. the classic ``transformer``, ``fastformer`` and ``lstransformer``
    blocks (``configs/LJSpeech.yaml`` with only ``block_type`` changed,
@@ -93,7 +96,8 @@ suppresses the final line:
    128, 896]; then the VCTK recipe (``configs/VCTK.yaml`` as shipped:
    ``transformer_fs2``, external 512-d speaker embeddings, seeded weights):
    ``python -m ctts_torch.train --dataset VCTK`` on a synthetic store of 8
-   speakers (4 steps, and a resume from step 2, validating), one counted,
+   speakers (6 steps, validating at 3 and 6, and a resume from step 3 for
+   steps 4-6), one counted,
    timed and profiled step at exactly [16, 128, 1298] (VCTK's longest
    utterance), the attention, gather, scatter, MAS and CTC kernels at that
    shape against their plain versions with their bounds, and the
@@ -108,9 +112,28 @@ suppresses the final line:
    CTC pair), the same step in float32 with dropout off on the card and on
    the CPU at [4, 128, 896] (and with TF32 on the card, a control that must
    fail that check), ``python -m ctts_torch.train`` on a synthetic
-   supervised store (4 steps, and a resume from step 2; validation's
-   prosody term 0) and ``python -m ctts_torch.synthesize`` from its step-4
+   supervised store (4 steps, and a resume from step 2 for steps 3-4;
+   validation's prosody term 0) and the
+   synthesize CLI (its ``main``, in this process) from its step-4
    checkpoint;
+12d. from a raw corpus to a validated checkpoint: an LJSpeech-layout
+   corpus the smoke writes (40 utterances of 1.5-9.5 s, speech-like
+   signals between digital silences, labs spelled through its lexicon,
+   TextGrids) through ``python -m ctts_torch.preprocess`` on the card
+   (``configs/LJSpeech.yaml``, ``val_size: 8``), held to the port's
+   Preprocessor on the CPU (mel, energy and CWT within 1e-4, f0 within
+   1e-6 relative off the frames whose lag is rounding noise, the integer
+   arrays, priors and texts equal), again with two spawned workers bit
+   for bit, with each run's wall seconds and CUDA-event times of the
+   batched mel and the f0 tracker; a VCTK-layout corpus (2 speakers × 4
+   utterances, ``configs/VCTK.yaml``, the ResCNN at seed 0) the same
+   way, speaker embeddings within 1e-5, and the ResCNN's time; then
+   ``python -m ctts_torch.train`` of the LJSpeech default on the card's
+   store (6 steps; previews at 3 and 6 with HiFi-GAN at seed 0;
+   validation at 3 and 6; steps 4-5 traced), the launches per step of
+   each log line, the previews' device part counted in this process,
+   ``python -m ctts_torch.evaluate --restore_step 6`` within 1e-5
+   relative of the step-6 validation line, and the synthesize CLI;
 13. serving: the fused HiFi-GAN ResBlock1 kernel against its plain version
    at levels 1-3 of the probe (C = 128, 64, 32; k = 3, 7, 11; bf16 and
    f32; the generator's own weights and inputs) plus two and ragged tiles,
@@ -1387,8 +1410,8 @@ class Smoke:
         """``python -m ctts_torch.train`` on a synthetic supervised store
         with "LJSpeech supervised" (bf16, batch 16, the device cache,
         dropout on, the warm-up cut to 50 steps and the variance losses on
-        from the start): 8 straight steps, and 4 + a resume from the step-4
-        checkpoint for 4 more, validating every 4 steps; then
+        from the start): 8 straight steps, and a resume from their step-4
+        checkpoint for steps 5-8, validating every 4 steps; then
         ``python -m ctts_torch.synthesize`` from the step-8 checkpoint on
         the probe texts."""
         from ctts_torch.config import load_yaml
@@ -1404,7 +1427,7 @@ class Smoke:
             raw["train"]["step"].update(log_step=1, save_step=4, val_step=4,
                                         var_start_steps=0)
             straight = self.run_train_cli(raw, tmp, "straight", 8)
-            self.run_train_cli(raw, tmp, "resumed", 4)
+            self.copy_checkpoint(tmp, 4)
             resumed = self.run_train_cli(raw, tmp, "resumed", 8, restore=4)
             totals = [straight[s]["total"] for s in range(1, 9)]
             bad = [(s, k) for s, r in straight.items() for k, v in r.items()
@@ -1446,29 +1469,24 @@ class Smoke:
             meta = os.path.join(tmp, "meta.txt")
             self.write_probe_meta(meta)
             out = os.path.join(tmp, "out")
-            cmd = [sys.executable, "-m", "ctts_torch.synthesize", "--mode",
-                   "batch", "--source", meta, "--dataset", "LJSpeech",
-                   "--config_dir", os.path.join(tmp, "straight"),
-                   "--restore_step", "8",
-                   "--vocoder_ckpt", os.path.join(tmp, "ckpt"),
-                   "--result_dir", out]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, cwd=REPO, capture_output=True,
-                                 text=True, timeout=600)
-            if res.returncode != 0:
-                print(res.stderr[-3000:])
-                raise AssertionError(f"synthesize exited {res.returncode}")
+            stdout, _ = self.run_synthesize(
+                ["--mode", "batch", "--source", meta, "--dataset",
+                 "LJSpeech", "--config_dir", os.path.join(tmp, "straight"),
+                 "--restore_step", "8",
+                 "--vocoder_ckpt", os.path.join(tmp, "ckpt"),
+                 "--result_dir", out])
             mels = [np.load(os.path.join(out, f"probe{i}.npy"))
                     for i in range(4)]
             lens = [m.shape[0] for m in mels]
             cap = 2 * raw["model"]["max_seq_len"]
             print(f"synthesize CLI from the supervised step-8 checkpoint: "
-                  f"{time.perf_counter() - t0:.1f} s (process start "
-                  f"included); mel lengths {lens} (budget at most {cap})")
+                  f"{time.perf_counter() - t0:.1f} s in this process; mel "
+                  f"lengths {lens} (budget at most {cap})")
             if not all(np.isfinite(m).all() for m in mels) or not (
                     0 < sum(lens) and max(lens) <= cap):
                 raise AssertionError(f"synthesized mels: lengths {lens}")
-            if "griffin-lim" in res.stdout:
+            if "griffin-lim" in stdout:
                 raise AssertionError("the vocoder checkpoint was not loaded")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -1946,8 +1964,8 @@ class Smoke:
         """``python -m ctts_torch.train`` on a synthetic store with the
         conformer config at full width and depth (bf16, batch 16, the
         device cache, dropout on, the warm-up cut to 50 steps so a few
-        steps move the loss): 8 straight steps, and 4 + a resume from the
-        step-4 checkpoint for 4 more. Then the same model's steps in this
+        steps move the loss): 8 straight steps, and a resume from their
+        step-4 checkpoint for steps 5-8. Then the same model's steps in this
         process, with the launch counters zeroed just before a step and
         read just after, and one step under the profiler."""
         from ctts_torch.config import load_yaml
@@ -1973,7 +1991,7 @@ class Smoke:
                                         val_step=100000)
 
             straight = self.run_train_cli(raw, tmp, "straight", 8)
-            self.run_train_cli(raw, tmp, "resumed", 4)
+            self.copy_checkpoint(tmp, 4)
             resumed = self.run_train_cli(raw, tmp, "resumed", 8, restore=4)
             totals = [straight[s]["total"] for s in range(1, 9)]
             bad = [(s, k) for s, r in straight.items() for k, v in r.items()
@@ -2547,25 +2565,43 @@ class Smoke:
             os.environ.pop("CTTS_FUSED_LSH", None)
 
     # ---- phase 12: reformer training ------------------------------------ #
+    @staticmethod
+    def run_synthesize(argv):
+        """``python -m ctts_torch.synthesize`` with ``argv``, through its
+        ``main`` in this process (no second process start, ~10 s on the
+        card machine); returns its standard output and error."""
+        from ctts_torch.synthesize import main
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            main(argv)
+        return out.getvalue(), err.getvalue()
+
+    @staticmethod
+    def copy_checkpoint(tmp, step, src="straight", dst="resumed"):
+        """Run ``src``'s checkpoint of ``step`` into run ``dst``'s checkpoint
+        directory, where ``run_train_cli(..., dst, restore=step)`` resumes
+        from it."""
+        ckpt = os.path.join(tmp, dst, "ckpt_path")
+        os.makedirs(ckpt, exist_ok=True)
+        shutil.copy(os.path.join(tmp, src, "ckpt_path", f"{step}.pth.tar"),
+                    ckpt)
+
     def run_train_cli(self, raw, tmp, name, max_steps, restore=0,
-                      dataset="LJSpeech", ckpt_from=None):
+                      dataset="LJSpeech", extra=()):
         """``python -m ctts_torch.train`` with the merged config ``raw``
-        under ``tmp/name`` (its checkpoints under ``tmp/ckpt_from`` when
-        given); returns its log lines by step."""
+        under ``tmp/name`` and the arguments ``extra``; returns its log
+        lines by step."""
         from ctts_torch.config import dump_yaml
         cfg_dir = os.path.join(tmp, name)
         os.makedirs(cfg_dir, exist_ok=True)
         raw["train"]["path"] = {k: os.path.join(cfg_dir, k)
                                 for k in ("ckpt_path", "log_path",
                                           "result_path")}
-        if ckpt_from:
-            raw["train"]["path"]["ckpt_path"] = os.path.join(
-                tmp, ckpt_from, "ckpt_path")
         with open(os.path.join(cfg_dir, f"{dataset}.yaml"), "w") as f:
             f.write(dump_yaml(raw))
         cmd = [sys.executable, "-m", "ctts_torch.train", "--dataset",
                dataset, "--config_dir", cfg_dir, "--max_steps",
-               str(max_steps), "--restore_step", str(restore)]
+               str(max_steps), "--restore_step", str(restore), *extra]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                              timeout=600)
@@ -2583,8 +2619,8 @@ class Smoke:
     def reformer_train(self):
         """``python -m ctts_torch.train`` on a synthetic store with the
         reformer config at full width and depth (bf16, batch 16, dropout
-        on, the warm-up cut to 50 steps): 6 straight steps, and 3 + a
-        resume from the step-3 checkpoint for 3 more. Then ``train_unsup``
+        on, the warm-up cut to 50 steps): 6 straight steps, and a resume
+        from their step-3 checkpoint for steps 4-6. Then ``train_unsup``
         steps in this process at [16, 128 tokens, 896 frames] (the soft
         upsample regime) on both LSH routes, with the launch counters zeroed
         just before a step and read just after, the step's host time and
@@ -2611,7 +2647,7 @@ class Smoke:
             raw["train"]["step"].update(log_step=1, save_step=3,
                                         val_step=100000)
             straight = self.run_train_cli(raw, tmp, "straight", 6)
-            self.run_train_cli(raw, tmp, "resumed", 3)
+            self.copy_checkpoint(tmp, 3)
             resumed = self.run_train_cli(raw, tmp, "resumed", 6, restore=3)
             totals = [straight[s]["total"] for s in range(1, 7)]
             bad = [(s, k) for s, r in straight.items() for k, v in r.items()
@@ -2867,9 +2903,8 @@ class Smoke:
         64 + 8 utterances, 500-1298 frames), batch 16, the device cache,
         the warm-up cut to 50, the variance losses on: 6 steps validating
         and saving at 3 and 6, then steps 4-6 again resumed from the step-3
-        checkpoint. The store,
-        a lexicon of the probe texts and the runs stay for the synthesize
-        phase."""
+        checkpoint. The store, a lexicon of the probe texts and the runs
+        stay for the synthesize phase."""
         from ctts_torch.config import load_yaml
         tmp = self.vctk_tmp = tempfile.mkdtemp(prefix="ctts_smoke_vctk_")
         atexit.register(shutil.rmtree, tmp, True)
@@ -2888,8 +2923,7 @@ class Smoke:
         straight = self.run_train_cli(raw, tmp, "straight", 6,
                                       dataset="VCTK")
         cached = "device cache:" in self.cli_stdout
-        shutil.copytree(os.path.join(tmp, "straight", "ckpt_path"),
-                        os.path.join(tmp, "resumed", "ckpt_path"))
+        self.copy_checkpoint(tmp, 3)
         resumed = self.run_train_cli(raw, tmp, "resumed", 6, restore=3,
                                      dataset="VCTK")
         totals = [straight[s]["total"] for s in range(1, 7)]
@@ -3206,9 +3240,10 @@ class Smoke:
         896], within PROSODY_MEL_TOL, PROSODY_LOSS_TOL and
         PROSODY_GRAD_NORM_TOL, and again on the card with TF32 on, which
         must fail that check; ``python -m ctts_torch.train`` on a synthetic
-        supervised store (4 steps, and a resume from step 2; validation
-        reads the prosody term 0) and ``python -m ctts_torch.synthesize``
-        from its step-4 checkpoint."""
+        supervised store (4 steps, and a resume from the step-2 checkpoint
+        for steps 3-4; validation reads the prosody term 0) and the
+        synthesize CLI (its ``main``, in this process) from its
+        step-4 checkpoint."""
         import copy
         from ctts_torch.config import load_yaml
         from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -3393,9 +3428,8 @@ class Smoke:
                                         var_start_steps=0)
             raw["train"]["prosody"]["prosody_loss_enable_steps"] = 0
             straight = self.run_train_cli(raw, tmp, "straight", 4)
-            raw_r = copy.deepcopy(raw)
-            resumed = self.run_train_cli(raw_r, tmp, "resumed", 4, restore=2,
-                                         ckpt_from="straight")
+            self.copy_checkpoint(tmp, 2)
+            resumed = self.run_train_cli(raw, tmp, "resumed", 4, restore=2)
             bad = [(s, k) for s, r in straight.items() for k, v in r.items()
                    if isinstance(v, float) and not np.isfinite(v)]
             val = [json.loads(ln) for ln in open(os.path.join(
@@ -3415,9 +3449,10 @@ class Smoke:
                   + ", prosody " + ", ".join(
                       f"{straight[s]['prosody']:.4f}" for s in
                       sorted(straight))
-                  + f"; resume from step 2: steps 3-4 max relative "
-                  f"difference {diff:.3e} (tol {RESUME_TOL:g}); launches per "
-                  f"step {straight[3]['launches_per_step']}")
+                  + f"; validation's prosody {[r['prosody'] for r in val]}; "
+                  f"resume from step 2: steps 3-4 max relative difference "
+                  f"{diff:.3e} (tol {RESUME_TOL:g}); launches per step "
+                  f"{straight[3]['launches_per_step']}")
             if diff > RESUME_TOL or straight[3]["launches_per_step"] != want:
                 raise AssertionError(f"resume {diff}, launches "
                                      f"{straight[3]['launches_per_step']}")
@@ -3425,31 +3460,363 @@ class Smoke:
             meta = os.path.join(tmp, "meta.txt")
             self.write_probe_meta(meta)
             out = os.path.join(tmp, "out")
-            cmd = [sys.executable, "-m", "ctts_torch.synthesize", "--mode",
-                   "batch", "--source", meta, "--dataset", "LJSpeech",
-                   "--config_dir", os.path.join(tmp, "straight"),
-                   "--restore_step", "4",
-                   "--vocoder_ckpt", os.path.join(tmp, "ckpt"),
-                   "--result_dir", out]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, cwd=REPO, capture_output=True,
-                                 text=True, timeout=600)
-            if res.returncode != 0:
-                print(res.stderr[-3000:])
-                raise AssertionError(f"synthesize exited {res.returncode}")
+            stdout, _ = self.run_synthesize(
+                ["--mode", "batch", "--source", meta, "--dataset",
+                 "LJSpeech", "--config_dir", os.path.join(tmp, "straight"),
+                 "--restore_step", "4",
+                 "--vocoder_ckpt", os.path.join(tmp, "ckpt"),
+                 "--result_dir", out])
             mels = [np.load(os.path.join(out, f"probe{i}.npy"))
                     for i in range(4)]
             wavs = [f for f in os.listdir(out) if f.endswith(".wav")]
             lens = [m.shape[0] for m in mels]
             print(f"{model_type} synthesize CLI from the step-4 checkpoint: "
-                  f"{time.perf_counter() - t0:.1f} s (process start "
-                  f"included); mel lengths {lens}, {len(wavs)} wavs")
+                  f"{time.perf_counter() - t0:.1f} s in this process; mel "
+                  f"lengths {lens}, {len(wavs)} wavs")
             if not all(np.isfinite(m).all() for m in mels) or \
-                    len(wavs) != 4 or "griffin-lim" in res.stdout:
+                    len(wavs) != 4 or "griffin-lim" in stdout:
                 raise AssertionError(f"synthesized: lengths {lens}, "
                                      f"{len(wavs)} wavs")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- phase 12d: from a raw corpus to a validated checkpoint ------- #
+    @staticmethod
+    def corpus_config(root, dataset, out, val_size):
+        """``configs/<dataset>.yaml`` reading the corpus under ``root`` and
+        writing its store to ``out`` (with the corpus's TextGrids), as a
+        merged config in ``out``'s config directory; returns that
+        directory."""
+        from ctts_torch.config import dump_yaml, load_yaml
+        raw = load_yaml(open(os.path.join(REPO, "configs",
+                                          f"{dataset}.yaml")))
+        raw["preprocess"]["path"].update(
+            raw_path=os.path.join(root, "raw"), preprocessed_path=out,
+            lexicon_path=os.path.join(root, "lexicon.txt"))
+        raw["preprocess"]["preprocessing"]["val_size"] = val_size
+        shutil.copytree(os.path.join(root, "TextGrid"),
+                        os.path.join(out, "TextGrid"))
+        cfg = out + "_cfg"
+        os.makedirs(cfg)
+        with open(os.path.join(cfg, f"{dataset}.yaml"), "w") as f:
+            f.write(dump_yaml(raw))
+        return cfg
+
+    @staticmethod
+    def run_preprocess(cfg, dataset):
+        """``python -m ctts_torch.preprocess`` on the card, one worker;
+        returns its wall seconds, the process start included."""
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "ctts_torch.preprocess", "--dataset",
+             dataset, "--config_dir", cfg], cwd=REPO, capture_output=True,
+            text=True, timeout=600,
+            env=dict(os.environ, CTTS_PREPROCESS_WORKERS="1"))
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            print(res.stderr[-3000:])
+            raise AssertionError(f"preprocess exited {res.returncode}")
+        return wall
+
+    def preprocess_lj(self):
+        """``python -m ctts_torch.preprocess`` on the card for an
+        LJSpeech-layout corpus of 40 utterances of 1.5-9.5 s
+        (``ctts_torch.utils.testing.write_corpus``; LJSpeech's own run
+        1.1-10.1 s) under
+        ``configs/LJSpeech.yaml`` with ``val_size: 8``; the port's
+        Preprocessor on the CPU on the same corpus, the card's store held to
+        it (``ctts_torch.utils.testing.compare_stores``, the comparison of
+        ``tests/test_torch_preprocess.py``); the card again with
+        CTTS_PREPROCESS_WORKERS=2 (a pool this process spawns), bit for
+        bit; the wall seconds of each
+        run; CUDA-event times of the batched mel of all 40 utterances and of
+        the f0 tracker on the longest. The corpus and the card's store stay
+        for ``train_from_store``."""
+        import filecmp
+
+        from ctts_torch.audio.stft import TacotronSTFT
+        from ctts_torch.config import get_configs_of
+        from ctts_torch.preprocessing.audio_io import load_wav
+        from ctts_torch.preprocessing.pitch import extract_f0_autocorr
+        from ctts_torch.preprocessing.preprocessor import Preprocessor
+        from ctts_torch.utils.testing import (CORPUS_SR, compare_stores,
+                                              store_files, write_corpus)
+        tmp = self.corpus_tmp = tempfile.mkdtemp(prefix="ctts_smoke_corpus_")
+        atexit.register(shutil.rmtree, tmp, True)
+        rng = np.random.RandomState(14)
+        seconds = np.round(rng.uniform(1.5, 9.5, 40), 2)
+        seconds[:2] = (1.5, 9.5)
+        audio = write_corpus(tmp, ["LJSpeech"], seconds, seed=14)
+        stores = {k: os.path.join(tmp, k) for k in ("card", "cpu", "card2")}
+        cfgs = {k: self.corpus_config(tmp, "LJSpeech", v, 8)
+                for k, v in stores.items()}
+        walls = {"card": self.run_preprocess(cfgs["card"], "LJSpeech")}
+        t0 = time.perf_counter()
+        cpu = Preprocessor(*get_configs_of("LJSpeech", cfgs["cpu"]),
+                           device="cpu")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu.build_from_path()
+        walls["cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.environ["CTTS_PREPROCESS_WORKERS"] = "2"
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                Preprocessor(*get_configs_of("LJSpeech", cfgs["card2"]),
+                             device="cuda").build_from_path()
+        finally:
+            os.environ.pop("CTTS_PREPROCESS_WORKERS")
+        walls["card2"] = time.perf_counter() - t0
+        for k, what in (("card", "card, 1 worker (python -m, process start "
+                                 "included)"),
+                        ("cpu", "CPU, in this process"),
+                        ("card2", "card, 2 workers spawned by this process "
+                                  "(their starts included)")):
+            print(f"preprocess {len(seconds)} utterances, {audio:.1f} s of "
+                  f"audio, {what}: {walls[k]:.2f} s wall, "
+                  f"{audio / walls[k]:.1f} audio s per wall s")
+        worst = compare_stores(stores["card"], stores["cpu"],
+                               cpu.constant_window_frames, cpu.get_f0cwt)
+        print("card store against the CPU store, largest differences: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+        files = store_files(stores["card"])
+        differ = [f for f in files if not filecmp.cmp(
+            os.path.join(stores["card"], f), os.path.join(stores["card2"], f),
+            shallow=False)]
+        print(f"card, 1 worker against 2 workers: {len(files)} files, "
+              f"{len(differ)} differ")
+        if differ:
+            raise AssertionError(f"the worker pool changed {differ[:5]}")
+        n_val = len(open(os.path.join(stores["card"],
+                                      "val_unsup.txt")).readlines())
+        if n_val != 8:
+            raise AssertionError(f"val_unsup holds {n_val} utterances")
+        # the device parts alone, CUDA events
+        raw_dir = os.path.join(tmp, "raw", "LJSpeech")
+        wavs = [load_wav(os.path.join(raw_dir, f), CORPUS_SR)[0]
+                for f in sorted(os.listdir(raw_dir)) if f.endswith(".wav")]
+        y = torch.zeros(len(wavs), max(map(len, wavs)))
+        for i, w in enumerate(wavs):
+            y[i, :len(w)] = torch.from_numpy(w)
+        y = y.cuda()
+        st = TacotronSTFT(1024, 256, 1024, 80, CORPUS_SR, 0, 8000).cuda()
+        ms = cuda_ms(lambda: st.mel_spectrogram(y), warmup=3, iters=10)
+        print(f"batched mel [{y.shape[0]}, {y.shape[1]}] ({audio:.1f} s of "
+              f"audio, float64 transforms): {ms:.3f} ms a call (CUDA "
+              f"events, 10 calls)")
+        longest = torch.from_numpy(max(wavs, key=len)).cuda()
+
+        def track():
+            extract_f0_autocorr(longest, CORPUS_SR, 256)
+        dev_ms, ev_ms = timings(track, iters=5)
+        sec = len(longest) / CORPUS_SR
+        print(f"f0 tracker on the longest utterance ({sec:.2f} s, "
+              f"{len(longest) // 256} frames, float64): {ev_ms:.3f} "
+              f"ms a call (CUDA events, the copy of f0 to the host "
+              f"included), device busy {dev_ms:.3f} ms")
+        self.lj_store = stores["card"]
+
+    def preprocess_vctk(self):
+        """The port's Preprocessor in this process on the card and on the
+        CPU for ``configs/VCTK.yaml``: 2 speakers × 4 utterances with
+        CTTS_ALLOW_RANDOM_SPEAKER=1 (the ResCNN at seed 0 on both
+        devices): the card's store, ``spker_embed`` within 1e-5 included,
+        held to the CPU's; the ResCNN forward on the 8 utterances' fbank
+        crops at once on the card (CUDA events)."""
+        from ctts_torch.config import get_configs_of
+        from ctts_torch.models.speaker import PreDefinedEmbedder
+        from ctts_torch.preprocessing.audio_io import load_wav
+        from ctts_torch.preprocessing.preprocessor import Preprocessor
+        from ctts_torch.utils.testing import (CORPUS_SR, compare_stores,
+                                              write_corpus)
+        tmp = tempfile.mkdtemp(prefix="ctts_smoke_vctk_corpus_")
+        env = {"CTTS_ALLOW_RANDOM_SPEAKER": "1"}
+        try:
+            audio = write_corpus(tmp, ["p225", "p226"],
+                                      [1.5, 2.2, 3.1, 4.0], seed=15)
+            stores = {k: os.path.join(tmp, k) for k in ("card", "cpu")}
+            cfgs = {k: self.corpus_config(tmp, "VCTK", v, 2)
+                    for k, v in stores.items()}
+            os.environ.update(env)
+            walls = {}
+            for k, dev in (("card", "cuda"), ("cpu", "cpu")):
+                t0 = time.perf_counter()
+                pre = Preprocessor(*get_configs_of("VCTK", cfgs[k]),
+                                   device=dev)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    pre.build_from_path()
+                walls[k] = time.perf_counter() - t0
+            print(f"VCTK preprocess, 8 utterances, {audio:.1f} s of audio, "
+                  f"in this process: {walls['card']:.2f} s wall on the card, "
+                  f"{walls['cpu']:.2f} s on the CPU")
+            cpu = pre
+            worst = compare_stores(stores["card"], stores["cpu"],
+                               cpu.constant_window_frames, cpu.get_f0cwt)
+            print("VCTK card store against the CPU store, largest "
+                  "differences: " + ", ".join(f"{k} {v:.3g}"
+                                              for k, v in worst.items()))
+            embeds = sorted(os.listdir(os.path.join(stores["card"],
+                                                    "spker_embed")))
+            if embeds != ["p225-spker_embed.npy", "p226-spker_embed.npy"]:
+                raise AssertionError(f"speaker embeddings {embeds}")
+            emb = PreDefinedEmbedder(cpu.config, device="cuda")
+            crops = torch.stack([emb.crop(load_wav(os.path.join(
+                tmp, "raw", s, f), CORPUS_SR)[0]) for s in ("p225", "p226")
+                for f in sorted(os.listdir(os.path.join(tmp, "raw", s)))
+                if f.endswith(".wav")])
+            with torch.no_grad():
+                ms = cuda_ms(lambda: emb.model(crops), warmup=3, iters=20)
+            print(f"ResCNN forward [{crops.shape[0]}, 160, 64] → "
+                  f"[{crops.shape[0]}, 512], float32: {ms:.3f} ms (CUDA "
+                  f"events, 20 calls)")
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def train_from_store(self):
+        """``python -m ctts_torch.train`` of the LJSpeech default (full
+        width and depth, seeded weights, bf16, the device cache) on the
+        card's store of ``preprocess_lj`` for 6 steps: a preview at steps 3
+        and 6 with HiFi-GAN at seed 0 (``--vocoder_ckpt``), validation at 3
+        and 6, a checkpoint at 6, steps 4-5 traced (``--profile_steps``);
+        each log line's launches per step; the previews' device part
+        (``train.preview_arrays``) again in this process on the step-6
+        checkpoint, counted; ``python -m ctts_torch.evaluate --restore_step
+        6`` against the step-6 validation line; the synthesize CLI from
+        that checkpoint."""
+        from ctts_torch.config import get_configs_of, load_yaml
+        from ctts_torch.data.dataset import Dataset
+        from ctts_torch.evaluate import restore_state
+        from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+        from ctts_torch.parallel.train_step import (batch_to_device,
+                                                    make_eval_step)
+        from ctts_torch.train import _device_batch, preview_arrays
+        from ctts_torch.utils.model import get_vocoder
+        tmp = self.corpus_tmp
+        raw = load_yaml(open(os.path.join(REPO, "configs", "LJSpeech.yaml")))
+        raw["preprocess"]["path"].update(
+            preprocessed_path=self.lj_store,
+            lexicon_path=os.path.join(tmp, "lexicon.txt"))
+        raw["preprocess"]["preprocessing"]["val_size"] = 8
+        raw["train"]["optimizer"]["warm_up_step"] = 50
+        raw["train"]["step"].update(log_step=1, synth_step=3, val_step=3,
+                                    save_step=6, var_start_steps=0)
+        vocoder_dir = os.path.join(tmp, "ckpt")
+        self.save_seed_vocoder(vocoder_dir)
+        log = self.run_train_cli(raw, tmp, "run", 6, extra=[
+            "--vocoder_ckpt", vocoder_dir, "--profile_steps", "4:5"])
+        run = os.path.join(tmp, "run")
+        bad = [(s, k) for s, r in log.items() for k, v in r.items()
+               if isinstance(v, float) and not np.isfinite(v)]
+        launches = [log[s]["launches_per_step"] for s in range(1, 7)]
+        print("train CLI on the preprocessed store (device cache used: "
+              f"{'device cache:' in self.cli_stdout}): total over 6 steps "
+              + ", ".join(f"{log[s]['total']:.3f}" for s in range(1, 7))
+              + f"; launches per step in the log, steps 1-6: {launches}")
+        # soft upsample (step < binarization_start_steps): the gather and
+        # the scatter once, for the energy embedding
+        want = {"fused_attention": 10, "gather_rows": 1, "scatter_rows": 1,
+                "b_mas": 1, "ctc_lattice": 1, "ctc_grad": 1}
+        if bad or any(n != want for n in launches):
+            raise AssertionError(f"non-finite {bad}, launches {launches}")
+        hop = raw["preprocess"]["preprocessing"]["stft"]["hop_length"]
+        previews = [json.loads(ln) for ln in open(os.path.join(
+            run, "log_path", "train", "preview.jsonl"))]
+        for r in previews:
+            print(f"preview @ {r['step']}: {r}")
+            if r["preview"] != "ran" or not r["wav_finite"] or \
+                    r["wav_samples"] != r["mel_len"] * hop:
+                raise AssertionError(f"preview {r}")
+            if r["figures"] is None:
+                print(f"  figures not drawn: {r['figures_skipped']}")
+            elif not r["tensorboard"]:
+                print(f"  figures {r['figures']} drawn; TensorBoard is not "
+                      f"installed, so they were not logged")
+        if [r["step"] for r in previews] != [3, 6]:
+            raise AssertionError(f"previews at {[r['step'] for r in previews]}")
+        val = {r["step"]: r for r in map(json.loads, open(os.path.join(
+            run, "log_path", "val", "log.jsonl")))}
+        print("validation: " + "; ".join(
+            f"step {s} total {r['total']:.6f}" for s, r in val.items()))
+        if sorted(val) != [3, 6] or not all(np.isfinite(r["total"])
+                                            for r in val.values()):
+            raise AssertionError(f"validation lines {sorted(val)}")
+        trace = json.load(open(os.path.join(run, "log_path", "profile",
+                                            "steps_4_5.json")))
+        kernels = [e["name"] for e in trace["traceEvents"]
+                   if e.get("cat") == "kernel"]
+        attn = sorted({k[k.index("attn_fwd"):].split("(")[0]
+                       for k in kernels if "attn_fwd" in k})
+        print(f"trace of steps 4-5 (torch.profiler): {len(kernels)} kernel "
+              f"launches; the attention kernel's: {attn}")
+        if not attn:
+            raise AssertionError("the trace names no attention kernel")
+
+        # the previews' device part in this process, counted
+        configs, state = restore_state(get_configs_of("LJSpeech", run), 6,
+                                       "cuda")
+        pre, mc, tr = configs
+        batch = next(Dataset("train_unsup.txt", pre, mc, tr, sort=False,
+                             drop_last=False).batches(shuffle=False))
+        vocoder = get_vocoder(mc, vocoder_dir, device="cuda")
+        eval_step = make_eval_step(pre, mc, tr, "train_unsup")
+        reset_launch_counts()
+        _, out, wav = preview_arrays(eval_step, state, batch_to_device(
+            _device_batch(batch), "cuda"), vocoder, pre, "train_unsup")
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if v}
+        mel_len = int(out["mel_lens"][0])
+        print(f"preview device part on the step-6 checkpoint "
+              f"({batch['ids'][0]}): mel_len {mel_len}, wav {len(wav)} "
+              f"samples (mel_len·hop {mel_len * hop}), finite "
+              f"{bool(np.isfinite(wav).all())}, peak {np.abs(wav).max():.3f};"
+              f" launches {got}")
+        if len(wav) != mel_len * hop or not np.isfinite(wav).all() or any(
+                not got.get(k) for k in ("fused_attention", "gather_rows",
+                                         "b_mas", "ctc_lattice")):
+            raise AssertionError("the preview's device part")
+        del state
+
+        # python -m ctts_torch.evaluate against the step-6 validation line
+        res = subprocess.run(
+            [sys.executable, "-m", "ctts_torch.evaluate", "--dataset",
+             "LJSpeech", "--config_dir", run, "--restore_step", "6"],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            print(res.stderr[-3000:])
+            raise AssertionError(f"evaluate exited {res.returncode}")
+        means = json.loads(res.stdout.strip().splitlines()[-1])["means"]
+        errs = {k: abs(v - val[6][k]) / max(abs(val[6][k]), 1e-30)
+                for k, v in means.items() if val[6][k] != 0 or v != 0}
+        message = res.stdout.strip().splitlines()[-2]
+        print(f"evaluate CLI --restore_step 6: {message}")
+        print(f"  against the step-6 validation line: largest relative "
+              f"difference {max(errs.values()):.3g} "
+              f"({max(errs, key=errs.get)}; limit 1e-5)")
+        if set(means) != set(val[6]) - {"step", "t"} or \
+                max(errs.values()) > 1e-5:
+            raise AssertionError(f"evaluate means {errs}")
+
+        # the synthesize CLI from the step-6 checkpoint
+        meta = os.path.join(tmp, "meta.txt")
+        self.write_probe_meta(meta)
+        out_dir = os.path.join(tmp, "synth")
+        stdout, stderr = self.run_synthesize(
+            ["--mode", "batch", "--source", meta, "--dataset", "LJSpeech",
+             "--config_dir", run, "--restore_step", "6", "--vocoder_ckpt",
+             vocoder_dir, "--result_dir", out_dir])
+        made = sorted(os.listdir(out_dir))
+        mels = [np.load(os.path.join(out_dir, f)) for f in made
+                if f.endswith(".npy")]
+        pngs = [f for f in made if f.endswith(".png")]
+        print(f"synthesize CLI from the step-6 checkpoint: "
+              f"{len(mels)} mels of {[m.shape[0] for m in mels]} frames, "
+              f"{len(pngs)} PNGs"
+              + ("" if pngs else f" ({stderr.strip()})"))
+        if len(mels) != 4 or not all(np.isfinite(m).all() for m in mels) \
+                or "griffin-lim" in stdout:
+            raise AssertionError(f"synthesized {made}")
 
     # ---- phase 13: the vocoder's fused ResBlock1 and serving ---------- #
     def resblock_inputs(self):
@@ -3963,6 +4330,9 @@ def main():
          ("VCTK synthesize CLI", smoke.vctk_synthesize)],
         [("prosody du2021", smoke.prosody_du2021),
          ("prosody liu2021", smoke.prosody_liu2021)],
+        [("preprocess on the card", smoke.preprocess_lj),
+         ("VCTK preprocess on the card", smoke.preprocess_vctk),
+         ("train from the preprocessed store", smoke.train_from_store)],
         [("fused resblock kernel vs plain", smoke.fused_resblock),
          ("vocoder, fused resblocks", smoke.vocoder_fused),
          ("serve", smoke.serve),

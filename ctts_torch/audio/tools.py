@@ -1,57 +1,23 @@
-"""Mel → wav without a vocoder: pseudo-inverse mel filterbank + Griffin-Lim,
-in numpy (ctts_tpu/audio/tools.py and audio/stft.py:25-105). It is the
-vocoder the synthesize CLI falls back to when no HiFi-GAN weight file
-exists, as in the JAX package (ctts_tpu/utils/model.py:101-124)."""
+"""Audio helpers (ctts_tpu/audio/tools.py): a wav's mel through
+:class:`ctts_torch.audio.stft.TacotronSTFT`, and mel → wav without a
+vocoder (pseudo-inverse mel filterbank + Griffin-Lim in numpy), the vocoder
+the synthesize CLI falls back to when no HiFi-GAN weight file exists, as in
+the JAX package (ctts_tpu/utils/model.py:101-124)."""
 
 import numpy as np
+import torch
 
-# slaney mel scale (librosa.filters.mel semantics)
-_F_SP = 200.0 / 3
-_MIN_LOG_HZ = 1000.0
-_MIN_LOG_MEL = _MIN_LOG_HZ / _F_SP
-_LOGSTEP = np.log(6.4) / 27.0
+from ctts_torch.audio.stft import (dynamic_range_decompression,
+                                   hann_window, mel_filterbank)
 
 
-def hz_to_mel(f):
-    f = np.asarray(f, np.float64)
-    mel = f / _F_SP
-    return np.where(f >= _MIN_LOG_HZ,
-                    _MIN_LOG_MEL + np.log(np.maximum(f, 1e-10) / _MIN_LOG_HZ)
-                    / _LOGSTEP, mel)
-
-
-def mel_to_hz(m):
-    m = np.asarray(m, np.float64)
-    f = _F_SP * m
-    return np.where(m >= _MIN_LOG_MEL,
-                    _MIN_LOG_HZ * np.exp(_LOGSTEP * (m - _MIN_LOG_MEL)), f)
-
-
-def mel_filterbank(sampling_rate, n_fft, n_mels, fmin, fmax=None):
-    """[n_mels, 1 + n_fft//2] slaney-normalized triangular filterbank."""
-    if fmax is None:
-        fmax = sampling_rate / 2.0
-    fftfreqs = np.linspace(0, sampling_rate / 2.0, 1 + n_fft // 2)
-    mel_pts = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax),
-                                    n_mels + 2))
-    fdiff = np.diff(mel_pts)
-    ramps = mel_pts[:, None] - fftfreqs[None, :]
-    lower = -ramps[:-2] / fdiff[:-1, None]
-    upper = ramps[2:] / fdiff[1:, None]
-    weights = np.maximum(0, np.minimum(lower, upper))
-    enorm = 2.0 / (mel_pts[2: n_mels + 2] - mel_pts[:n_mels])
-    return (weights * enorm[:, None]).astype(np.float32)
-
-
-def hann_window(win_length, n_fft):
-    """Periodic hann, zero-padded to n_fft about the center."""
-    w = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(win_length) / win_length)
-    pad = (n_fft - win_length) // 2
-    return np.pad(w, (pad, n_fft - win_length - pad)).astype(np.float32)
-
-
-def dynamic_range_decompression(x, C=1):
-    return np.exp(x) / C
+def get_mel_from_wav(audio, stft):
+    """wav [T] (an array or a tensor) → (log-mel [n_mel, F], energy [F]) as
+    float32 numpy, featurized on the device ``stft`` lives on
+    (ctts_tpu/audio/tools.py:7-11)."""
+    y = torch.as_tensor(audio, dtype=torch.float32).clamp(-1, 1)
+    mel, energy = stft.mel_spectrogram(y[None])
+    return mel[0].cpu().numpy(), energy[0].cpu().numpy()
 
 
 def griffin_lim_np(mags, n_fft, hop, win, n_iters=30, seed=0):

@@ -9,7 +9,9 @@ Phone IDs go through CompTransTTS (mode "infer") to a mel, and the vocoder
 turns the mel into a wav. The frame budget follows the JAX CLI's two
 passes: a probe at one bucket (128 frames), then the predicted length
 rounded up to a whole bucket, capped at 2·max_seq_len. Writes
-``<id>.wav`` and ``<id>.npy`` (the mel) per utterance. A multi-speaker
+``<id>.wav``, ``<id>.npy`` (the mel) and ``<id>.png`` (its plot; without
+matplotlib the CLI says so once on stderr and writes the other two) per
+utterance. A multi-speaker
 model (``configs/VCTK.yaml``) voices ``--speaker_id``, a key of the store's
 ``speakers.json``; with an external speaker embedder its embedding is read
 from ``spker_embed/<speaker>-spker_embed.npy`` there. ``--restore_step N``
@@ -26,6 +28,7 @@ import json
 import os
 import re
 import string
+import sys
 import time
 
 import numpy as np
@@ -125,9 +128,10 @@ def infer_mels(model, batch, configs, controls=(1.0, 1.0, 1.0),
 
 
 def synthesize(model, batch, configs, vocoder, controls, result_dir,
-               max_mel_len=None, bucket=128, stream_chunk=0):
+               max_mel_len=None, bucket=128, stream_chunk=0, png=False):
     """Text IDs → mel → wav; writes ``<id>.wav`` and ``<id>.npy`` (the mel,
-    [T, n_mel]) per utterance into result_dir. With ``stream_chunk`` the
+    [T, n_mel]) per utterance into result_dir, and with ``png`` the mel's
+    plot ``<id>.png`` (synthesize.py:186-188). With ``stream_chunk`` the
     vocoder streams chunks of that many frames and the time to the first
     chunk is printed. Returns the wavs."""
     preprocess_config, _, _ = configs
@@ -157,8 +161,27 @@ def synthesize(model, batch, configs, vocoder, controls, result_dir,
         wavfile.write(os.path.join(result_dir, f"{basename}.wav"), sr, wavs[i])
         np.save(os.path.join(result_dir, f"{basename}.npy"),
                 mels[i, :mel_lens[i]])
-    print(f"wrote {len(batch['ids'])} wav/npy pairs to {result_dir}")
+        if png:
+            from ctts_torch.utils.logging import pyplot, plot_mel
+            plt = pyplot()
+            fig = plot_mel([mels[i, :mel_lens[i]].T],
+                           [f"Synthesized Spectrogram ({basename})"])
+            fig.savefig(os.path.join(result_dir, f"{basename}.png"))
+            plt.close(fig)
+    print(f"wrote {len(batch['ids'])} wav/npy{'/png' if png else ''} sets "
+          f"to {result_dir}")
     return wavs
+
+
+def can_plot():
+    """Whether matplotlib imports; says once on stderr when it does not."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("matplotlib is not installed: no <id>.png plots are written",
+              file=sys.stderr)
+        return False
+    return True
 
 
 def speaker_inputs(speaker_id, configs):
@@ -244,9 +267,10 @@ def main(argv=None):
                     "texts": seq[None].astype(np.int64),
                     "src_lens": np.array([len(seq)], np.int64),
                     "spker_embeds": spker_embed}]
+    png = can_plot()
     for batch in batches:
         synthesize(model, batch, configs, vocoder, controls, result_dir,
-                   stream_chunk=args.stream_chunk)
+                   stream_chunk=args.stream_chunk, png=png)
 
 
 if __name__ == "__main__":

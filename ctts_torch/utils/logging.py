@@ -1,7 +1,8 @@
 """Training logs (ctts_tpu/utils/logging.py): per-split ``log.txt`` and a
-JSON-lines ``log.jsonl`` of scalars, and TensorBoard scalars where
-``torch.utils.tensorboard`` imports. The figure and audio previews of the
-JAX logger wait with the synth previews."""
+JSON-lines ``log.jsonl`` of scalars, ``preview.jsonl`` of what each
+synth preview did, and TensorBoard scalars, figures and audio where
+``torch.utils.tensorboard`` imports; the mel and alignment plots of the
+previews (matplotlib, imported when a plot is drawn)."""
 
 import json
 import os
@@ -40,8 +41,68 @@ class Logger:
         self.txt.write(f"Step {step}, {msg}\n")
         self.txt.flush()
 
+    def preview(self, step, **fields):
+        """One preview's record: whether it ran, or why it was skipped,
+        and what it produced (JSON line in ``preview.jsonl``, a text line
+        in ``log.txt``)."""
+        rec = {"step": int(step), "t": time.time(), **fields}
+        with open(os.path.join(self.dir, "preview.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        self.txt.write(f"Step {step}, preview: " + ", ".join(
+            f"{k}: {v}" for k, v in fields.items()) + "\n")
+        self.txt.flush()
+
+    def figure(self, tag, fig, step):
+        if self.tb:
+            self.tb.add_figure(tag, fig, step)
+
+    def audio(self, tag, wav, step, sampling_rate=22050):
+        if self.tb:
+            peak = max(abs(wav.max()), abs(wav.min()), 1e-5)
+            self.tb.add_audio(tag, wav / peak, step,
+                              sample_rate=sampling_rate)
+
     def close(self):
         self.txt.close()
         self.jsonl.close()
         if self.tb:
             self.tb.close()
+
+
+def pyplot():
+    """matplotlib's pyplot on the Agg backend, imported when a plot is
+    drawn."""
+    import matplotlib
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+    return plt
+
+
+def plot_mel(data, titles=None):
+    """Stacked mel/feature panels (reference utils/tools.py:364-...)."""
+    plt = pyplot()
+    fig, axes = plt.subplots(len(data), 1, squeeze=False,
+                             figsize=(8, 2.2 * len(data)))
+    titles = titles or [None] * len(data)
+    for i, mel in enumerate(data):
+        axes[i][0].imshow(mel, origin="lower", aspect="auto")
+        axes[i][0].set_ylim(0, mel.shape[0])
+        if titles[i] is not None:
+            axes[i][0].set_title(titles[i], fontsize="medium")
+        axes[i][0].tick_params(labelsize="x-small")
+    plt.tight_layout()
+    return fig
+
+
+def plot_alignment(attn_maps, titles=None):
+    """Alignment maps side by side."""
+    plt = pyplot()
+    fig, axes = plt.subplots(1, len(attn_maps), squeeze=False,
+                             figsize=(4 * len(attn_maps), 4))
+    titles = titles or [None] * len(attn_maps)
+    for i, a in enumerate(attn_maps):
+        axes[0][i].imshow(a, origin="lower", aspect="auto")
+        if titles[i] is not None:
+            axes[0][i].set_title(titles[i], fontsize="medium")
+    plt.tight_layout()
+    return fig

@@ -921,3 +921,32 @@ def melgan_state_dict_from_jax(params):
             _conv_params(sd, f"model.{r}.block.4", node["block_out"])
             _conv_params(sd, f"model.{r}.shortcut", node["shortcut"])
     return _to_tensors(sd)
+
+
+def rescnn_state_dict_from_jax(variables):
+    """The JAX DeepSpeaker ResCNN's variables (``params`` and
+    ``batch_stats``, numpy leaves; ``models.speaker.load_keras_weights``
+    gives the same tree from a Keras ``.h5``) → the port's
+    ``models.speaker.ResCNN`` state_dict: 2-D conv kernels ``[kh, kw, in,
+    out]`` → ``[out, in, kh, kw]``, each BatchNorm's scale, bias and
+    statistics, the affine's ``[in, out]`` kernel transposed."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+
+    def conv(prefix, node):
+        sd[f"{prefix}.weight"] = _conv2d(node["kernel"])
+        sd[f"{prefix}.bias"] = node["bias"]
+
+    for name, node in params.items():
+        if name == "affine":
+            _dense(sd, name, node)
+        elif name.startswith("conv_"):
+            conv(name, node)
+        elif name.startswith("bn_"):
+            _bn(sd, name, node, stats[name])
+        else:                                    # res_{i}_{j}
+            for part in ("a", "b"):
+                conv(f"{name}.conv_{part}", node[f"conv_{part}"])
+                _bn(sd, f"{name}.bn_{part}", node[f"bn_{part}"],
+                    stats[name][f"bn_{part}"])
+    return _to_tensors(sd)

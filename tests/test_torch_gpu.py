@@ -1466,3 +1466,73 @@ def test_segment_gru_packed_matches_loop_on_the_card(case):
         for got, ref in zip(outs[0], outs[1]):
             err = ((got - ref).abs().max() / ref.abs().max()).item()
             assert err <= 1e-5, (train, err)
+
+
+def _speechlike(rng, seconds, sr=22050):
+    """An f0-modulated harmonic source with noise and amplitude movement,
+    and digital silence before and after it."""
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    phase = 2 * np.pi * np.cumsum(150 + 40 * np.sin(2 * np.pi * 1.7 * t)) / sr
+    sig = np.sin(phase) + 0.4 * np.sin(2 * phase) + 0.2 * np.sin(3 * phase)
+    sig = sig * (0.35 + 0.3 * np.sin(2 * np.pi * 0.9 * t) ** 2)
+    sig += rng.randn(n) * 0.005
+    pad = np.zeros(int(0.05 * sr))
+    return (np.concatenate([pad, sig, pad]) * 0.6).astype(np.float32)
+
+
+def test_mel_featurizer_on_the_card_matches_cpu():
+    """TacotronSTFT at LJSpeech's sizes on a batch of 4 wavs on the card
+    against the same module on the CPU: the log-mel within 1e-4, the
+    energy within 1e-5 relative (float64 transforms and sums on both)."""
+    dev = _need_card()
+    from ctts_torch.audio.stft import TacotronSTFT
+    rng = np.random.RandomState(0)
+    y = torch.from_numpy(np.stack([_speechlike(rng, 3.0) for _ in range(4)]))
+    st = TacotronSTFT(1024, 256, 1024, 80, 22050, 0, 8000)
+    mel, energy = st.mel_spectrogram(y)
+    mel_c, energy_c = st.to(dev).mel_spectrogram(y.to(dev))
+    assert mel_c.shape == (4, 80, 1 + y.shape[1] // 256)
+    assert (mel_c.cpu() - mel).abs().max().item() <= 1e-4
+    torch.testing.assert_close(energy_c.cpu(), energy, rtol=1e-5, atol=0)
+
+
+def test_pitch_tracker_on_the_card_matches_cpu():
+    """The float64 tracker on the card against the CPU on tones, a chirp,
+    noise and a speech-like wav: voicing equal frame for frame, f0 within
+    1e-6 relative but on the frames whose window is digital silence under
+    sound (``constant_window_frames``: rounding decides their lag)."""
+    _need_card()
+    from ctts_torch.preprocessing.pitch import (constant_window_frames,
+                                                extract_f0_autocorr)
+    rng = np.random.RandomState(1)
+    t = np.arange(22050) / 22050
+    wavs = [0.5 * np.sin(2 * np.pi * hz * t) for hz in (80.0, 220.0, 600.0)]
+    wavs += [0.4 * np.sin(2 * np.pi * np.cumsum(120 + 80 * t) / 22050),
+             rng.randn(22050) * 0.3, _speechlike(rng, 4.0)]
+    for wav in wavs:
+        cpu = extract_f0_autocorr(wav, 22050, 256, device="cpu")
+        card = extract_f0_autocorr(wav, 22050, 256, device="cuda")
+        np.testing.assert_array_equal(card > 0, cpu > 0)
+        keep = (cpu > 0) & ~constant_window_frames(wav, 22050, 256)
+        np.testing.assert_allclose(card[keep], cpu[keep], rtol=1e-6, atol=0)
+
+
+def test_rescnn_on_the_card_matches_cpu():
+    """The DeepSpeaker ResCNN (seeded weights) and its fbank on the card
+    against the CPU in float32 with TF32 off: embeddings within 1e-5,
+    the fbank within 1e-4."""
+    dev = _need_card()
+    from ctts_torch.models.speaker import ResCNN, compute_fbank
+    from ctts_torch.utils.model import init_weights
+    rng = np.random.RandomState(2)
+    model = init_weights(ResCNN(), 0).eval()
+    x = torch.from_numpy(rng.randn(8, 160, 64).astype(np.float32))
+    with torch.no_grad():
+        ref = model(x)
+        got = model.to(dev)(x.to(dev)).cpu()
+    assert (got - ref).abs().max().item() <= 1e-5
+    wav = _speechlike(rng, 2.0)
+    fb = compute_fbank(wav, 22050, device="cpu")
+    fb_card = compute_fbank(wav, 22050, device=dev).cpu()
+    assert (fb_card - fb).abs().max().item() <= 1e-4

@@ -6,6 +6,7 @@ port's direct path (``infer_mels`` + ``vocoder_infer``), which the other
 ``tests/test_torch_*.py`` files hold to the JAX package."""
 
 import io
+import importlib.util
 import json
 import os
 import subprocess
@@ -224,8 +225,10 @@ def test_synthesize_cli_batch_and_stream(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "griffin-lim" not in res.stdout
     assert "time-to-first-audio" in res.stdout
-    assert sorted(os.listdir(out)) == ["one.npy", "one.wav", "two.npy",
-                                       "two.wav"]
+    want = ["one.npy", "one.wav", "two.npy", "two.wav"]
+    if importlib.util.find_spec("matplotlib") is not None:
+        want += ["one.png", "two.png"]          # the mel's plot
+    assert sorted(os.listdir(out)) == sorted(want)
     for name in ("one", "two"):
         mel = np.load(out / f"{name}.npy")
         sr, wav = wavfile.read(out / f"{name}.wav")
