@@ -147,10 +147,31 @@ suppresses the final line:
    ``--stream_chunk``; the relpos flip tool
    (``python -m ctts_torch.tools.bench_flip``), counted, and each of its
    variants bit-exact against its plain version;
-14. the ``kernels`` JSON line, the card line, and the result line.
+14. the (data, model) process grid (``ctts_torch.parallel.mesh``): two
+   ranks on this card over gloo with the LJSpeech default at full width and
+   depth on the global batch of 16 × [128, 896]: at (data 2, model 1) and
+   (data 1, model 2) the f32 ``train_sup`` step (dropout off, 2 steps) held
+   to one process's losses and parameters, the f32 ``train_unsup`` step
+   with its moved MAS frames printed, one bf16 step with dropout on (the
+   replicated parameters bit-identical on both ranks) timed on each rank
+   beside the one-process step; the conformer (relpos on 4 of 8 heads a
+   rank) and the reformer (``CTTS_FUSED_LSH=1``: the window kernels on one
+   rank, the LSH chunk kernels on the other) at (1, 2), one bf16 step each
+   and one f32 step held to one process; each rank's launches per kernel,
+   and each kernel's first call on each rank held to its plain version at
+   that rank's shape; then ``python -m ctts_torch.train --coordinator``
+   at world size 1 over NCCL (4 steps, and a resume from step 2);
+15. the ``kernels`` JSON line, the card line, and the result line.
 
 Each phase prints its own seconds. Exits non-zero without a result when no
 CUDA device is present.
+
+    python3 chip_smoke.py --grid-cards
+
+runs the build and phase 14 alone on every card of a host (an even count
+of at least 4), one rank a card over NCCL: grids (n, 1) and (2, n/2) for
+the fs2 jobs, (1, n) for the conformer and the reformer, and the train CLI
+on n processes at ``train.mesh`` (2, n/2).
 """
 
 import atexit
@@ -159,6 +180,7 @@ import io
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -258,6 +280,26 @@ PROSODY_GRAD_NORM_TOL = 5e-5
 # largest entry, and each loss term relative to its CPU value
 ZOO_MEL_TOL = 1e-4
 ZOO_LOSS_TOL = 1e-4
+# the (data, model) grid of two ranks against one process, f32 with dropout
+# off: each loss term and the gradient norm relative (the JAX package's
+# tests/test_mesh.py tolerance), the parameters after two updates absolute
+# (a fresh optimizer's rate is ~2.5e-7, so they hold the running statistics
+# more than the update), and the first update's gradients leaf by leaf (the
+# optimizer's first moments): each leaf's largest difference relative to
+# its largest entry, or to GRID_GRAD_FLOOR times the largest entry of any
+# leaf where that is more (a leaf whose gradient is zero but for rounding,
+# a conv bias before a BatchNorm in training, holds rounding noise alone)
+GRID_LOSS_RTOL = 5e-4
+GRID_PARAM_ATOL = 1e-5
+GRID_GRAD_RTOL = 1e-3
+GRID_GRAD_FLOOR = 1e-3
+# model-group peers' own gradients of the replicated parameters, bf16 with
+# dropout on, before the optimizer's collectives: the worst leaf by the same
+# measure (peers drawing different masks differ by far more: the smoke's
+# control step shows by how much)
+GRID_PEER_RTOL = 5e-2
+# a rank of the grid past this is killed and the phase fails
+GRID_TIMEOUT_S = 420
 
 
 def card_line():
@@ -341,7 +383,7 @@ LEADS = (8, 64, 512)
 PROFILES = {"whole": 0, "lost_lead": 0, "most_lost": 0, "rejected": 0}
 
 
-def profiled(body, cpu=False, inner=0):
+def profiled(body, cpu=False, inner=0, leads=None):
     """Run ``body()`` under torch.profiler between marker kernels, a run of
     leading ones before it and one after. In a process that has taken many
     profiles, each profile loses its first records (PERF.md §7); the
@@ -349,11 +391,13 @@ def profiled(body, cpu=False, inner=0):
     one of them, the ``inner`` markers that ``body`` launches itself and
     the closing one came back. Returns (the device events other than the
     markers, host ms of ``body``, those events cut at the inner markers),
-    or None when every try lost more."""
+    or None when every try lost more. ``leads``: the tries' leading marker
+    counts (``LEADS``); a body that takes part in collectives gets one try,
+    since a retry on one rank alone would wait for the others forever."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
-    for n_lead in LEADS:
+    for n_lead in leads or LEADS:
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             for _ in range(n_lead):
@@ -447,6 +491,7 @@ class Smoke:
     def __init__(self):
         self.failures = []
         self.kernels = {}
+        self.card = None
 
     def phase(self, name, fn):
         print(f"== {name}", flush=True)
@@ -1855,10 +1900,11 @@ class Smoke:
             kernel_fn = conformer.relpos_attention
 
             def plain(q, k, v, pos, ub, vb, scale, dropout_p=0.0,
-                      generator=None, key_padding_mask=None):
+                      generator=None, key_padding_mask=None,
+                      head_range=None):
                 return ra.relpos_attention_plain(q, k, v, pos, ub, vb, scale,
                                                  dropout_p, None,
-                                                 key_padding_mask)
+                                                 key_padding_mask, head_range)
 
             conformer.relpos_attention = plain
             try:
@@ -4287,6 +4333,858 @@ class Smoke:
             "variants_ms": ms, "variants_plain_ms": plain,
             "tool_event_ms": record["variants_ms"]}
 
+    # ---- phase 14: the (data, model) process grid ---------------------- #
+    def grid(self, cards=1):
+        """Two ranks of ``ctts_torch.parallel.mesh`` on this one card over
+        gloo (NCCL refuses two ranks on one device), the LJSpeech default
+        (``transformer_fs2`` 4 + 6 layers, hidden 256, 2 heads of 128, seeded
+        weights) at full width and depth on the train step's global batch of
+        16 × [128 tokens, 896 frames]: at (data 2, model 1) and (data 1,
+        model 2) the f32 ``train_sup`` step with dropout off (2 steps, held to
+        this process's one-process steps: the losses, the first update's
+        gradients leaf by leaf and the parameters), the f32 ``train_unsup``
+        step (1 step, its moved MAS frames printed) and one bf16
+        ``train_unsup`` step with dropout on (finite; at (1, 2) each peer's
+        own gradients of the replicated parameters held to the other's
+        before the optimizer's collectives, and against a control step in
+        which the peers draw different masks; the replicated parameters
+        bit-identical across the grid's ranks after it), timed on each rank
+        (median of 3, one step profiled) beside the one-process step, whose
+        gradients are also compared between two runs from the same state
+        (``grid_determinism``); then the conformer and the reformer
+        (``CTTS_FUSED_LSH=1``) at (1, 2), one bf16 step each and one f32
+        step held to one process. Every rank counts its kernel launches
+        from zero over each job's first step and holds each kernel's first
+        call of each shape to its plain version on the card
+        (``GridKernels``). Then the train CLI at world size 1 over NCCL with
+        ``--coordinator``, through its ``main`` in this process: 4 steps
+        and a resume from step 2.
+
+        With ``cards`` = n > 1 (``python3 chip_smoke.py --grid-cards``): one
+        rank a card over NCCL, the grids (n, 1) and (2, n/2) and the blocks
+        at (1, n), and the CLI on n processes at ``train.mesh`` (2, n/2)."""
+        self.card = self.card or card_line()
+        grids, tp = GRID_SHAPES[cards > 1](cards)
+        jobs = grid_jobs(grids, tp)
+        out = tempfile.mkdtemp(prefix="ctts_smoke_grid_")
+        try:
+            ref = {name: grid_job(job, None) for name, job in jobs.items()
+                   if "grid" not in job}
+            one = ref.pop("fs2_bf16_time")["timing"]
+            print(f"one process, the bf16 train_unsup step (dropout on): "
+                  f"host median {one['median_ms']:.2f} ms, device busy "
+                  f"{one['busy_ms']:.2f} ms, idle share {one['idle']:.3f} "
+                  f"({self.card})", flush=True)
+            det = grid_determinism()
+            for mode, what in (("default", "as it runs"),
+                               ("cudnn", "with cudnn.deterministic"),
+                               ("deterministic", "under deterministic "
+                                "algorithms (warn_only)")):
+                d = det[mode]
+                print(f"one process, the bf16 train_unsup step twice from the "
+                      f"same weights and seed, {what}: {d['differ']} of "
+                      f"{d['leaves']} gradient leaves not bit-identical, "
+                      f"worst {d['worst']:.3e} of its scale; largest "
+                      + ", ".join(f"{n} {x:.2e}" for n, x in d["top"]))
+            print("ops without a deterministic implementation in the step: "
+                  + ("; ".join(det["warned"]) or "none"), flush=True)
+            res = self.run_grid_ranks(
+                out, {n: j for n, j in jobs.items() if "grid" in j},
+                2 if cards == 1 else cards, "gloo" if cards == 1 else "nccl")
+            self.check_grid(ref, res, one, grids, tp)
+            self.grid_train_cli(cards)
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+
+    def run_grid_ranks(self, out, jobs, world, backend):
+        """Start the ranks (``python3 chip_smoke.py --grid-rank``; two on
+        this card over gloo, or one a card over NCCL), wait for them within
+        ``GRID_TIMEOUT_S`` (a rank past it is killed) and return each job's
+        results by name, a list of the ranks'."""
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        spec = os.path.join(out, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"port": port, "out": out, "world": world,
+                       "backend": backend, "jobs": jobs}, f)
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(out, f"rank{r}.log"), "w")
+                for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--grid-rank", spec, str(r)], cwd=REPO, stdout=log,
+            stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
+        codes = []
+        try:
+            for p in procs:
+                left = GRID_TIMEOUT_S - (time.perf_counter() - t0)
+                try:
+                    codes.append(p.wait(timeout=max(left, 1)))
+                except subprocess.TimeoutExpired:
+                    codes.append("killed at the timeout")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+        for r in range(world):
+            text = open(os.path.join(out, f"rank{r}.log")).read()
+            print(f"--- rank {r} (exit {codes[r]}), "
+                  f"{time.perf_counter() - t0:.1f} s:")
+            print("\n".join("  " + ln for ln in text.strip().splitlines()))
+        if codes != [0] * world:
+            raise AssertionError(f"grid ranks exited {codes}")
+        return {name: [torch.load(os.path.join(out, f"{name}.r{r}.pt"),
+                                  weights_only=False) for r in range(world)]
+                for name in jobs}
+
+    def check_grid(self, ref, res, one, grids, tp):
+        """Hold the ranks' results to the one-process references."""
+        def rel(a, b):
+            return abs(a - b) / max(abs(b), 1e-30)
+
+        for grid in grids:
+            got, want = res[f"fs2_sup_f32_{grid}"], ref["fs2_sup_f32"]
+            errs = {k: max(rel(s[k], w[k]) for s, w in zip(
+                got[0]["losses"], want["losses"])) for k in want["losses"][0]}
+            worst = max(errs, key=errs.get)
+            pdiff = max((got[0]["params"][k].float() - v.float()).abs().max()
+                        .item() for k, v in want["params"].items()
+                        if v.is_floating_point())
+            print(f"f32 train_sup at {grid}, 2 steps against one process: "
+                  f"largest relative difference of a loss term "
+                  f"{errs[worst]:.3e} ({worst}; tol {GRID_LOSS_RTOL:g}), "
+                  f"parameters after both updates max |difference| "
+                  f"{pdiff:.3e} (tol {GRID_PARAM_ATOL:g})")
+            names = list(want["mu"])
+            if set(got[0]["mu"]) != set(names):
+                raise AssertionError(f"train_sup at {grid}: moments of "
+                                     f"other parameters")
+            g = summarize(*leaf_ratios([got[0]["mu"][k] for k in names],
+                                       [want["mu"][k] for k in names], names))
+            print(f"f32 train_sup at {grid}, the first update's gradients "
+                  f"leaf by leaf (the optimizer's first moments) against one "
+                  f"process: worst of {g['leaves']} leaves {g['worst']:.3e} "
+                  f"of its scale (tol {GRID_GRAD_RTOL:g}); largest "
+                  + ", ".join(f"{n} {r:.2e}" for n, r in g["top"]))
+            if errs[worst] > GRID_LOSS_RTOL or pdiff > GRID_PARAM_ATOL \
+                    or g["worst"] > GRID_GRAD_RTOL:
+                raise AssertionError(f"train_sup at {grid}: {errs}, {pdiff}, "
+                                     f"{g}")
+            got, want = res[f"fs2_unsup_f32_{grid}"], ref["fs2_unsup_f32"]
+            rows = want["mas"].shape[0] // int(grid[0])
+            moved = 0
+            for r, g in enumerate(got):
+                d = r // int(grid[2])
+                moved += int((g["mas"].argmax(-1) != want["mas"][
+                    d * rows:(d + 1) * rows].argmax(-1)).sum()) \
+                    if r % int(grid[2]) == 0 else 0
+            errs = {k: max(rel(s[k], w[k]) for s, w in zip(
+                got[0]["losses"], want["losses"])) for k in want["losses"][0]}
+            worst = max(errs, key=errs.get)
+            print(f"f32 train_unsup at {grid}, 1 step against one process: "
+                  f"{moved} of {int(want['mas'][..., 0].numel())} frames "
+                  f"moved by MAS at the first step; largest relative "
+                  f"difference of a loss term {errs[worst]:.3e} ({worst})")
+            if not moved and errs[worst] > GRID_LOSS_RTOL:
+                raise AssertionError(f"train_unsup at {grid}: {errs}")
+            for r, g in enumerate(res[f"fs2_bf16_{grid}"]):
+                t = g["timing"]
+                print(f"bf16 train_unsup at {grid}, dropout on, rank {r}: "
+                      f"total {g['losses'][0]['total']:.4f}; replicated "
+                      f"parameters bit-identical on every rank: "
+                      f"{g['identical']}; host median {t['median_ms']:.2f} "
+                      f"ms, device busy {t['busy_ms']:.2f} ms outside the "
+                      f"collectives and {t['collective_ms']:.2f} ms in them, "
+                      f"idle share {t['idle']:.3f} (one process: "
+                      f"{one['median_ms']:.2f}, {one['busy_ms']:.2f} ms; "
+                      f"{self.card})")
+                if not g["identical"]:
+                    raise AssertionError(f"bf16 at {grid}: replicated "
+                                         f"parameters differ")
+                if "peers" not in g or r % int(grid[2]) == 0:
+                    continue
+                p, c = g["peers"], g["peers_control"]
+                print(f"bf16 train_unsup at {grid}, dropout on, rank {r}: its "
+                      f"own gradients of the {p['leaves']} replicated leaves "
+                      f"before the optimizer's collectives against model rank "
+                      f"0's: {p['differ']} not bit-identical, worst leaf "
+                      f"{p['worst']:.3e} of its scale (tol "
+                      f"{GRID_PEER_RTOL:g}; "
+                      + ", ".join(f"{n} {x:.2e}" for n, x in p["top"])
+                      + f"); the control step, each peer drawing its own "
+                      f"masks: {c['differ']} not bit-identical, worst "
+                      f"{c['worst']:.3e}")
+                if p["worst"] > GRID_PEER_RTOL or c["worst"] <= GRID_PEER_RTOL:
+                    raise AssertionError(f"bf16 at {grid}: peers' gradients "
+                                         f"{p}, control {c}")
+        for block in ("conformer", "reformer"):
+            got, want = res[f"{block}_f32_{tp}"], ref[f"{block}_f32"]
+            errs = {k: rel(got[0]["losses"][0][k], want["losses"][0][k])
+                    for k in want["losses"][0]}
+            worst = max(errs, key=errs.get)
+            print(f"{block} f32 step at {tp} against one process: largest "
+                  f"relative difference {errs[worst]:.3e} ({worst}; tol "
+                  f"{GRID_LOSS_RTOL:g})")
+            if errs[worst] > GRID_LOSS_RTOL:
+                raise AssertionError(f"{block} at {tp}: {errs}")
+        # the reformer's 8 heads, the first 4 local: a rank runs the kinds
+        # its contiguous share holds
+        m = int(tp.split("x")[1])
+        per = 8 // m
+        kinds = [(min(max(4 - r * per, 0), per) > 0, 4 < (r + 1) * per)
+                 for r in range(m)]
+        split = [(c.get("local_window_fwd", 0), c.get("lsh_chunk_fwd", 0))
+                 for c in (g["launches"] for g in res[f"reformer_bf16_{tp}"])]
+        for r, g in enumerate(res[f"reformer_bf16_{tp}"]):
+            t = g["timing"]
+            print(f"reformer bf16 step at {tp}, rank {r} (heads "
+                  f"{r * per}-{(r + 1) * per - 1}; local, LSH: {kinds[r]}): "
+                  f"host median {t['median_ms']:.2f} ms, device busy "
+                  f"{t['busy_ms']:.2f} ms outside the collectives and "
+                  f"{t['collective_ms']:.2f} ms in them, idle share "
+                  f"{t['idle']:.3f} ({self.card})")
+        relpos = [g["launches"].get("relpos_fwd", 0)
+                  for g in res[f"conformer_bf16_{tp}"]]
+        print(f"reformer at {tp} (heads 0-3 local, 4-7 LSH): (local-window, "
+              f"LSH-chunk) forward launches per rank {split}; conformer at "
+              f"{tp}: relpos forward launches per rank {relpos} ({per} of 8 "
+              f"heads a rank)")
+        if [(a > 0, b > 0) for a, b in split] != kinds or not all(relpos):
+            raise AssertionError(f"the heads' kernels per rank: {split}, "
+                                 f"{relpos}")
+        # the launches of each kernel per rank, as PERF.md's table reads them
+        for name, jobs in grid_launches(grids, tp).items():
+            per = {job: [g["launches"].get(name, 0) for g in res[job]]
+                   for job in jobs}
+            if name in self.kernels:
+                self.kernels[name]["grid_launches"] = per
+            print(f"{name} launches per rank: " + "; ".join(
+                f"{job} {counts}" for job, counts in per.items()))
+
+    def grid_train_cli(self, cards=1):
+        """``python -m ctts_torch.train --coordinator 127.0.0.1:PORT
+        --num_processes N --process_id i`` over NCCL on a synthetic store,
+        one process a card (N = 1 on one card, through its ``main`` in this
+        process; ``train.mesh`` data 2 × model N/2 on N cards, dropout on):
+        4 steps, and a resume from their step-2 checkpoint for steps 3-4,
+        rank 0's log within ``RESUME_TOL``."""
+        from ctts_torch.config import dump_yaml, load_yaml
+        tmp = tempfile.mkdtemp(prefix="ctts_smoke_grid_cli_")
+        try:
+            store = os.path.join(tmp, "store")
+            self.write_store(store, n_train=32, n_val=4)
+            raw = load_yaml(open(os.path.join(REPO, "configs",
+                                              "LJSpeech.yaml")))
+            raw["preprocess"]["path"]["preprocessed_path"] = store
+            raw["train"]["step"].update(log_step=1, save_step=2,
+                                        val_step=1000, synth_step=1000)
+            if cards > 1:
+                raw["train"]["mesh"] = {"data": 2, "model": cards // 2}
+            runs = {}
+            for name, restore in (("straight", 0), ("resumed", 2)):
+                if restore:
+                    self.copy_checkpoint(tmp, restore)
+                cfg_dir = os.path.join(tmp, name)
+                os.makedirs(cfg_dir, exist_ok=True)
+                raw["train"]["path"] = {
+                    k: os.path.join(cfg_dir, k)
+                    for k in ("ckpt_path", "log_path", "result_path")}
+                with open(os.path.join(cfg_dir, "LJSpeech.yaml"), "w") as f:
+                    f.write(dump_yaml(raw))
+                s = socket.socket()
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+                s.close()
+                t0 = time.perf_counter()
+                argv = ["--dataset", "LJSpeech", "--config_dir", cfg_dir,
+                        "--max_steps", "4", "--restore_step", str(restore),
+                        "--coordinator", f"127.0.0.1:{port}",
+                        "--num_processes", str(cards)]
+                if cards == 1:
+                    # through its main in this process (no process start)
+                    from ctts_torch.train import main as train_main
+                    buf = io.StringIO()
+                    with contextlib.redirect_stdout(buf):
+                        train_main(argv + ["--process_id", "0"])
+                    outs, codes = [buf.getvalue()], [0]
+                else:
+                    outs, codes = self.spawn_train_cli(argv, cards)
+                print(f"$ python -m ctts_torch.train ... --coordinator ... "
+                      f"--num_processes {cards} --restore_step {restore} "
+                      f"({time.perf_counter() - t0:.1f} s"
+                      + (", in process)" if cards == 1 else ")"))
+                print("\n".join("  " + ln for ln in
+                                outs[0].strip().splitlines()[-12:]))
+                if codes != [0] * cards:
+                    print("\n".join(o[-2000:] for o in outs))
+                    raise AssertionError(f"train CLI ranks exited {codes}")
+                if f"process group nccl, world {cards}" not in outs[0]:
+                    raise AssertionError("the CLI did not join an NCCL group")
+                path = os.path.join(cfg_dir, "log_path", "train",
+                                    "log.jsonl")
+                runs[name] = {r["step"]: r for r in map(json.loads,
+                                                        open(path))}
+            diff = max(abs(runs["straight"][s]["total"]
+                           - runs["resumed"][s]["total"])
+                       / max(1.0, abs(runs["straight"][s]["total"]))
+                       for s in (3, 4))
+            print(f"train CLI over NCCL on {cards} process(es): totals "
+                  + ", ".join(f"{runs['straight'][s]['total']:.4f}"
+                              for s in range(1, 5))
+                  + f"; resumed steps 3-4 max relative difference "
+                  f"{diff:.3e} (tol {RESUME_TOL:g})")
+            if sorted(runs["straight"]) != [1, 2, 3, 4] or diff > RESUME_TOL:
+                raise AssertionError(f"log steps {sorted(runs['straight'])}, "
+                                     f"resumed losses differ by {diff}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    @staticmethod
+    def spawn_train_cli(argv, n):
+        """``python -m ctts_torch.train argv --process_id i`` for i < n, one
+        process each; returns their outputs and exit codes."""
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "ctts_torch.train", *argv,
+             "--process_id", str(i)], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(n)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return outs, [p.returncode for p in procs]
+
+
+# ---- phase 14's ranks: the (data, model) process grid ------------------- #
+
+def grid_jobs(grids, tp):
+    """The jobs of phase 14 by name: the one-process references (no
+    ``grid``), and on each grid of ``grids`` the fs2 jobs, on ``tp`` the
+    conformer's and the reformer's."""
+    jobs = {
+        "fs2_sup_f32": dict(case="fs2_sup", dtype="float32", steps=2,
+                            params=True),
+        "fs2_unsup_f32": dict(case="fs2_unsup", dtype="float32", steps=1),
+        "fs2_bf16_time": dict(case="fs2_unsup", dtype="bfloat16", steps=1,
+                              dropout=True, timing=True),
+        "conformer_f32": dict(case="conformer", dtype="float32", steps=1),
+        "reformer_f32": dict(case="reformer", dtype="float32", steps=1)}
+    for grid in grids:
+        jobs[f"fs2_sup_f32_{grid}"] = dict(jobs["fs2_sup_f32"], grid=grid)
+        jobs[f"fs2_unsup_f32_{grid}"] = dict(jobs["fs2_unsup_f32"], grid=grid)
+        jobs[f"fs2_bf16_{grid}"] = dict(jobs["fs2_bf16_time"], grid=grid,
+                                        identical=True, peers=True)
+    for block in ("conformer", "reformer"):
+        jobs[f"{block}_bf16_{tp}"] = dict(case=block, dtype="bfloat16",
+                                          steps=1, dropout=True, grid=tp,
+                                          timing=block == "reformer")
+        jobs[f"{block}_f32_{tp}"] = dict(case=block, dtype="float32",
+                                         steps=1, grid=tp)
+    return jobs
+
+
+# (the fs2 grids, the blocks' grid) for one card (two gloo ranks on it) and
+# for n cards (one NCCL rank each)
+GRID_SHAPES = (lambda n: (("2x1", "1x2"), "1x2"),
+               lambda n: ((f"{n}x1", f"2x{n // 2}"), f"1x{n}"))
+
+
+def grid_launches(grids, tp):
+    """The jobs whose per-rank launches of each kernel phase 14 records
+    (the bf16 jobs)."""
+    fs2 = [f"fs2_bf16_{g}" for g in grids]
+    reformer, conformer = [f"reformer_bf16_{tp}"], [f"conformer_bf16_{tp}"]
+    return {
+        "fused_attention": fs2, "gather_rows": fs2 + reformer,
+        "scatter_rows": fs2 + reformer, "b_mas": fs2, "ctc_lattice": fs2,
+        "ctc_grad": fs2, "relpos_fwd": conformer, "relpos_bwd": conformer,
+        "local_window_fwd": reformer, "local_window_bwd": reformer,
+        "lsh_chunk_fwd": reformer, "lsh_chunk_bwd": reformer}
+
+
+# what each rank's first step of a job must launch (the kernels of the path)
+GRID_MUST_LAUNCH = {
+    "fs2_unsup": ("fused_attention", "gather_rows", "scatter_rows", "b_mas",
+                  "ctc_lattice", "ctc_grad"),
+    "fs2_sup": ("fused_attention", "gather_rows", "scatter_rows"),
+    "conformer": ("relpos_fwd", "relpos_bwd", "gather_rows", "b_mas"),
+    "reformer": ("gather_rows", "scatter_rows", "b_mas")}
+
+
+def grid_case(case, dtype):
+    """(configs, global batch, mode) of a phase-14 case at ``dtype``."""
+    from ctts_torch.config import get_configs_of
+    from ctts_torch.models.comp_trans_tts import prepare_model_config
+    from ctts_torch.utils.testing import synth_batch
+    if case == "fs2_sup":
+        pre, mc, tr = Smoke.sup_configs()
+        batch, mode = Smoke().sup_batch(), "train_sup"
+    else:
+        pre, mc, tr = get_configs_of("LJSpeech")
+        mc["block_type"] = {"fs2_unsup": "transformer_fs2"}.get(case, case)
+        mc = prepare_model_config(pre, mc)
+        src, mel = Smoke.train_lengths()
+        batch = synth_batch(B=B_TRAIN, T_s=T_S, T_m=T_M, seed=0,
+                            src_lens=src, mel_lens=mel, prior=False)
+        mode = "train_unsup"
+    mc["compute_dtype"] = dtype
+    return (pre, mc, tr), batch, mode
+
+
+def param_names(model, opt):
+    """The state_dict name of each of the optimizer's parameters."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for p in opt.params]
+
+
+def keep_raw_grads(opt):
+    """A list that receives, at each update of ``opt``, the gradients it was
+    given, before any collective (``del opt._reduce`` stops it)."""
+    raw, reduce = [], opt._reduce
+
+    def spy(grads):
+        raw.append([g.detach().clone() for g in grads])
+        return reduce(grads)
+    opt._reduce = spy
+    return raw
+
+
+def leaf_ratios(got, want, names):
+    """{leaf: its largest |got - want| over its largest |want|, or over
+    ``GRID_GRAD_FLOOR`` times the largest |want| of any leaf where that is
+    more} and the number of leaves not bit-identical."""
+    floor = GRID_GRAD_FLOOR * max(w.abs().max().item() for w in want)
+    ratios = {n: (g.float() - w.float()).abs().max().item()
+              / max(w.abs().max().item(), floor, 1e-30)
+              for n, g, w in zip(names, got, want)}
+    return ratios, sum(not torch.equal(g, w) for g, w in zip(got, want))
+
+
+def summarize(ratios, differ):
+    worst = sorted(ratios, key=ratios.get, reverse=True)
+    return {"worst": ratios[worst[0]], "leaves": len(ratios),
+            "differ": differ,
+            "top": [(n, ratios[n]) for n in worst[:4] if ratios[n] > 0]}
+
+
+def peer_grads(model, opt, grads, grid):
+    """This rank's gradients of the replicated parameters (the partial
+    ones aside) against model rank 0's, leaf by leaf (``leaf_ratios``; one
+    broadcast over the model group)."""
+    import torch.distributed as dist
+    names = param_names(model, opt)
+    idx = [i for i, p in enumerate(opt.params)
+           if not getattr(p, "tp_sharded", False)
+           and not getattr(p, "tp_partial", False)]
+    mine = torch.cat([grads[i].float().reshape(-1) for i in idx])
+    ref = mine.clone()
+    dist.broadcast(ref, src=grid.data_rank * grid.model,
+                   group=grid.model_group)
+    sizes = [grads[i].numel() for i in idx]
+    return summarize(*leaf_ratios(mine.split(sizes), ref.split(sizes),
+                                  [names[i] for i in idx]))
+
+
+def first_moments(model, opt, grid):
+    """The optimizer's first moments by parameter name, whole, on the host
+    (every rank of the model group takes part): after a fresh optimizer's
+    first update, (1 - b1) times the clipped gradients."""
+    from ctts_torch.parallel.mesh import gather_params
+    sd = {n: m.clone() for n, m in zip(param_names(model, opt), opt.mu)}
+    if grid is not None:
+        sd = gather_params(sd, model.tp_specs, grid)
+    return {k: v.cpu() for k, v in sd.items()}
+
+
+def grid_determinism(device="cuda"):
+    """Whether one process's bf16 ``train_unsup`` step (the LJSpeech
+    default, dropout on) gives the same gradients twice from the same
+    weights, optimizer and seed: twice as it runs, twice with
+    ``torch.backends.cudnn.deterministic`` alone (cuDNN's deterministic
+    convolution algorithms), then twice under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, which
+    also takes the deterministic implementations of the other ops that
+    have one (``index_add_``, ``scatter_add_``, ``index_put_``) and warns at
+    each op that has none (it runs as before). Returns each pair's
+    ``summarize`` and the ops that warned."""
+    import warnings
+    from ctts_torch.models.comp_trans_tts import CompTransTTS
+    from ctts_torch.models.registry import block_hidden
+    from ctts_torch.parallel.train_step import (batch_to_device,
+                                                create_train_state,
+                                                make_train_step)
+    from ctts_torch.utils.model import init_weights
+    from ctts_torch.utils.optimizer import build_optimizer
+    (pre, mc, tr), batch, mode = grid_case("fs2_unsup", "bfloat16")
+    model = init_weights(CompTransTTS(pre, mc, tr), tr["seed"]).to(device)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = batch_to_device(batch, device)
+    step = make_train_step(pre, mc, tr, mode)
+
+    def once():
+        model.load_state_dict(init)
+        opt, _ = build_optimizer(model, mc, tr, d_model=block_hidden(mc)[0])
+        state = create_train_state(model, opt, seed=tr["seed"],
+                                   step=tr["step"]["var_start_steps"] + 10000)
+        raw = keep_raw_grads(opt)
+        step(state, batch)
+        return raw[0], param_names(model, opt)
+
+    a, names = once()
+    b, _ = once()
+    res = {"default": summarize(*leaf_ratios(a, b, names))}
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, _ = once()
+        b, _ = once()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    res["cudnn"] = summarize(*leaf_ratios(a, b, names))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            a, _ = once()
+            b, _ = once()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    res["deterministic"] = summarize(*leaf_ratios(a, b, names))
+    res["warned"] = sorted({str(w.message).split(" does not have")[0][:120]
+                            for w in caught
+                            if "determinis" in str(w.message)})
+    return res
+
+
+def grid_job(job, grid, device="cuda"):
+    """One phase-14 job on this process (``grid`` None: one process):
+    seeded weights, every gate open, a fresh optimizer; the first step's
+    launches counted from zero and, on a grid, each kernel's first call held
+    to its plain version (``GridKernels``). With ``params`` it keeps the
+    whole first moments after the first update and the whole parameters
+    after the last; with ``peers`` on a model axis, this rank's own
+    gradients of the replicated parameters at the first update against
+    model rank 0's, and again after a control step in which each peer
+    draws its own dropout masks. Returns the results."""
+    from ctts_torch.models.blocks import Dropout
+    from ctts_torch.models.comp_trans_tts import CompTransTTS
+    from ctts_torch.models.registry import block_hidden
+    from ctts_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ctts_torch.parallel.mesh import (gather_params, shard_batch,
+                                          shard_model_)
+    from ctts_torch.parallel.train_step import (batch_to_device,
+                                                create_train_state,
+                                                make_train_step)
+    from ctts_torch.utils.model import init_weights
+    from ctts_torch.utils.optimizer import build_optimizer
+    (pre, mc, tr), batch, mode = grid_case(job["case"], job["dtype"])
+    os.environ["CTTS_FUSED_LSH"] = "1" if job["case"] == "reformer" else "0"
+    model = init_weights(CompTransTTS(pre, mc, tr), tr["seed"]).to(device)
+    if not job.get("dropout"):
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    if grid is not None:
+        shard_model_(model, grid)
+        batch = shard_batch(batch, grid)
+    opt, _ = build_optimizer(model, mc, tr, d_model=block_hidden(mc)[0],
+                             grid=grid)
+    state = create_train_state(model, opt, seed=tr["seed"], grid=grid,
+                               step=tr["step"]["var_start_steps"] + 10000)
+    batch = batch_to_device(batch, device)
+    step = make_train_step(pre, mc, tr, mode)
+    peers = job.get("peers") and grid is not None and grid.model > 1
+    raw = keep_raw_grads(opt) if peers else None
+    kernels = GridKernels()
+    with kernels:
+        reset_launch_counts()
+        losses = [step(state, batch)]
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+    mu = first_moments(model, opt, grid) if job.get("params") else None
+    losses += [step(state, batch) for _ in range(job["steps"] - 1)]
+    losses = [{k: v.item() for k, v in m.items()} for m in losses]
+    res = {"losses": losses, "launches": launches}
+    bad = [k for m in losses for k, v in m.items() if not np.isfinite(v)]
+    missing = [k for k in GRID_MUST_LAUNCH[job["case"]] if k not in launches]
+    if bad or missing:
+        raise AssertionError(f"non-finite {bad}; not launched {missing}")
+    if "mas" in kernels.outputs:
+        res["mas"] = kernels.outputs["mas"].cpu()
+    if grid is not None:
+        res["checks"] = kernels.check()
+    if job.get("params"):
+        whole = gather_params(model.state_dict(), model.tp_specs, grid) \
+            if grid is not None else model.state_dict()
+        res["params"] = {k: v.cpu() for k, v in whole.items()}
+        res["mu"] = mu
+    if job.get("identical"):
+        res["identical"] = replicated_identical(model, grid)
+    if peers:
+        res["peers"] = peer_grads(model, opt, raw[0], grid)
+        # the control: each peer draws its own masks for one step
+        state.generator.manual_seed(tr["seed"] + 1 + grid.model_rank)
+        raw.clear()
+        step(state, batch)
+        res["peers_control"] = peer_grads(model, opt, raw[0], grid)
+        del opt._reduce
+    if job.get("timing"):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+
+        def traced():
+            step(state, batch)
+            torch.cuda.synchronize()
+
+        res["timing"] = dict(grid_breakdown(traced, grid is not None),
+                             median_ms=float(np.median(times)))
+    return res
+
+
+def grid_breakdown(traced, collective):
+    """One profiled call of ``traced`` (one try where it takes part in
+    ``collective`` steps, ``profiled``): the device time outside the
+    collectives (``busy_ms``; gloo's host copies count there), the time of
+    NCCL kernels (``collective_ms``: an NCCL kernel spins while it waits
+    for the other ranks), and the idle share of the host-clock window
+    outside both."""
+    got = profiled(traced, cpu=True, leads=LEADS[:1] if collective else None)
+    if got is None:
+        print("the step under the profiler: no whole profile, device busy "
+              "not measured")
+        nan = float("nan")
+        return {"busy_ms": nan, "collective_ms": nan, "idle": nan}
+    events, wall, _ = got
+    per = {}
+    for e in events:
+        # "nccl:all_reduce" / "gloo:all_reduce" are annotations that span
+        # the collective, not device work (NCCL's own kernel is recorded
+        # beside its span; gloo's work is the host copies)
+        if e.name.startswith(("nccl:", "gloo:")):
+            continue
+        n, us = per.get(e.name, (0, 0.0))
+        per[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    coll = sum(us for name, (_, us) in per.items()
+               if name.startswith("nccl")) / 1e3
+    busy = sum(us for _, us in per.values()) / 1e3 - coll
+    print(f"the step under the profiler: wall {wall:.2f} ms, device busy "
+          f"{busy:.3f} ms outside the collectives, {coll:.3f} ms in NCCL "
+          f"kernels, {sum(n for n, _ in per.values())} kernels and copies; "
+          f"top device time:")
+    for name, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {us / 1e3:8.3f} ms  {n:4d}x  {name[:100]}")
+    return {"busy_ms": busy, "collective_ms": coll,
+            "idle": 1 - busy / wall}
+
+
+def replicated_identical(model, grid):
+    """Whether every parameter outside the tensor-parallel specs is bit for
+    bit rank 0's on every rank, and every sharded one the same on every
+    rank of its data group (one broadcast each); the same answer on every
+    rank."""
+    import torch.distributed as dist
+    sd = model.state_dict()
+    ok = torch.ones((), device=next(model.parameters()).device)
+    for names, group, src in (
+            ([k for k in sd if k not in model.tp_specs], None, 0),
+            ([k for k in sd if k in model.tp_specs], grid.data_group,
+             grid.model_rank)):
+        if not names or (group is None and names[0] in model.tp_specs):
+            continue
+        mine = torch.cat([sd[k].detach().float().reshape(-1) for k in names])
+        theirs = mine.clone()
+        dist.broadcast(theirs, src=src, group=group)
+        ok *= float(torch.equal(mine, theirs))
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return bool(ok.item())
+
+
+class GridKernels:
+    """While entered, keeps each kernel wrapper's first call of each dtype
+    and input shape (its inputs and output); ``check`` then holds each kept
+    output to the kernel's plain version on the same inputs on the card,
+    with the tolerance of its own phase, once a process for each kernel,
+    dtype and shape (``checked``)."""
+
+    checked = set()
+
+    def __init__(self):
+        self.calls, self.outputs, self.undo = {}, {}, []
+
+    def __enter__(self):
+        import ctts_torch.models.conformer as conformer
+        import ctts_torch.models.reformer as reformer
+        import ctts_torch.models.transformer as transformer
+        import ctts_torch.models.variance_adaptor as variance_adaptor
+        from ctts_torch.ops import (attention, forward_sum, mas,
+                                    sort_gather)
+        from ctts_torch.ops import local_window_attention as lw
+        from ctts_torch.ops import lsh_chunk_attention as lc
+        from ctts_torch.ops import relpos_attention as ra
+        for key, mod, name in (
+                ("attention", attention, "fused_attention"),
+                ("attention", transformer, "fused_attention"),
+                ("gather", sort_gather, "_gather"),
+                ("scatter", sort_gather, "_scatter"),
+                ("mas", mas, "b_mas"), ("mas", variance_adaptor, "b_mas"),
+                ("ctc_lattice", forward_sum, "ctc_lattice"),
+                ("ctc_grad", forward_sum, "ctc_grad"),
+                ("relpos", ra, "relpos_attention"),
+                ("relpos", conformer, "relpos_attention"),
+                ("local_window", lw, "local_window_attention"),
+                ("local_window", reformer, "local_window_attention"),
+                ("lsh_chunk", lc, "chunk_attention"),
+                ("lsh_chunk", reformer, "chunk_attention")):
+            self.hook(key, mod, name)
+        return self
+
+    def hook(self, key, mod, name):
+        orig = getattr(mod, name)
+
+        def kept(*args, **kwargs):
+            gen = kwargs.get("generator")
+            gstate = gen.get_state() if gen is not None else None
+            out = orig(*args, **kwargs)
+            k = (key, args[0].dtype, tuple(args[0].shape))
+            if k not in self.calls:
+                self.calls[k] = (args, kwargs, out, gstate)
+                if key == "mas":
+                    self.outputs["mas"] = out
+            return out
+        setattr(mod, name, kept)
+        self.undo.append((mod, name, orig))
+
+    def __exit__(self, *exc):
+        for mod, name, orig in reversed(self.undo):
+            setattr(mod, name, orig)
+        self.undo = []
+
+    @torch.no_grad()
+    def check(self):
+        from ctts_torch.ops import attention, forward_sum, mas, sort_gather
+        from ctts_torch.ops import local_window_attention as lw
+        from ctts_torch.ops import lsh_chunk_attention as lc
+        from ctts_torch.ops import relpos_attention as ra
+
+        def rel(got, ref):
+            return ((got.float() - ref.float()).abs().max().item()
+                    / max(ref.float().abs().max().item(), 1e-30))
+
+        lines = []
+        for (key, dt, shape), (a, kw, out, gstate) in sorted(
+                self.calls.items(), key=lambda kv: str(kv[0])):
+            if (key, dt, shape) in GridKernels.checked:
+                continue
+            GridKernels.checked.add((key, dt, shape))
+            out = out.detach() if torch.is_tensor(out) else out
+            if key == "attention":
+                q, k, v, lens = a[:4]
+                scale = kw.get("scale", a[4] if len(a) > 4 else None)
+                ref = attention.attention_plain(q.float(), k.float(),
+                                                v.float(), lens, scale)
+                err = (out.float() - ref).abs().max().item()
+                row = row_err(out, ref) if dt == torch.bfloat16 else 0.0
+                ok = err <= ATTN_TOL[dt] and row <= ATTN_ROW_TOL_BF16
+                what = f"max err {err:.3e}, row check {row:.2e}"
+            elif key == "gather":
+                ok = torch.equal(out, sort_gather.gather_rows_plain(*a))
+                what = "bit-exact" if ok else "differs"
+            elif key == "scatter":
+                ref = sort_gather.scatter_rows_plain(*a)
+                err = rel(out, ref)
+                ok, what = err <= SCATTER_TOL[dt], f"rel err {err:.3e}"
+            elif key == "mas":
+                ok = torch.equal(out, mas.b_mas_plain(*a[:3]))
+                what = "bit-exact" if ok else "differs"
+            elif key == "ctc_lattice":
+                em, il, ol = a[:3]
+                alpha, beta = out
+                ok = torch.equal(alpha, forward_sum.ctc_alpha_plain(em, ol))
+                if beta is not None:
+                    ok = ok and torch.equal(
+                        beta, forward_sum.ctc_beta_plain(em, il, ol))
+                what = "bit-exact" if ok else "differs"
+            elif key == "ctc_grad":
+                err = rel(out, forward_sum.ctc_grad_plain(*a))
+                ok, what = err <= CTC_GRAD_TOL, f"rel err {err:.3e}"
+            elif key == "relpos":
+                q, k, v, pos, ub, vb, scale = a[:7]
+                p = kw.get("dropout_p", 0.0)
+                seed = None
+                if p > 0.0:
+                    seed = ra.draw_seed(torch.Generator(q.device).set_state(
+                        gstate), q.device)
+                ref = ra.relpos_attention_plain(
+                    q.float(), k.float(), v.float(), pos.float(), ub, vb,
+                    scale, p, seed, kw.get("key_padding_mask"),
+                    kw.get("head_range"))
+                err = rel(out, ref)
+                ok, what = err <= RELPOS_TOL[dt], f"rel err {err:.3e}"
+            elif key == "local_window":
+                qk, v, valid, window, scale = a
+                err = rel(out, lw.local_window_attention_plain(
+                    qk.float(), v.float(), valid, window, scale))
+                ok, what = err <= WINDOW_TOL[dt], f"rel err {err:.3e}"
+            else:                                        # lsh_chunk
+                qk, v = a[:2]
+                d = qk.shape[-1]
+                ref = lc.chunk_attention_plain(qk.float(), v.float(), *a[2:])
+                err = rel(out[..., :d], ref[..., :d])
+                ok, what = err <= WINDOW_TOL[dt], f"rel err {err:.3e}"
+            lines.append(f"{key} {str(dt)[6:]} {shape}: {what} "
+                         f"{'ok' if ok else 'MISMATCH'}")
+            print(f"  kernel vs plain at this rank's shape: {lines[-1]}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{key} at {shape}: {what}")
+        return lines
+
+
+def grid_rank(spec_path, rank):
+    """One rank of phase 14 (``python3 chip_smoke.py --grid-rank SPEC
+    RANK``): joins the spec's group (two ranks: gloo on this card; more:
+    NCCL, one card a rank) and runs the spec's jobs in order, each result
+    to ``<out>/<job>.r<rank>.pt``."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, REPO)
+    from ctts_torch.parallel.mesh import init_distributed, make_mesh
+    with open(spec_path) as f:
+        spec = json.load(f)
+    gloo = spec["backend"] == "gloo"             # every rank on this card
+    init_distributed(f"127.0.0.1:{spec['port']}", spec["world"], rank,
+                     device="cuda" if gloo else f"cuda:{rank}",
+                     backend=spec["backend"])
+    try:
+        for name, job in spec["jobs"].items():
+            d, m = (int(x) for x in job["grid"].split("x"))
+            grid = make_mesh(d, m)
+            t0 = time.perf_counter()
+            res = grid_job(job, grid)
+            print(f"{name} rank {rank} (data rank {grid.data_rank}, model "
+                  f"rank {grid.model_rank}): {time.perf_counter() - t0:.1f} "
+                  f"s; total {res['losses'][0]['total']:.4f}; launches "
+                  f"{res['launches']}", flush=True)
+            torch.save(res, os.path.join(spec["out"], f"{name}.r{rank}.pt"))
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4301,6 +5199,7 @@ def main():
     print(f"card: {card}", flush=True)
     sys.path.insert(0, REPO)
     smoke = Smoke()
+    smoke.card = card
     smoke.phase("build", smoke.build)
     # each group runs only when every phase before it passed
     groups = [
@@ -4337,7 +5236,9 @@ def main():
          ("vocoder, fused resblocks", smoke.vocoder_fused),
          ("serve", smoke.serve),
          ("synthesize CLI, batch and stream", smoke.cli_batch),
-         ("flip kernel vs plain", smoke.flip)]]
+         ("flip kernel vs plain", smoke.flip)],
+        [("the (data, model) grid: two ranks on the card, and the train "
+          "CLI over NCCL", smoke.grid)]]
     for group in groups:
         for name, fn in group:
             if not smoke.failures:
@@ -4356,5 +5257,33 @@ def main():
     return 0
 
 
+def grid_cards(cli_only=False):
+    """``python3 chip_smoke.py --grid-cards [--cli]``: phase 14 with one
+    rank a card over NCCL on every card of the host (at least 4; not part
+    of the run with no arguments, which needs one card); with ``--cli``
+    only its train CLI and resume."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 4 or n % 2:
+        print(f"chip_smoke --grid-cards: needs an even count of at least 4 "
+              f"CUDA devices, found {n}", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, REPO)
+    smoke = Smoke()
+    smoke.card = card_line()
+    print(f"cards: {smoke.card}", flush=True)
+    smoke.phase("build", smoke.build)
+    if not smoke.failures:
+        smoke.phase(f"the (data, model) grid on {n} cards over NCCL",
+                    lambda: smoke.grid_train_cli(n) if cli_only
+                    else smoke.grid(n))
+    return 1 if smoke.failures else 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--grid-rank"]:
+        sys.exit(grid_rank(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--grid-cards"]:
+        sys.exit(grid_cards(sys.argv[2:3] == ["--cli"]))
     sys.exit(main())

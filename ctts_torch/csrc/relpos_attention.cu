@@ -364,6 +364,9 @@ __device__ __forceinline__ uint32_t hmix(uint32_t x) {
   x ^= x >> 16;
   return x;
 }
+// n is the row's global batch*head index: a tensor-parallel rank holding
+// heads [head_off, head_off + heads) of head_total passes its own rows'
+// (b, h) as b*head_total + head_off + h, so its masks are one process's.
 __device__ __forceinline__ uint32_t row_key(const long long* seed, int n, int q) {
   const uint32_t s0 = static_cast<uint32_t>(seed[0] & 0xffffffffLL);
   const uint32_t s1 = static_cast<uint32_t>(seed[1] & 0xffffffffLL);
@@ -383,6 +386,7 @@ struct Args {
   float *dqu, *dqv, *dqvn, *dk, *dv, *dpos;  // backward outputs, f32
   E *ds, *pd;                  // backward: dS*scale and the dropped P, [N, T, ds_width(T)]
   int n, heads, seq;
+  int head_off, head_total;    // this launch's heads within all heads (dropout)
   float scale;
   uint32_t thresh;             // 0: no dropout
   float inv_keep;              // 1/(1-p)
@@ -428,7 +432,8 @@ __device__ __forceinline__ Rows row_info(const Args<E>& a, int n, int qw, int la
     const int q = qw + (lane >> 2) + 8 * r;
     const size_t i = static_cast<size_t>(n) * a.seq + q;
     rw.ok[r] = q < a.seq;
-    rw.rk[r] = a.thresh > 0 ? row_key(a.seed, n, q) : 0u;
+    const int n_all = n / a.heads * a.head_total + a.head_off + n % a.heads;
+    rw.rk[r] = a.thresh > 0 ? row_key(a.seed, n_all, q) : 0u;
     rw.m[r] = stats && rw.ok[r] ? a.m[i] : 0.f;
     rw.il[r] = stats && rw.ok[r] ? 1.f / a.l[i] : 0.f;
     rw.dl[r] = stats && rw.ok[r] ? a.delta[i] : 0.f;
@@ -1077,7 +1082,8 @@ template <typename E>
 Args<E> make_args(const void* q, const void* k, const void* v,
                   const void* pos, const float* ub, const float* vb,
                   const long long* seed, const int* kmask, int n, int heads,
-                  int seq, float scale, unsigned thresh, float inv_keep) {
+                  int head_off, int head_total, int seq, float scale,
+                  unsigned thresh, float inv_keep) {
   Args<E> a{};
   a.q = static_cast<const E*>(q);
   a.k = static_cast<const E*>(k);
@@ -1089,6 +1095,8 @@ Args<E> make_args(const void* q, const void* k, const void* v,
   a.kmask = kmask;
   a.n = n;
   a.heads = heads;
+  a.head_off = head_off;
+  a.head_total = head_total;
   a.seq = seq;
   a.scale = scale;
   a.thresh = thresh;
@@ -1096,8 +1104,9 @@ Args<E> make_args(const void* q, const void* k, const void* v,
   return a;
 }
 
-bool bad_shape(int n, int heads, int seq) {
+bool bad_shape(int n, int heads, int head_off, int head_total, int seq) {
   return n <= 0 || heads <= 0 || seq <= 0 || n % heads != 0 ||
+         head_off < 0 || head_off + heads > head_total ||
          static_cast<long long>(n) * seq >= (1LL << 31);
 }
 
@@ -1110,15 +1119,17 @@ extern "C" int ctts_relpos_fwd(const void* q, const void* k, const void* v,
                                const void* pos, const float* ub,
                                const float* vb, const long long* seed,
                                const int* kmask, void* o, float* m, float* l,
-                               int n, int heads, int seq, int d, float scale,
+                               int n, int heads, int head_off,
+                               int head_total, int seq, int d, float scale,
                                unsigned thresh, float inv_keep, int dtype,
                                void* stream) {
-  if (bad_shape(n, heads, seq) || n > 65535) return cudaErrorInvalidValue;
+  if (bad_shape(n, heads, head_off, head_total, seq) || n > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CTTS_RELPOS_FWD(E, D)                                                \
   {                                                                          \
     Args<E> a = make_args<E>(q, k, v, pos, ub, vb, seed, kmask, n, heads,    \
-                             seq, scale, thresh, inv_keep);                  \
+                             head_off, head_total, seq, scale, thresh,       \
+                             inv_keep);                                      \
     a.o = static_cast<E*>(o);                                                \
     a.m_out = m;                                                             \
     a.l_out = l;                                                             \
@@ -1148,16 +1159,18 @@ extern "C" int ctts_relpos_bwd(const void* q, const void* k, const void* v,
                                const float* m, const float* l,
                                const float* delta, float* dqu, float* dqv,
                                float* dqvn, float* dk, float* dv, float* dpos,
-                               void* ds, void* pd, int n, int heads, int seq, int d,
+                               void* ds, void* pd, int n, int heads,
+                               int head_off, int head_total, int seq, int d,
                                float scale,
                                unsigned thresh, float inv_keep, int dtype,
                                void* stream) {
-  if (bad_shape(n, heads, seq)) return cudaErrorInvalidValue;
+  if (bad_shape(n, heads, head_off, head_total, seq)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CTTS_RELPOS_BWD(E, D)                                                \
   {                                                                          \
     Args<E> a = make_args<E>(q, k, v, pos, ub, vb, seed, kmask, n, heads,    \
-                             seq, scale, thresh, inv_keep);                  \
+                             head_off, head_total, seq, scale, thresh,       \
+                             inv_keep);                                      \
     a.g = static_cast<const E*>(g);                                          \
     a.m = m;                                                                 \
     a.l = l;                                                                 \

@@ -13,6 +13,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ctts_torch.parallel.tensor_parallel import (copy_to_model,
+                                                 reduce_from_model)
+
 
 def sinusoid_table(num_positions, dim, dtype=torch.float32):
     """tensor2tensor-style [sin | cos] table (denominator half - 1); row 0
@@ -79,28 +82,52 @@ class Dropout(nn.Module):
     ``torch.Generator`` on the tensor's device (``nn.Dropout`` takes none).
     The identity in eval mode. ``set_dropout_generator`` hands every Dropout
     (and every other module with a ``generator``) the train state's one;
-    with none set, the device's default generator is used."""
+    with none set, the device's default generator is used.
+
+    A Dropout on a tensor-parallel activation holds ``shard = (dim, tp)``:
+    it draws the mask of the whole axis ``dim`` (every model rank the same
+    draw) and keeps this rank's slice, so model-group peers stay in step and
+    each slice gets the mask one process would give it."""
 
     def __init__(self, p):
         super().__init__()
         self.p = float(p)
         self.generator = None
+        self.shard = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        if self.shard is None:
+            mask = torch.empty_like(x).bernoulli_(keep,
+                                                  generator=self.generator)
+        else:
+            # the whole axis's mask, laid out in memory as x is (as
+            # empty_like(x) lays out one process's), so each entry draws
+            # the number it draws there
+            dim, tp = self.shard
+            n = x.shape[dim]
+            order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+            full = [x.shape[d] * (tp.size if d == dim % x.dim() else 1)
+                    for d in order]
+            mask = x.new_empty(full).bernoulli_(
+                keep, generator=self.generator).permute(
+                    [order.index(d) for d in range(x.dim())]).narrow(
+                        dim, tp.rank * n, n)
         return x * mask / keep
 
 
-def set_dropout_generator(module, generator):
+def set_dropout_generator(module, generator, shared=None):
     """Hand ``generator`` to every submodule that draws random numbers in
-    training: each Dropout, and the reformer stacks' hash rotations (each
-    keeps it at ``.generator``)."""
+    training: each Dropout (each keeps it at ``.generator``). The reformer
+    stacks' hash rotations, which every rank of a process grid must draw
+    alike (``shared_draws``), take ``shared`` (``generator`` when None)."""
     for m in module.modules():
         if hasattr(m, "generator"):
-            m.generator = generator
+            m.generator = (shared if shared is not None
+                           and getattr(m, "shared_draws", False)
+                           else generator)
 
 
 def grad_scale(x, scale):
@@ -122,7 +149,30 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(self.compute_dtype)
 
 
-class Linear(nn.Linear):
+class ParallelLayer:
+    """Tensor parallelism of a Linear or Conv1d (``tensor_parallel``).
+    ``parallel.mesh.shard_model_`` slices its weight by the rule that names
+    it and sets ``tp``: "col" where the rule cuts the output channels (the
+    bias is cut with them): the replicated input enters through
+    ``copy_to_model``; "row" where it cuts the input channels: the partial
+    outputs are summed over the model group and the bias, whole, is added
+    once, after."""
+
+    tp = None                                   # (ModelShard, "col" | "row")
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        if self.tp is None:
+            return self._compute(x, b)
+        tp, kind = self.tp
+        if kind == "col":
+            return self._compute(copy_to_model(x, tp), b)
+        y = reduce_from_model(self._compute(x, None), tp)
+        return y if b is None else y + b
+
+
+class Linear(ParallelLayer, nn.Linear):
     """nn.Linear computing in ``dtype``."""
 
     def __init__(self, in_features, out_features, bias=True,
@@ -130,13 +180,12 @@ class Linear(nn.Linear):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
-    def forward(self, x):
+    def _compute(self, x, b):
         dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
-class Conv1d(nn.Conv1d):
+class Conv1d(ParallelLayer, nn.Conv1d):
     """1-D conv over [B, T, C] with SAME padding ((k-1)//2 left, k//2
     right) or LEFT (causal: k-1 left, none right), dilation and groups,
     computing in ``dtype``."""
@@ -154,10 +203,9 @@ class Conv1d(nn.Conv1d):
         else:
             raise ValueError(f"unknown padding {padding!r}")
 
-    def forward(self, x):
+    def _compute(self, x, b):
         dt = self.compute_dtype
         x = x.to(dt).transpose(1, 2)
-        b = None if self.bias is None else self.bias.to(dt)
         left, right = self.pad
         if left == right:
             y = F.conv1d(x, self.weight.to(dt), b, padding=left,
@@ -188,7 +236,14 @@ class MultiHeadAttention(nn.Module):
     and scale 1/sqrt(head_dim) (upstream fs2 MultiheadAttention). Padded
     keys get logit -1e9; the attention itself is
     :func:`ctts_torch.ops.attention.fused_attention` with a per-row key
-    length, the CUDA kernel on the card."""
+    length, the CUDA kernel on the card.
+
+    Tensor parallel (``tp``, set by ``parallel.mesh.shard_model_``, which
+    cuts the parameters by the rules): a rank holds its heads' rows of each
+    of the q, k and v thirds of ``in_proj_weight`` and the matching input
+    columns of ``out_proj``, whose output is summed over the model group."""
+
+    tp = None
 
     def __init__(self, dim, num_heads, dtype=torch.float32):
         super().__init__()
@@ -198,21 +253,25 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = Linear(dim, dim, bias=False, dtype=dtype)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
+    def tp_units(self):
+        return self.num_heads
+
     def forward(self, x, key_padding_mask):
         from ctts_torch.ops.attention import fused_attention
         from ctts_torch.ops.masks import lengths_from_mask
         B, T, C = x.shape
-        H = self.num_heads
-        Dh = C // H
+        Dh = C // self.num_heads
+        H = self.num_heads // (1 if self.tp is None else self.tp.size)
         dt = self.compute_dtype
-        qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt))
+        qkv = F.linear(copy_to_model(x, self.tp).to(dt),
+                       self.in_proj_weight.to(dt))
 
-        def fold(t):                                   # [B, T, C] → [B·H, T, Dh]
+        def fold(t):                                   # [B, T, H·Dh] → [B·H, T, Dh]
             return t.reshape(B, T, H, Dh).transpose(1, 2).reshape(
                 B * H, T, Dh).contiguous()
 
-        q, k, v = (fold(t) for t in qkv.split(C, dim=-1))
+        q, k, v = (fold(t) for t in qkv.split(H * Dh, dim=-1))
         lengths = lengths_from_mask(key_padding_mask).repeat_interleave(H)
         out = fused_attention(q, k, v, lengths, scale=1.0 / math.sqrt(Dh))
-        out = out.reshape(B, H, T, Dh).transpose(1, 2).reshape(B, T, C)
+        out = out.reshape(B, H, T, Dh).transpose(1, 2).reshape(B, T, H * Dh)
         return self.out_proj(out)

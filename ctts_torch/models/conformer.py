@@ -66,7 +66,9 @@ class BatchNormC(BatchNorm):
 
 
 class FeedForwardModule(nn.Module):
-    """LN → Linear(×f) → swish → dropout → Linear → dropout."""
+    """LN → Linear(×f) → swish → dropout → Linear → dropout. Tensor
+    parallel (the mesh's rules): the expansion's output and the contraction's
+    input channels."""
 
     def __init__(self, dim, expansion, dropout, dtype):
         super().__init__()
@@ -75,6 +77,12 @@ class FeedForwardModule(nn.Module):
             LinearNorm(dim, dim * expansion, dtype=dtype), nn.SiLU(),
             Dropout(dropout), LinearNorm(dim * expansion, dim, dtype=dtype),
             Dropout(dropout)])
+
+    def tp_units(self):
+        return self.sequential[1].linear.out_features
+
+    def shard_(self, tp):
+        self.sequential[3].shard = (-1, tp)
 
     def forward(self, x):
         for m in self.sequential:
@@ -109,7 +117,15 @@ class RelativeMultiHeadAttention(nn.Module):
     """Transformer-XL attention with u/v biases and the relative shift; all
     five projections have no bias. The scale is 1/sqrt(d_model). Its
     ``dropout`` carries the rate and the generator the seed is drawn from
-    (``set_dropout_generator`` sets it)."""
+    (``set_dropout_generator`` sets it).
+
+    Tensor parallel (the mesh's rules): a rank's heads of the four input
+    projections (output rows), of ``u_bias`` and ``v_bias``, and of
+    ``out_proj`` (input columns). Model-group peers draw one seed, and the
+    dropout hash is keyed by each head's global index (``head_range``), so
+    every head keeps the mask one process gives it."""
+
+    tp = None
 
     def __init__(self, d_model, num_heads, dropout, dtype):
         super().__init__()
@@ -126,9 +142,16 @@ class RelativeMultiHeadAttention(nn.Module):
         nn.init.xavier_uniform_(self.v_bias)
         self.dropout = Dropout(dropout)
 
+    def tp_units(self):
+        return self.num_heads
+
     def forward(self, x, pos_embedding, key_padding_mask=None):
         B, T, _ = x.shape
         H, dh = self.num_heads, self.d_model // self.num_heads
+        head_range = None
+        if self.tp is not None:
+            head_range = (self.tp.bounds(H)[0], H)
+            H //= self.tp.size
         if pos_embedding.shape[0] != 1:
             raise ValueError("pos_embedding must be the unbroadcast [1, T, D] "
                              "table")
@@ -139,7 +162,8 @@ class RelativeMultiHeadAttention(nn.Module):
         ctx = relpos_attention(q, k, v, pos, self.u_bias, self.v_bias,
                                1.0 / math.sqrt(self.d_model), dropout_p=p,
                                generator=self.dropout.generator,
-                               key_padding_mask=key_padding_mask)
+                               key_padding_mask=key_padding_mask,
+                               head_range=head_range)
         return self.out_proj(ctx.to(self.compute_dtype).reshape(B, T, H * dh))
 
 

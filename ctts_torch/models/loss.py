@@ -20,6 +20,10 @@
 * the ``var_start_steps`` gate on the variance terms.
 
 ``step`` is a host int, so each schedule gate is plain arithmetic.
+
+Inside ``parallel.tensor_parallel.data_parallel`` every mean is this data
+rank's numerator over the global batch's denominator (summed over the data
+group), so the ranks' terms add up to the global batch's loss.
 """
 
 import math
@@ -30,11 +34,13 @@ from ctts_torch.models.predictors import mog_mean, mog_nll
 from ctts_torch.ops.forward_sum import bin_loss as _bin_loss
 from ctts_torch.ops.forward_sum import forward_sum_loss
 from ctts_torch.ops.ssim import ssim_loss
+from ctts_torch.parallel.tensor_parallel import global_mean, global_sum
 from ctts_torch.text import sil_phonemes_ids
 
 
 def _masked_mean(x, mask_weight):
-    return torch.sum(x * mask_weight) / torch.sum(mask_weight).clamp(min=1.0)
+    return torch.sum(x * mask_weight) / global_sum(
+        torch.sum(mask_weight)).clamp(min=1.0)
 
 
 def weighted_mel_l1(pred, target, mel_pad_mask):
@@ -43,7 +49,7 @@ def weighted_mel_l1(pred, target, mel_pad_mask):
     target = target.masked_fill(mel_pad_mask[..., None], 0.0)
     weights = (target.abs().sum(dim=-1, keepdim=True) != 0).float()
     l1 = (pred - target).abs()
-    return torch.sum(l1 * weights) / (
+    return torch.sum(l1 * weights) / global_sum(
         torch.sum(weights) * target.shape[-1]).clamp(min=1.0)
 
 
@@ -76,7 +82,7 @@ def duration_loss(log_dur_pred, dur_gt, txt_tokens, src_pad_mask, loss_cfg,
         dur_pred = torch.clamp(torch.exp(mog_mean(log_dur_pred)) - 1.0,
                                min=0.0)
     elif kind == "crf":
-        pdur = -torch.mean(crf_ll)
+        pdur = -global_mean(crf_ll)
         classes = torch.arange(log_dur_pred.shape[-1], dtype=torch.float32,
                                device=log_dur_pred.device)
         dur_pred = torch.sum(torch.softmax(log_dur_pred, dim=-1) * classes,
@@ -103,7 +109,7 @@ def duration_loss(log_dur_pred, dur_gt, txt_tokens, src_pad_mask, loss_cfg,
     if loss_cfg["lambda_sent_dur"] > 0:
         sdur = (torch.log(dur_pred.sum(-1) + 1.0)
                 - torch.log(dur_gt.sum(-1) + 1.0)) ** 2
-        losses["sdur"] = torch.mean(sdur) * loss_cfg["lambda_sent_dur"]
+        losses["sdur"] = global_mean(sdur) * loss_cfg["lambda_sent_dur"]
     return losses
 
 
@@ -140,14 +146,14 @@ def pitch_loss(pitch_predictions, pitch_targets, pitch_cfg, loss_cfg,
             losses["C"] = ssim_loss(cwt_pred, cwt_tgt, bias=20.0) * lam_f0
         else:
             c_fn = _pitch_fn(loss_cfg["cwt_loss"])
-            losses["C"] = torch.mean(c_fn(cwt_pred - cwt_tgt)) * lam_f0
+            losses["C"] = global_mean(c_fn(cwt_pred - cwt_tgt)) * lam_f0
         if pitch_cfg["use_uv"]:
             uv_pred = pitch_predictions["cwt"][:, :, -1]
             losses["uv"] = _masked_mean(_bce_logits(uv_pred, uv), nonpad) \
                 * loss_cfg["lambda_uv"]
-        losses["f0_mean"] = torch.mean(torch.abs(
+        losses["f0_mean"] = global_mean(torch.abs(
             pitch_predictions["f0_mean"] - pitch_targets["f0_mean"])) * lam_f0
-        losses["f0_std"] = torch.mean(torch.abs(
+        losses["f0_std"] = global_mean(torch.abs(
             pitch_predictions["f0_std"] - pitch_targets["f0_std"])) * lam_f0
     elif pitch_type == "frame":
         p_fn = _pitch_fn(loss_cfg["pitch_loss"])
@@ -179,7 +185,7 @@ def mdn_loss(w, sigma, mu, target, src_pad_mask):
     logp = logp.masked_fill(src_pad_mask[:, :, None, None], 0.0).sum(dim=3)
     prob = torch.log(torch.clamp(w, min=1e-12)) + logp     # [B, T, G]
     nll = -torch.logsumexp(prob, dim=2)
-    return nll.masked_fill(src_pad_mask, 0.0).mean()
+    return global_mean(nll.masked_fill(src_pad_mask, 0.0))
 
 
 def prosody_loss(info, model_type, src_pad_mask, prosody_cfg):
@@ -190,7 +196,7 @@ def prosody_loss(info, model_type, src_pad_mask, prosody_cfg):
                                                       src_pad_mask)
     up_tgt, pp_tgt, up_vec, pp_vec, _ = info
     nonpad = (~src_pad_mask)[..., None].float().expand(pp_tgt.shape)
-    return torch.mean(torch.abs(up_tgt - up_vec)) \
+    return global_mean(torch.abs(up_tgt - up_vec)) \
         + _masked_mean(torch.abs(pp_tgt - pp_vec), nonpad)
 
 

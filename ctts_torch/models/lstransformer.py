@@ -68,6 +68,15 @@ def look_around(x, pad_value, backward=1):
 
 
 class LongShortAttention(nn.Module):
+    """Tensor parallel (the mesh's rules): a rank's heads of ``to_q`` and
+    ``to_kv`` (output rows) and of ``to_out`` (input columns); the attention
+    dropout draws every head's mask and keeps the rank's. The per-head
+    norms and ``to_dynamic_proj`` stay whole; a rank applies them to its
+    heads alone, so their gradients are partial (``tp_partial``: the
+    optimizer sums them over the model group)."""
+
+    tp = None
+
     def __init__(self, dim, dim_head, heads, dropout, dtype, window_size=128,
                  segment_size=16, r=1, mask_parity=False):
         super().__init__()
@@ -83,10 +92,21 @@ class LongShortAttention(nn.Module):
         self.to_out = Linear(inner, dim, dtype=dtype)
         self.dropout = Dropout(dropout)
 
+    def tp_units(self):
+        return self.heads
+
+    def shard_(self, tp):
+        self.dropout.shard = (1, tp)
+        for m in (self.local_norm, self.global_norm, self.to_dynamic_proj):
+            for p in m.parameters():
+                p.tp_partial = True
+
     def forward(self, x, padding_mask):
         B, n, _ = x.shape
         h, d, w, s, r = (self.heads, self.dim_head, self.window,
                          self.segment, self.r)
+        if self.tp is not None:
+            h //= self.tp.size
         mult = w * s // math.gcd(w, s)
         pad_len = (-n) % mult
         N = n + pad_len
@@ -140,7 +160,9 @@ class LongShortAttention(nn.Module):
 
         G = gkv.shape[1]
         sim = torch.cat([gsim.reshape(B * h, W, w, G), lsim], dim=-1)
-        attn = self.dropout(torch.softmax(sim.float(), dim=-1).to(q.dtype))
+        attn = torch.softmax(sim.float(), dim=-1).to(q.dtype)
+        attn = self.dropout(attn.reshape(B, h, *attn.shape[1:])).reshape(
+            attn.shape)
         v = torch.cat([gkv[:, None].expand(B * h, W, G, d), lkv], dim=2)
         out = torch.einsum("bwij,bwjd->bwid", attn, v)
         out = out.reshape(B, h, N, d).transpose(1, 2).reshape(B, N, h * d)
@@ -149,13 +171,17 @@ class LongShortAttention(nn.Module):
 
 class GeluFF(nn.Module):
     """Conv(k0) → exact GELU → Conv(k1) → dropout (the residual and the
-    norm are the caller's)."""
+    norm are the caller's). Tensor parallel (the mesh's rules): ``w_1``'s
+    output and ``w_2``'s input channels."""
 
     def __init__(self, d_model, d_inner, kernel, dropout, dtype):
         super().__init__()
         self.w_1 = Conv1d(d_model, d_inner, kernel[0], dtype=dtype)
         self.w_2 = Conv1d(d_inner, d_model, kernel[1], dtype=dtype)
         self.dropout = Dropout(dropout)
+
+    def tp_units(self):
+        return self.w_1.out_channels
 
     def forward(self, x):
         return self.dropout(self.w_2(F.gelu(self.w_1(x))))

@@ -6,13 +6,16 @@ statistics (``batch_stats`` in the JAX tree); in training mode it normalizes
 with the batch's mean and *biased* variance over every frame, padded ones
 included, and moves the running statistics by ``0.99·old + 0.01·batch`` with
 that same biased variance (``nn.BatchNorm1d`` would use momentum 0.1 and the
-unbiased one)."""
+unbiased one). Inside ``tensor_parallel.data_parallel`` the batch statistics
+are those of the global batch, pooled over the data group, so the running
+statistics move alike on every rank."""
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ctts_torch.models.blocks import ConvNorm, Dropout
+from ctts_torch.parallel.tensor_parallel import batch_moments
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -26,8 +29,8 @@ class BatchNorm(nn.BatchNorm1d):
             return F.batch_norm(
                 x.transpose(1, 2), self.running_mean, self.running_var,
                 self.weight, self.bias, False, 0.0, self.eps).transpose(1, 2)
-        mean = x.mean(dim=(0, 1))
-        var = (x * x).mean(dim=(0, 1)) - mean * mean
+        mean, square = batch_moments(x, (0, 1))
+        var = square - mean * mean
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)

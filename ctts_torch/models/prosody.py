@@ -36,6 +36,7 @@ from torch import nn
 from torch.nn.utils.rnn import PackedSequence
 
 from ctts_torch.models.blocks import ConvNorm, Dropout, LayerNorm
+from ctts_torch.parallel.tensor_parallel import batch_moments
 from ctts_torch.models.conformer import LinearNorm
 from ctts_torch.models.registry import block_hidden
 from ctts_torch.ops.length_regulator import dur_to_mel2ph
@@ -153,8 +154,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mean, square = batch_moments(x, (0, 2, 3))
+        var = torch.clamp(square - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)

@@ -90,7 +90,15 @@ def lsh_attention(qk, v, valid, rot, bucket_size=64, n_hashes=4,
 
 class LSHSelfAttention(nn.Module):
     """Shared QK and one value projection for ``heads`` heads: the first
-    ``n_local_attn_heads`` local, the rest LSH; ``to_out`` has a bias."""
+    ``n_local_attn_heads`` local, the rest LSH; ``to_out`` has a bias.
+
+    Tensor parallel (the mesh's rules): a rank keeps a contiguous range of the
+    heads in ``toqk`` and ``tov`` (output rows) and ``to_out`` (input
+    columns), and runs each of its heads as the kind its global index
+    gives: with 4 local heads of 8 over two ranks, rank 0 runs the window
+    kernels alone and rank 1 the LSH route alone."""
+
+    tp = None
 
     def __init__(self, dim, heads, dim_head, bucket_size, n_hashes,
                  n_local_attn_heads, dropout, dtype):
@@ -104,9 +112,15 @@ class LSHSelfAttention(nn.Module):
         self.to_out = Linear(inner, dim, dtype=dtype)
         self.dropout = Dropout(dropout)
 
+    def tp_units(self):
+        return self.heads
+
     def forward(self, x, valid, rot):
         B, N, _ = x.shape
         h, lh, dh = self.heads, self.n_local, self.dim_head
+        if self.tp is not None:
+            lo, hi = self.tp.bounds(h)
+            h, lh = hi - lo, min(max(lh - lo, 0), hi - lo)
 
         def heads_of(t, lo, hi):            # [B, N, h·dh] → [B·n, N, dh]
             t = t.reshape(B, N, h, dh)[:, :, lo:hi].transpose(1, 2)
@@ -120,22 +134,30 @@ class LSHSelfAttention(nn.Module):
                 valid.repeat_interleave(lh, dim=0), 2 * self.bucket_size,
                 dh ** -0.5)
             outs.append(loc.reshape(B, lh, N, dh))
-        lsh = lsh_attention(heads_of(qk, lh, h), heads_of(v, lh, h),
-                            valid.repeat_interleave(h - lh, dim=0), rot,
-                            self.bucket_size, self.n_hashes)
-        outs.append(lsh.reshape(B, h - lh, N, dh))
+        if h > lh:
+            lsh = lsh_attention(heads_of(qk, lh, h), heads_of(v, lh, h),
+                                valid.repeat_interleave(h - lh, dim=0), rot,
+                                self.bucket_size, self.n_hashes)
+            outs.append(lsh.reshape(B, h - lh, N, dh))
         out = torch.cat(outs, dim=1).transpose(1, 2).reshape(B, N, h * dh)
         return self.dropout(self.to_out(out))
 
 
 class FeedForward(nn.Module):
-    """w1 (×4) → exact GELU → dropout → w2."""
+    """w1 (×4) → exact GELU → dropout → w2. Tensor parallel (the mesh's
+    rules): ``w1``'s output and ``w2``'s input channels."""
 
     def __init__(self, dim, dropout, dtype, mult=4):
         super().__init__()
         self.w1 = Linear(dim, dim * mult, dtype=dtype)
         self.w2 = Linear(dim * mult, dim, dtype=dtype)
         self.dropout = Dropout(dropout)
+
+    def tp_units(self):
+        return self.w1.out_features
+
+    def shard_(self, tp):
+        self.dropout.shard = (-1, tp)
 
     def forward(self, x):
         return self.w2(self.dropout(F.gelu(self.w1(x))))
@@ -177,7 +199,10 @@ class _Blocks(nn.Module):
 class Reformer(nn.Module):
     """The two-stream stack with the attention and the FF tied across
     depth. ``generator`` is the source of the rotations in training (set
-    with the dropout generators by ``set_dropout_generator``)."""
+    with the dropout generators by ``set_dropout_generator``: the shared
+    one, as every rank of a grid draws the same rotations)."""
+
+    shared_draws = True
 
     def __init__(self, dim, depth, heads, dim_head, bucket_size, n_hashes,
                  n_local_attn_heads, dropout, dtype):

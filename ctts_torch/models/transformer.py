@@ -32,7 +32,11 @@ EPS = 1e-6
 
 
 class MultiHeadAttention(nn.Module):
-    """Post-LN self-attention: LayerNorm(dropout(fc(attention)) + x)."""
+    """Post-LN self-attention: LayerNorm(dropout(fc(attention)) + x).
+    Tensor parallel (the mesh's rules): a rank's heads of ``w_qs``, ``w_ks``
+    and ``w_vs`` (output rows) and of ``fc`` (input columns)."""
+
+    tp = None
 
     def __init__(self, n_head, d_model, dropout, dtype):
         super().__init__()
@@ -43,10 +47,13 @@ class MultiHeadAttention(nn.Module):
         self.layer_norm = LayerNorm(d_model, eps=EPS, dtype=dtype)
         self.dropout = Dropout(dropout)
 
+    def tp_units(self):
+        return self.n_head
+
     def forward(self, x, padding_mask):
         B, T, C = x.shape
-        H = self.n_head
-        dh = C // H
+        dh = C // self.n_head
+        H = self.n_head // (1 if self.tp is None else self.tp.size)
 
         def fold(t):                                # [B, T, C] → [B·H, T, dh]
             return t.reshape(B, T, H, dh).transpose(1, 2).reshape(
@@ -56,12 +63,14 @@ class MultiHeadAttention(nn.Module):
                                                         "w_vs"))
         lengths = lengths_from_mask(padding_mask).repeat_interleave(H)
         out = fused_attention(q, k, v, lengths, scale=dh ** -0.5)
-        out = out.reshape(B, H, T, dh).transpose(1, 2).reshape(B, T, C)
+        out = out.reshape(B, H, T, dh).transpose(1, 2).reshape(B, T, H * dh)
         return self.layer_norm(self.dropout(self.fc(out)) + x)
 
 
 class PositionwiseFeedForward(nn.Module):
-    """Conv(k0) → ReLU → Conv(k1) → dropout → LayerNorm(+ x)."""
+    """Conv(k0) → ReLU → Conv(k1) → dropout → LayerNorm(+ x). Tensor
+    parallel (the mesh's rules): ``w_1``'s output and ``w_2``'s input
+    channels."""
 
     def __init__(self, d_model, d_inner, kernel, dropout, dtype):
         super().__init__()
@@ -69,6 +78,9 @@ class PositionwiseFeedForward(nn.Module):
         self.w_2 = Conv1d(d_inner, d_model, kernel[1], dtype=dtype)
         self.layer_norm = LayerNorm(d_model, eps=EPS, dtype=dtype)
         self.dropout = Dropout(dropout)
+
+    def tp_units(self):
+        return self.w_1.out_channels
 
     def forward(self, x):
         y = self.dropout(self.w_2(F.relu(self.w_1(x))))

@@ -20,7 +20,9 @@ from ctts_torch.text.symbols import symbols
 
 
 class FFNLayer(nn.Module):
-    """Conv(k) → ×k^-0.5 → gelu → dropout → Linear."""
+    """Conv(k) → ×k^-0.5 → gelu → dropout → Linear. Tensor parallel
+    (the mesh's rules): ``ffn_1``'s output channels and ``ffn_2``'s input
+    channels."""
 
     def __init__(self, hidden, filter_size, kernel_size, dropout, act="gelu",
                  dtype=torch.float32, padding="SAME"):
@@ -33,6 +35,12 @@ class FFNLayer(nn.Module):
                             padding=padding)
         self.dropout = Dropout(dropout)
         self.ffn_2 = Linear(filter_size, hidden, dtype=dtype)
+
+    def tp_units(self):
+        return self.ffn_1.out_channels
+
+    def shard_(self, tp):
+        self.dropout.shard = (-1, tp)
 
     def forward(self, x):
         x = self.ffn_1(x) * self.kernel_size ** -0.5

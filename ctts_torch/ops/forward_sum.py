@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from ctts_torch.ops import kernels
+from ctts_torch.parallel.tensor_parallel import global_mean, global_sum
 
 BLANK_LOGPROB = -1.0
 NEG = -1e9
@@ -242,11 +243,12 @@ def forward_sum_loss(attn_logprob, in_lens, out_lens):
                             in_lens.to(torch.int32),
                             out_lens.to(torch.int32))
     # CTCLoss(reduction="mean"): divide by the target length, then average
-    return torch.mean(per_seq / in_lens.float().clamp(min=1.0))
+    # (over the global batch in a data-parallel grid)
+    return global_mean(per_seq / in_lens.float().clamp(min=1.0))
 
 
 def bin_loss(hard_attention, soft_attention, eps=1e-12):
     """-mean log soft-probability at the hard alignment's positions."""
     log_soft = torch.log(torch.clamp(soft_attention, min=eps))
     num = torch.sum(hard_attention * log_soft)
-    return -num / torch.sum(hard_attention).clamp(min=1.0)
+    return -num / global_sum(torch.sum(hard_attention)).clamp(min=1.0)

@@ -20,10 +20,12 @@ gradients as products over those two) and runs :func:`relpos_attention_plain` fo
 other path: a CUDA tensor the kernels do not take raises.
 
 Dropout cannot reproduce JAX's masks (the TPU's in-kernel PRNG). Its mask
-is a counter-based hash of (seed, n, q, k), ``n`` the batch·head row: the
-kernels and the plain version compute the same hash, so the two can be
-compared with dropout on, and the backward regenerates the forward's mask
-from the same two seed words. The seed is a 2-element int64 tensor on the
+is a counter-based hash of (seed, n, q, k), ``n`` the batch·head row
+b·H_all + h among all the attention's heads (a tensor-parallel rank that
+holds heads [off, off + H) of H_all passes ``head_range=(off, H_all)``,
+and its masks are one process's): the kernels and the plain version
+compute the same hash, so the two can be compared with dropout on, and the
+backward regenerates the forward's mask from the same two seed words. The seed is a 2-element int64 tensor on the
 tensors' device, drawn from the caller's generator, and the kernels read it
 from device memory (no host sync).
 """
@@ -65,15 +67,20 @@ def _mix(x):
     return x ^ (x >> 16)
 
 
-def dropout_keep(seed, N, T, p, device=None):
+def dropout_keep(seed, N, T, p, device=None, heads=None, head_range=None):
     """The keep mask [N, T, T] (bool) of dropout rate ``p`` for ``seed``
     (2 int64 words): keep where hash(seed, n, q, k) >= p·2^32, with
     row_key = mix(mix(mix(q ^ mix(n)) ^ s1) ^ s0) and
-    hash = mix(row_key ^ mix(k ^ 0x5bd1e995))."""
+    hash = mix(row_key ^ mix(k ^ 0x5bd1e995)). With ``head_range`` (off,
+    H_all), the N rows are ``heads`` heads of each batch row and n is the
+    row's index b·H_all + off + h among all heads."""
     device = seed.device if device is None else device
     s = seed.to(device=device, dtype=torch.int64) & _M32
     ar = torch.arange(max(N, T), device=device, dtype=torch.int64)
     n, q, k = ar[:N, None, None], ar[None, :T, None], ar[None, None, :T]
+    if head_range is not None:
+        off, total = head_range
+        n = n // heads * total + off + n % heads
     row = _mix(_mix(_mix(q ^ _mix(n)) ^ s[1]) ^ s[0])
     h = _mix(row ^ _mix(k ^ _KEY_SALT))
     return h >= _threshold(p)
@@ -84,7 +91,8 @@ def _threshold(p):
 
 
 def relpos_attention_plain(q, k, v, pos, u_bias, v_bias, scale,
-                           dropout_p=0.0, seed=None, key_padding_mask=None):
+                           dropout_p=0.0, seed=None, key_padding_mask=None,
+                           head_range=None):
     """Plain PyTorch version. q/k/v [B, T, H, Dh]; pos [H, T, Dh]; biases
     [H, Dh]; key_padding_mask [B, T] bool, True AT PADDING (masked logits
     are -1e9). The bias is added in q's dtype, the softmax runs in float32
@@ -99,7 +107,8 @@ def relpos_attention_plain(q, k, v, pos, u_bias, v_bias, scale,
                             score.new_full((), NEG), score)
     probs = torch.softmax(score.float(), dim=-1)
     if dropout_p > 0.0:
-        keep = dropout_keep(seed, B * H, T, dropout_p, q.device)
+        keep = dropout_keep(seed, B * H, T, dropout_p, q.device, H,
+                            head_range)
         probs = torch.where(keep.reshape(B, H, T, T),
                             probs / (1.0 - dropout_p), probs.new_zeros(()))
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
@@ -109,15 +118,16 @@ def _lib():
     lib = kernels.LIBRARY.get()
     fwd, bwd = lib.ctts_relpos_fwd, lib.ctts_relpos_bwd
     if fwd.argtypes is None:
-        # q k v pos ub vb seed kmask | o m l | N H T d scale p_thresh
-        # inv_keep dtype stream
-        fwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+        # q k v pos ub vb seed kmask | o m l | N H head_off head_total T d
+        # scale p_thresh inv_keep dtype stream
+        fwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
             ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         # q k v pos ub vb seed kmask g m l delta | dqu dqv dqv_next dk dv
-        # dpos ds pd | N H T d scale p_thresh inv_keep dtype stream
-        bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [
+        # dpos ds pd | N H head_off head_total T d scale p_thresh inv_keep
+        # dtype stream
+        bwd.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
             ctypes.c_void_p]
         bwd.restype = ctypes.c_int
@@ -159,10 +169,13 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def _launch_fwd(q, k, v, pos, ub, vb, seed, kmask, scale, p):
+def _launch_fwd(q, k, v, pos, ub, vb, seed, kmask, scale, p, hr=None):
+    """hr: (off, H_all) of the dropout hash's head index, (0, H) when
+    None."""
     global launches
     N, T, d = q.shape
     H = pos.shape[0]
+    hr = (0, H) if hr is None else hr
     lib = _lib()
     o = torch.empty_like(q)
     m = torch.empty(N, T, device=q.device, dtype=torch.float32)
@@ -170,7 +183,8 @@ def _launch_fwd(q, k, v, pos, ub, vb, seed, kmask, scale, p):
     err = lib.ctts_relpos_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         ub.data_ptr(), vb.data_ptr(), seed.data_ptr(), _ptr(kmask),
-        o.data_ptr(), m.data_ptr(), l.data_ptr(), N, H, T, d, float(scale),
+        o.data_ptr(), m.data_ptr(), l.data_ptr(), N, H, hr[0], hr[1], T, d,
+        float(scale),
         _threshold(p), 1.0 / (1.0 - p), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, lib, "relpos_attention forward")
@@ -178,7 +192,8 @@ def _launch_fwd(q, k, v, pos, ub, vb, seed, kmask, scale, p):
     return o, m, l
 
 
-def _launch_bwd(q, k, v, pos, ub, vb, seed, kmask, g, o, m, l, scale, p):
+def _launch_bwd(q, k, v, pos, ub, vb, seed, kmask, g, o, m, l, scale, p,
+                hr=None):
     """dq, dk, dv, dpos, du, dv_bias. The kernels (two launches) write
     float32 per-row partials; the sums over the batch and over rows are
     torch reductions in a fixed order (no float atomics). Between the
@@ -190,6 +205,7 @@ def _launch_bwd(q, k, v, pos, ub, vb, seed, kmask, g, o, m, l, scale, p):
     N, T, d = q.shape
     H = pos.shape[0]
     B = N // H
+    hr = (0, H) if hr is None else hr
     lib = _lib()
     delta = (g.float() * o.float()).sum(-1).contiguous()    # rowsum(dO∘O)
     f32 = dict(device=q.device, dtype=torch.float32)
@@ -202,8 +218,8 @@ def _launch_bwd(q, k, v, pos, ub, vb, seed, kmask, g, o, m, l, scale, p):
         ub.data_ptr(), vb.data_ptr(), seed.data_ptr(), _ptr(kmask),
         g.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
         dqu.data_ptr(), dqv.data_ptr(), dqv_next.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dpos.data_ptr(), ds.data_ptr(), pd.data_ptr(), N, H, T,
-        d, float(scale),
+        dv.data_ptr(), dpos.data_ptr(), ds.data_ptr(), pd.data_ptr(), N, H,
+        hr[0], hr[1], T, d, float(scale),
         _threshold(p), 1.0 / (1.0 - p), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, lib, "relpos_attention backward")
@@ -223,10 +239,11 @@ class _RelposAttention(torch.autograd.Function):
     regenerates the dropout mask from the saved seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pos, ub, vb, seed, kmask, scale, p):
-        o, m, l = _launch_fwd(q, k, v, pos, ub, vb, seed, kmask, scale, p)
+    def forward(ctx, q, k, v, pos, ub, vb, seed, kmask, scale, p, hr):
+        o, m, l = _launch_fwd(q, k, v, pos, ub, vb, seed, kmask, scale, p,
+                              hr)
         ctx.save_for_backward(q, k, v, pos, ub, vb, seed, kmask, o, m, l)
-        ctx.scale, ctx.p = scale, p
+        ctx.scale, ctx.p, ctx.hr = scale, p, hr
         return o
 
     @staticmethod
@@ -234,10 +251,10 @@ class _RelposAttention(torch.autograd.Function):
         q, k, v, pos, ub, vb, seed, kmask, o, m, l = ctx.saved_tensors
         dq, dk, dv, dpos, du, dvb = _launch_bwd(
             q, k, v, pos, ub, vb, seed, kmask, g.contiguous(), o, m, l,
-            ctx.scale, ctx.p)
+            ctx.scale, ctx.p, ctx.hr)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 dpos.to(pos.dtype), du.to(ub.dtype), dvb.to(vb.dtype),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def draw_seed(generator, device):
@@ -248,22 +265,27 @@ def draw_seed(generator, device):
 
 
 def relpos_attention(q, k, v, pos, u_bias, v_bias, scale, dropout_p=0.0,
-                     generator=None, key_padding_mask=None):
+                     generator=None, key_padding_mask=None, head_range=None):
     """Relative-position attention.
 
     q/k/v: [B, T, H, Dh]; pos: [H, T, Dh] (the batch-independent sinusoid
     projection); u_bias/v_bias: [H, Dh]; key_padding_mask: optional [B, T]
     bool, True AT PADDING. With ``dropout_p > 0`` the seed comes from
-    ``draw_seed(generator, q.device)``. Returns [B, T, H, Dh] in q's dtype.
+    ``draw_seed(generator, q.device)``; ``head_range`` (off, H_all): these
+    H heads are heads off..off+H-1 of H_all, which keys the dropout hash
+    (module docstring). Returns [B, T, H, Dh] in q's dtype.
     On the card the bias is added in float32, every product runs on the
     tensor cores in bf16 (float32 operands split into bf16 hi + lo) and
     accumulates in float32; d is 16, 32 or 64. The backward on the card
     takes two [N, T, T] scratch tensors in q's dtype (see ``_launch_bwd``)."""
     B, T, H, d = q.shape
     seed = draw_seed(generator, q.device) if dropout_p > 0.0 else None
+    hr = (0, H) if head_range is None else tuple(int(x) for x in head_range)
+    if hr[0] < 0 or hr[0] + H > hr[1]:
+        raise ValueError(f"head_range {hr} does not hold {H} heads")
     if q.device.type == "cpu":
         return relpos_attention_plain(q, k, v, pos, u_bias, v_bias, scale,
-                                      dropout_p, seed, key_padding_mask)
+                                      dropout_p, seed, key_padding_mask, hr)
     if q.device.type != "cuda":
         raise ValueError(f"relpos_attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -282,5 +304,5 @@ def relpos_attention(q, k, v, pos, u_bias, v_bias, scale, dropout_p=0.0,
     qf, kf, vf = fold(q), fold(k), fold(v)
     _check(qf, kf, vf, pos, ub, vb, seed, kmask)
     out = _RelposAttention.apply(qf, kf, vf, pos, ub, vb, seed, kmask,
-                                 float(scale), float(dropout_p))
+                                 float(scale), float(dropout_p), hr)
     return out.reshape(B, H, T, d).permute(0, 2, 1, 3)

@@ -5,6 +5,8 @@ for a unit dynamic range."""
 import torch
 import torch.nn.functional as F
 
+from ctts_torch.parallel.tensor_parallel import global_sum
+
 
 def gaussian_window(size=11, sigma=1.5):
     x = torch.arange(size, dtype=torch.float32) - size // 2
@@ -42,4 +44,4 @@ def ssim_loss(pred, target, bias=6.0, window_size=11):
     per = 1.0 - ssim(pred + bias, target + bias, window_size,
                      size_average=False)                 # [B]
     w = weights.mean(dim=(1, 2))
-    return torch.sum(per * w) / torch.sum(w).clamp(min=1e-8)
+    return torch.sum(per * w) / global_sum(torch.sum(w)).clamp(min=1e-8)

@@ -1,1 +1,2 @@
-"""Train and eval steps (ctts_tpu/parallel/)."""
+"""Train and eval steps, and the (data, model) process grid
+(ctts_tpu/parallel/)."""

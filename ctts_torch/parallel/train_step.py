@@ -5,6 +5,15 @@
 rate. The schedule step is a host int in the train state, so the schedule
 gates are plain ``if``s. The model and the loss see ``state.step + 1``, as in
 the JAX step.
+
+On a (data, model) process grid (``state.grid``, ``parallel.mesh``) the
+same step runs on every rank with the model sharded over the model axis
+and this data rank's rows of the global batch: the forward and the loss run
+inside ``tensor_parallel.data_parallel``, so every mean and every
+BatchNorm's statistics are the global batch's, the optimizer sums the
+gradients over the data group and clips by the global norm, and the
+returned components are summed over the data group: the single-device
+step's numbers on every rank.
 """
 
 import dataclasses
@@ -15,6 +24,7 @@ import torch
 from ctts_torch.models.blocks import set_dropout_generator
 from ctts_torch.models.loss import compute_loss
 from ctts_torch.ops.attn_prior import beta_binomial_prior
+from ctts_torch.parallel.tensor_parallel import all_reduce, data_parallel
 
 
 def batch_to_device(batch, device):
@@ -51,19 +61,51 @@ def prep_batch(batch, preprocess_config, mode):
 @dataclasses.dataclass
 class TrainState:
     """step: schedule steps taken so far (host int); generator: the source
-    of the dropout masks, on the model's device."""
+    of the dropout masks, on the model's device; grid: the process grid of
+    a multi-process run (None: one process); shared_generator: the source
+    of the draws every rank must share (the reformer's hash rotations),
+    ``generator`` itself unless the data axis has more than one rank."""
     step: int
     model: torch.nn.Module
     optimizer: object
     generator: torch.Generator
+    grid: object = None
+    shared_generator: torch.Generator = None
 
 
-def create_train_state(model, optimizer, step=0, seed=1234):
+# the dropout seed of data rank d > 0 is seed + d·_DATA_SEED_STRIDE
+_DATA_SEED_STRIDE = 1000003
+
+
+def create_train_state(model, optimizer, step=0, seed=1234, grid=None):
+    """The state of a fresh run. On a grid, model-group peers share one
+    dropout stream (their replicated activations take the same masks) and
+    data ranks have their own; the shared draws come from one stream on
+    every rank."""
     device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)
-    set_dropout_generator(model, generator)
+    shared = generator
+    if grid is not None and grid.data > 1:
+        shared = torch.Generator(device=device).manual_seed(seed)
+        generator.manual_seed(seed + _DATA_SEED_STRIDE * grid.data_rank)
+    set_dropout_generator(model, generator, shared)
     return TrainState(step=step, model=model, optimizer=optimizer,
-                      generator=generator)
+                      generator=generator, grid=grid,
+                      shared_generator=shared)
+
+
+def data_group_of(state):
+    return None if state.grid is None else state.grid.data_group
+
+
+def sum_over_data(comps, state):
+    """0-d components summed over the data group (one all-reduce)."""
+    group = data_group_of(state)
+    if group is None or not comps:
+        return comps
+    keys = list(comps)
+    total = all_reduce(torch.stack([comps[k].float() for k in keys]), group)
+    return dict(zip(keys, total.unbind()))
 
 
 def _apply(model, batch, mode, step):
@@ -97,14 +139,16 @@ def make_train_step(preprocess_config, model_config, train_config, mode,
         model.train(not deterministic)
         batch = prep_batch(batch, preprocess_config, mode)
         step = state.step + 1
-        out = _apply(model, batch, mode, step)
-        total, comps = compute_loss(batch, out, step, preprocess_config,
-                                    model_config, train_config)
+        with data_parallel(data_group_of(state)):
+            out = _apply(model, batch, mode, step)
+            total, comps = compute_loss(batch, out, step, preprocess_config,
+                                        model_config, train_config)
         params = state.optimizer.params
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
-        comps = {k: v.detach() for k, v in comps.items()}
+        comps = sum_over_data({k: v.detach() for k, v in comps.items()},
+                              state)
         comps["grad_norm"] = state.optimizer.update(grads)
         state.step = step
         return comps
@@ -113,7 +157,9 @@ def make_train_step(preprocess_config, model_config, train_config, mode,
 
 
 def make_eval_step(preprocess_config, model_config, train_config, mode):
-    """Returns ``eval_step(state, batch) -> (components, model output)``."""
+    """Returns ``eval_step(state, batch) -> (components, model output)``.
+    On a grid every rank of a model group runs the same batch; data ranks
+    run their own and the means are each batch's own."""
     _check_mode(mode)
 
     def eval_step(state, batch):

@@ -2,7 +2,8 @@
 
     python -m ctts_torch.train --dataset LJSpeech [--config_dir DIR] \\
         [--restore_step N] [--max_steps N] [--device cpu] \\
-        [--vocoder_ckpt DIR] [--profile_steps START:END]
+        [--vocoder_ckpt DIR] [--profile_steps START:END] \\
+        [--coordinator HOST:PORT --num_processes N --process_id I]
 
 Reads the preprocessed ``.npy`` store named by the config
 (``preprocess.path.preprocessed_path``; ``python -m ctts_torch.preprocess``
@@ -35,12 +36,29 @@ and ``mel2ph``) (``parallel.train_step``) until ``--max_steps`` or
   the epoch, so a resumed run takes the uninterrupted run's steps.
 
 Logs go to ``train.path.log_path`` (``train/`` and ``val/``, JSON lines and
-text; each train line also counts the kernel launches per step). The
-multi-host arguments of the JAX CLI wait for multi-GPU (ROADMAP.md §1 item
-9).
+text; each train line also counts the kernel launches per step).
+
+Several processes, one per card: start N of them with ``--coordinator
+host:port`` (process 0's address), ``--num_processes N`` and
+``--process_id i`` (or ``CTTS_COORDINATOR``, ``CTTS_NUM_PROCESSES`` and
+``CTTS_PROCESS_ID``). They join one process group (NCCL on cards, gloo with
+``--device cpu``; a failed init fails the run) and lay out the
+``train.mesh`` grid, ``data × model`` = N (``parallel.mesh``). Process i
+takes ``cuda:(i % device_count)`` unless ``--device`` names one. Each data
+rank reads its shard of the store (``shard=data_rank``; model-group peers
+read the same batches) and takes ``optimizer.batch_size`` utterances a
+step, so the global batch is ``batch_size × data``, as under the JAX
+package's multi-host runs and upstream DDP. The device cache stays on:
+every rank holds the store and draws its shard's indices, padded to the
+longest of the step's shards. The step is the single-device step on the
+global batch (``parallel.train_step``). Logs, previews, the profile and the
+checkpoint files come from rank 0; a checkpoint holds whole tensors,
+gathered from every rank, and restores under any grid. Validation runs the
+whole validation set on every rank: its means are one process's.
 """
 
 import argparse
+import itertools
 import os
 import time
 
@@ -68,12 +86,20 @@ def _compress_f16(batch):
     return out
 
 
-def _validate(val_set, state, eval_step, device, logger, step):
+class _NoLogger:
+    """The logger of a rank other than 0: it writes nothing."""
+    tb = None
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+def _validate(val_set, state, eval_step, device, logger, step, rank0=True):
     """Means of the loss components over the validation set, weighted by
     batch size."""
     from ctts_torch.evaluate import val_means
     means, _ = val_means(val_set, state, eval_step, device)
-    if means:
+    if means and rank0:
         logger.scalars(step, means)
         print(f"  val @ {step}: " + ", ".join(
             f"{k}={v:.4f}" for k, v in list(means.items())[:4]), flush=True)
@@ -151,17 +177,59 @@ def _synth_preview(eval_step, state, batch, base, vocoder, configs, mode,
     print(f"  preview @ {step}: {rec}", flush=True)
 
 
+def _rank_device(device, coordinator, process_id):
+    """``device``, else ``cuda:(process_id % device_count)`` in a
+    multi-process run and ``cuda`` in one process."""
+    if device is not None:
+        return device
+    coordinator = coordinator or os.environ.get("CTTS_COORDINATOR")
+    if process_id is None:
+        process_id = os.environ.get("CTTS_PROCESS_ID")
+    if coordinator and process_id is not None and torch.cuda.is_available():
+        return f"cuda:{int(process_id) % torch.cuda.device_count()}"
+    return "cuda"
+
+
+def _shard_steps(make, n_shards, start):
+    """Every data shard's index batches of an epoch side by side, from the
+    epoch's batch ``start`` on; stops with the shortest shard, so every
+    rank takes the same number of steps."""
+    return zip(*[make(s, start) for s in range(n_shards)])
+
+
 def train(configs, restore_step=0, max_steps=None, device=None,
-          vocoder_ckpt="ckpt", profile_steps=None):
+          vocoder_ckpt="ckpt", profile_steps=None, coordinator=None,
+          num_processes=None, process_id=None):
     """Run the loop; returns the train state after the last step.
     ``vocoder_ckpt``: the directory of the previews' vocoder weights
     (``utils.model.get_vocoder``; griffin-lim, so no audio, without them);
-    ``profile_steps``: (START, END) to trace."""
+    ``profile_steps``: (START, END) to trace; ``coordinator``,
+    ``num_processes``, ``process_id``: a multi-process run (module
+    docstring)."""
+    from ctts_torch.parallel.mesh import init_distributed
+    dev = resolve_device(_rank_device(device, coordinator, process_id))
+    joined = init_distributed(coordinator, num_processes, process_id,
+                              device=dev)
+    if joined and torch.distributed.get_rank() == 0:
+        print(f"process group {torch.distributed.get_backend()}, world "
+              f"{torch.distributed.get_world_size()}", flush=True)
+    try:
+        return _train(configs, restore_step, max_steps, dev, vocoder_ckpt,
+                      profile_steps)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(configs, restore_step, max_steps, dev, vocoder_ckpt,
+           profile_steps):
     from ctts_torch.data.dataset import Dataset, prefetch_iter
     from ctts_torch.models.comp_trans_tts import (CompTransTTS,
                                                   prepare_model_config)
     from ctts_torch.models.registry import block_hidden
     from ctts_torch.ops.kernels import launch_counts
+    from ctts_torch.parallel.mesh import (check_tp_coverage, make_mesh,
+                                          shard_model_)
     from ctts_torch.parallel.train_step import (batch_to_device,
                                                 create_train_state,
                                                 make_eval_step,
@@ -172,7 +240,6 @@ def train(configs, restore_step=0, max_steps=None, device=None,
     from ctts_torch.utils.model import get_vocoder, init_weights
     from ctts_torch.utils.optimizer import build_optimizer
 
-    dev = resolve_device(device)
     preprocess_config, model_config, train_config = configs
     model_config = prepare_model_config(preprocess_config, model_config)
     learn_alignment = model_config["duration_modeling"]["learn_alignment"]
@@ -188,21 +255,34 @@ def train(configs, restore_step=0, max_steps=None, device=None,
     val_set = Dataset(f"val_{tag}.txt", preprocess_config, model_config,
                       train_config, sort=False, drop_last=False)
     seed = train_config["seed"]
+    mesh_cfg = train_config.get("mesh") or {}
+    grid = make_mesh(mesh_cfg.get("data", -1), mesh_cfg.get("model", 1))
+    rank0 = grid.rank == 0
+    say = print if rank0 else (lambda *args, **kwargs: None)
     model = init_weights(CompTransTTS(preprocess_config, model_config,
                                       train_config), seed).to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check_tp_coverage(model, grid.model, model_config["block_type"])
+    if grid.data * grid.model == 1:
+        grid = None
+    else:
+        shard_model_(model, grid)
     enc_h, _ = block_hidden(model_config)
     opt, schedule = build_optimizer(model, model_config, train_config,
-                                    d_model=enc_h)
-    state = create_train_state(model, opt, step=0, seed=seed)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"CompTransTTS: {n_params / 1e6:.2f}M params | device {dev} | "
-          f"block={model_config['block_type']} mode={mode} "
-          f"compute_dtype={model_config.get('compute_dtype', 'float32')}",
-          flush=True)
+                                    d_model=enc_h, grid=grid)
+    state = create_train_state(model, opt, step=0, seed=seed, grid=grid)
+    n_data = 1 if grid is None else grid.data
+    data_rank = 0 if grid is None else grid.data_rank
+    say(f"CompTransTTS: {n_params / 1e6:.2f}M params | device {dev} | "
+        f"block={model_config['block_type']} mode={mode} "
+        f"compute_dtype={model_config.get('compute_dtype', 'float32')}"
+        + ("" if grid is None else
+           f" | grid data {grid.data} × model {grid.model}, global batch "
+           f"{train_set.batch_size * grid.data}"), flush=True)
     ckpt_dir = train_config["path"]["ckpt_path"]
     if restore_step:
         state, restored = restore_checkpoint(ckpt_dir, state, restore_step)
-        print(f"restored checkpoint at step {restored}", flush=True)
+        say(f"restored checkpoint at step {restored}", flush=True)
 
     cache = None
     budget = int(train_config.get("device_cache_mb", 0) or 0)
@@ -215,11 +295,11 @@ def train(configs, restore_step=0, max_steps=None, device=None,
             dc.put(dev)
             cache = dc
             energy_on_src = train_set.energy_level_tag == "phone"
-            print(f"device cache: {len(train_set)} utterances, "
+            say(f"device cache: {len(train_set)} utterances, "
                   f"{dc.nbytes / 2 ** 20:.1f} MiB resident on {dev}",
                   flush=True)
         else:
-            print(f"device cache skipped: store {dc.nbytes / 2 ** 20:.0f} "
+            say(f"device cache skipped: store {dc.nbytes / 2 ** 20:.0f} "
                   f"MiB > budget {budget} MiB; streaming loader", flush=True)
     compress = _compress_f16 if transfer_dtype == "float16" else (lambda b: b)
 
@@ -228,16 +308,18 @@ def train(configs, restore_step=0, max_steps=None, device=None,
                                              dev)
 
     log_path = train_config["path"]["log_path"]
-    train_logger = Logger(log_path, "train")
-    val_logger = Logger(log_path, "val")
+    train_logger = Logger(log_path, "train") if rank0 else _NoLogger()
+    val_logger = Logger(log_path, "val") if rank0 else _NoLogger()
     total_step = max_steps or train_config["step"]["total_step"]
     log_step = train_config["step"]["log_step"]
     val_step = train_config["step"]["val_step"]
     synth_step = train_config["step"]["synth_step"]
     save_step = train_config["step"]["save_step"]
-    vocoder = get_vocoder(model_config, vocoder_ckpt, device=dev)
+    vocoder = get_vocoder(model_config, vocoder_ckpt, device=dev) \
+        if rank0 else None
     prof = None
-    per_epoch = train_set.n_batches()
+    per_epoch = min(train_set.n_batches(num_shards=n_data, shard=s)
+                    for s in range(n_data))
     if per_epoch == 0:
         raise ValueError(f"the train set ({len(train_set)} utterances) holds "
                          f"no full batch of {train_set.batch_size}")
@@ -249,27 +331,35 @@ def train(configs, restore_step=0, max_steps=None, device=None,
     try:
         while step < total_step:
             if cache is not None:
-                batch_iter = cache.index_batches(epoch=epoch, seed=seed,
-                                                 start=start)
+                # every shard's batch of the step: each rank pads its own
+                # to the longest of them
+                batch_iter = _shard_steps(
+                    lambda s, b0: cache.index_batches(
+                        epoch=epoch, seed=seed, start=b0, num_shards=n_data,
+                        shard=s), n_data, start)
             else:
-                batch_iter = prefetch_iter(map(stage, train_set.batches(
-                    epoch=epoch, seed=seed, start=start)))
+                batch_iter = prefetch_iter(map(stage, itertools.islice(
+                    train_set.batches(epoch=epoch, seed=seed, start=start,
+                                      num_shards=n_data, shard=data_rank),
+                    per_epoch - start)))
             for batch in batch_iter:
                 if cache is not None:
-                    idx, T_s, T_m = batch
+                    idx = batch[data_rank][0]
+                    T_s = max(b[1] for b in batch)
+                    T_m = max(b[2] for b in batch)
                     batch = gather_batch(cache.arrays,
                                          torch.from_numpy(idx).to(dev), T_s,
                                          T_m, energy_on_src)
                 else:
                     ids, batch = batch
-                if profile_steps and step + 1 == profile_steps[0]:
+                if rank0 and profile_steps and step + 1 == profile_steps[0]:
                     prof = _start_profile(dev)
                 metrics = train_step(state, batch)
                 step += 1
                 if prof is not None and step == profile_steps[1]:
                     _save_profile(prof, dev, log_path, profile_steps)
                     prof = None
-                if step % log_step == 0:
+                if step % log_step == 0 and rank0:
                     metrics = {k: float(v) for k, v in metrics.items()}
                     lr = schedule(step)
                     dt = (time.perf_counter() - t_last) / log_step
@@ -288,7 +378,7 @@ def train(configs, restore_step=0, max_steps=None, device=None,
                 # previews, validation and saving stay out of the next loss
                 # line's time and launches per step
                 t_aside, before = time.perf_counter(), launch_counts()
-                if step % synth_step == 0:
+                if step % synth_step == 0 and data_rank == 0:
                     if cache is not None:
                         # the index batch through the host collate
                         # (train.py:230-236)
@@ -296,15 +386,19 @@ def train(configs, restore_step=0, max_steps=None, device=None,
                                                  for i in idx])
                         ids = raw["ids"]
                         batch = batch_to_device(_device_batch(raw), dev)
-                    _synth_preview(eval_step, state, batch, ids[0], vocoder,
-                                   (preprocess_config, model_config,
-                                    train_config), mode, train_logger, step)
+                    if rank0:
+                        _synth_preview(eval_step, state, batch, ids[0],
+                                       vocoder, (preprocess_config,
+                                                 model_config, train_config),
+                                       mode, train_logger, step)
+                    else:                  # the forward's model-group peer
+                        eval_step(state, batch)
                 if step % val_step == 0:
                     _validate(val_set, state, eval_step, dev, val_logger,
-                              step)
+                              step, rank0)
                 if step % save_step == 0:
                     save_checkpoint(ckpt_dir, state, step)
-                    print(f"saved checkpoint @ {step}", flush=True)
+                    say(f"saved checkpoint @ {step}", flush=True)
                 t_last += time.perf_counter() - t_aside
                 after = launch_counts()
                 launches_last = {k: launches_last[k] + after[k] - before[k]
@@ -316,7 +410,7 @@ def train(configs, restore_step=0, max_steps=None, device=None,
             _save_profile(prof, dev, log_path, (profile_steps[0], step))
         if step % save_step:
             save_checkpoint(ckpt_dir, state, step)
-            print(f"saved checkpoint @ {step}", flush=True)
+            say(f"saved checkpoint @ {step}", flush=True)
     finally:
         train_logger.close()
         val_logger.close()
@@ -351,19 +445,28 @@ def main(argv=None):
     parser.add_argument("--max_steps", type=int, default=None,
                         help="override total_step (smoke runs)")
     parser.add_argument("--config_dir", type=str, default=None)
-    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda (the default; cuda:(process_id %% "
+                             "device_count) in a multi-process run) or cpu")
     parser.add_argument("--vocoder_ckpt", type=str, default="ckpt",
                         help="directory of the previews' vocoder weights")
     parser.add_argument("--profile_steps", type=str, default=None,
                         help="START:END steps to trace with torch.profiler "
                              "into log_path/profile")
+    # one process per card (the JAX CLI's multi-host flags); also
+    # CTTS_COORDINATOR, CTTS_NUM_PROCESSES and CTTS_PROCESS_ID
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="host:port of process 0 for a multi-process run")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     args = parser.parse_args(argv)
     from ctts_torch.config import get_configs_of
     configs = get_configs_of(args.dataset, args.config_dir)
     profile_steps = (tuple(int(x) for x in args.profile_steps.split(":"))
                      if args.profile_steps else None)
     train(configs, args.restore_step, args.max_steps, args.device,
-          args.vocoder_ckpt, profile_steps)
+          args.vocoder_ckpt, profile_steps, args.coordinator,
+          args.num_processes, args.process_id)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,19 @@ is the port's own, one ``torch.save`` file: the model's state_dict (the
 BatchNorm running statistics included), the optimizer's moments, counts and
 gradient accumulator, the schedule step and the dropout generator's state.
 It is read with ``weights_only=True``.
+
+A checkpoint holds whole tensors whatever the process grid that wrote it
+(the JAX CLI's gathered save, train.py:255-262): on a grid every rank
+calls :func:`save_checkpoint`, the tensor-parallel slices of the
+parameters and of the optimizer's moments are gathered over the model
+group, the accumulator is summed over the data group, and rank 0 alone
+writes. :func:`restore_checkpoint` cuts each rank's slices from the whole
+tensors, so a checkpoint of any grid restores under any other, or in one
+process. Every data rank's dropout stream is saved (gathered over the data
+group; model-group peers share theirs), so a run resumed on the same data
+axis draws the masks the straight run draws; under another data axis,
+data rank d > 0 starts a stream of its own from data rank 0's. The shared
+stream (the reformer's rotations) is saved beside them where it differs.
 """
 
 import json
@@ -33,15 +46,75 @@ def latest_step(ckpt_dir):
     return max(steps) if steps else None
 
 
+def _param_names(state):
+    """The state_dict name of each of the optimizer's parameters."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for p in state.optimizer.params]
+
+
+def _per_param(state, optimizer, fn):
+    """``optimizer`` (a state_dict) with ``fn`` applied to each of its
+    per-parameter lists as a state_dict by parameter name."""
+    names = _param_names(state)
+    out = dict(optimizer)
+    for k in ("mu", "nu", "acc"):
+        if out[k] is not None:
+            out[k] = list(fn(dict(zip(names, out[k]))).values())
+    return out
+
+
+def _whole_optimizer(state):
+    """The optimizer's state with whole tensors (every rank takes part)."""
+    from ctts_torch.parallel.mesh import gather_params
+    from ctts_torch.parallel.tensor_parallel import all_reduce
+    opt = dict(state.optimizer.state_dict())
+    grid = state.grid
+    if grid is None:
+        return opt
+    if opt["acc"] is not None and grid.data_group is not None:
+        opt["acc"] = [all_reduce(a, grid.data_group) for a in opt["acc"]]
+    return _per_param(state, opt, lambda sd: gather_params(
+        sd, state.model.tp_specs, grid))
+
+
+def _data_generators(state):
+    """Each data rank's dropout stream state in data-rank order (every rank
+    takes part), None without a data group."""
+    grid = state.grid
+    if grid is None or grid.data_group is None:
+        return None
+    import torch.distributed as dist
+    mine = state.generator.get_state()
+    if dist.get_backend(grid.data_group) == "nccl":
+        mine = mine.to(state.generator.device)
+    parts = [torch.empty_like(mine) for _ in range(grid.data)]
+    dist.all_gather(parts, mine, group=grid.data_group)
+    return [p.cpu() for p in parts]
+
+
 def save_checkpoint(ckpt_dir, state, step):
     """Write ``state`` (a ``parallel.train_step.TrainState``) at ``step``;
-    the file appears whole or not at all."""
+    the file appears whole or not at all. On a grid every rank calls it
+    and rank 0 writes; the others return None."""
+    from ctts_torch.parallel.mesh import gather_params
+    model_sd = state.model.state_dict()
+    if state.grid is not None:
+        model_sd = gather_params(model_sd, state.model.tp_specs, state.grid)
+    optimizer = _whole_optimizer(state)
+    generators = _data_generators(state)
+    if state.grid is not None and state.grid.rank != 0:
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, step)
-    payload = {"model": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict(),
+    payload = {"model": model_sd,
+               "optimizer": optimizer,
                "step": int(state.step),
                "generator": state.generator.get_state()}
+    if generators is not None:
+        payload["generators"] = generators
+    shared = state.shared_generator
+    if shared is not None and shared is not state.generator:
+        payload["shared_generator"] = shared.get_state()
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -66,10 +139,32 @@ def restore_checkpoint(ckpt_dir, state, step=None):
         if step is None:
             return state, 0
     saved = load_checkpoint(ckpt_dir, step)
-    state.model.load_state_dict(saved["model"], strict=True)
-    state.optimizer.load_state_dict(saved["optimizer"])
+    model_sd, optimizer = saved["model"], dict(saved["optimizer"])
+    grid = state.grid
+    if grid is not None:
+        from ctts_torch.parallel.mesh import shard_params
+        model_sd = shard_params(model_sd, state.model.tp_specs, grid)
+        optimizer = _per_param(state, optimizer, lambda sd: shard_params(
+            sd, state.model.tp_specs, grid))
+        if optimizer["acc"] is not None:        # each rank's share of it
+            optimizer["acc"] = [a / grid.data for a in optimizer["acc"]]
+    state.model.load_state_dict(model_sd, strict=True)
+    state.optimizer.load_state_dict(optimizer)
     state.step = int(saved["step"])
     state.generator.set_state(saved["generator"])
+    shared = state.shared_generator
+    if shared is not None and shared is not state.generator:
+        shared.set_state(
+            saved.get("shared_generator", saved["generator"]))
+    gens = saved.get("generators")
+    if grid is not None and gens is not None and len(gens) == grid.data:
+        state.generator.set_state(gens[grid.data_rank])
+    elif grid is not None and grid.data_rank > 0:
+        fork = torch.Generator(state.generator.device).set_state(
+            saved["generator"])
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=fork,
+                                 device=fork.device))
+        state.generator.manual_seed(base + grid.data_rank)
     return state, step
 
 

@@ -16,9 +16,25 @@ direction before the rate scales it. ``grad_acc_step = k > 1`` is
 ``optax.MultiSteps``: the running mean ``acc + (g - acc)/(i+1)`` of k
 micro-gradients, one clipped update every k calls (none in between), and the
 schedule counting updates.
+
+On a (data, model) grid (``grid``, a ``parallel.mesh.Grid``) each update
+first sums the gradients over the data group, in one all-reduce of the
+flat gradients (once per update: with k > 1, of the accumulated mean),
+sums over the model group the gradients of the replicated parameters that
+each model rank applies to its own heads only (``tp_partial``: the
+lstransformer's per-head norms and projection), gives every other
+replicated parameter model rank 0's gradient (the peers compute the same
+one, but on the card cuDNN's convolution algorithms and an embedding's
+backward are not deterministic, so its last bits can differ, and peers
+that update apart drift apart), and clips by the global norm: the squares
+of the tensor-parallel slices summed over the model group, each
+replicated parameter counted once. Every rank then applies the same clip
+factor and the single-device update. The norm
+returned at an accumulating call is that of this rank's micro-gradient.
 """
 
 import torch
+import torch.distributed as dist
 
 
 def noam_schedule(init_scale, warmup_steps, anneal_steps, anneal_rate):
@@ -43,8 +59,10 @@ class NoamAdam:
     from before the clip (a 0-d tensor)."""
 
     def __init__(self, params, schedule, betas=(0.9, 0.98), eps=1e-9,
-                 clip=1.0, count=0, weight_decay=0.0, acc_steps=1):
+                 clip=1.0, count=0, weight_decay=0.0, acc_steps=1,
+                 grid=None):
         self.params = list(params)
+        self.grid = grid
         self.schedule = schedule
         self.b1, self.b2 = betas
         self.eps = eps
@@ -73,9 +91,54 @@ class NoamAdam:
                     [x.to(p.device) for x, p in zip(state["acc"],
                                                     self.params)])
 
+    def _reduce(self, grads):
+        """The gradients summed over the data group, the partial ones
+        summed over the model group and the other replicated ones taken
+        from model rank 0 (one flat collective each)."""
+        grid = self.grid
+        if grid is None:
+            return grads
+        grads = list(grads)
+        partial, replicated = [], []
+        for i, p in enumerate(self.params):
+            if getattr(p, "tp_partial", False):
+                partial.append(i)
+            elif not getattr(p, "tp_sharded", False):
+                replicated.append(i)
+        src = grid.data_rank * grid.model            # model rank 0's rank
+        for group, idx, op in ((grid.data_group, range(len(grads)), "sum"),
+                               (grid.model_group, partial, "sum"),
+                               (grid.model_group, replicated, "bcast")):
+            if group is None or not idx:
+                continue
+            sub = [grads[i] for i in idx]
+            flat = torch.cat([g.float().reshape(-1) for g in sub])
+            if op == "sum":
+                dist.all_reduce(flat, group=group)
+            else:
+                dist.broadcast(flat, src=src, group=group)
+            for i, f, g in zip(idx, flat.split([g.numel() for g in sub]),
+                               sub):
+                grads[i] = f.view_as(g).to(g.dtype)
+        return grads
+
+    def _norm(self, grads):
+        grid = self.grid
+        if grid is None or grid.model_group is None:
+            return global_norm(grads)
+        sq = torch.zeros(2, device=grads[0].device)
+        for p, g in zip(self.params, grads):
+            sq[int(getattr(p, "tp_sharded", False))] += torch.sum(
+                g.float() ** 2)
+        sharded = sq[1:].clone()
+        dist.all_reduce(sharded, group=grid.model_group)
+        return torch.sqrt(sq[0] + sharded[0])
+
     @torch.no_grad()
     def update(self, grads):
-        norm = global_norm(grads)
+        if self.acc_steps == 1:
+            grads = self._reduce(grads)
+        norm = self._norm(grads)
         if self.acc_steps > 1:
             i = self.mini_step
             if self.acc is None:
@@ -86,8 +149,8 @@ class NoamAdam:
             self.mini_step = (i + 1) % self.acc_steps
             if self.mini_step:
                 return norm
-            grads, self.acc = self.acc, None
-            clip_norm = global_norm(grads)
+            grads, self.acc = self._reduce(self.acc), None
+            clip_norm = self._norm(grads)
         else:
             clip_norm = norm
         # optax.clip_by_global_norm: g if norm < clip else g / norm * clip
@@ -111,9 +174,12 @@ class NoamAdam:
         return norm
 
 
-def build_optimizer(model, model_config, train_config, d_model=None, count=0):
+def build_optimizer(model, model_config, train_config, d_model=None, count=0,
+                    grid=None):
     """The shipped optimizer over ``model``'s parameters; ``count`` restores
-    the update count of a resumed run. Returns (optimizer, schedule)."""
+    the update count of a resumed run; ``grid`` the process grid of a
+    multi-process run (``model`` already sharded). Returns (optimizer,
+    schedule)."""
     opt_cfg = train_config["optimizer"]
     if d_model is None:
         d_model = model_config["transformer"]["encoder_hidden"]
@@ -123,5 +189,5 @@ def build_optimizer(model, model_config, train_config, d_model=None, count=0):
                    eps=opt_cfg["eps"], clip=opt_cfg["grad_clip_thresh"],
                    count=count,
                    weight_decay=opt_cfg.get("weight_decay", 0.0) or 0.0,
-                   acc_steps=opt_cfg.get("grad_acc_step") or 1)
+                   acc_steps=opt_cfg.get("grad_acc_step") or 1, grid=grid)
     return opt, schedule

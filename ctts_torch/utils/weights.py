@@ -57,6 +57,10 @@ state_dict straight back. Layout changes:
 
 :func:`jax_tree_from_state_dict` is the inverse for the acoustic model, so a
 test can compare the port's parameters with the JAX tree after a step.
+
+The bridge is whole-tensor. A tensor-parallel rank's state_dict is made
+from a whole one by :func:`shard_state_dict` and made whole again by
+:func:`unshard_state_dict` (the specs of ``parallel.mesh.param_specs``).
 """
 
 import re
@@ -391,6 +395,24 @@ def liu_prosody_sd(sd, p, node, stats):
         parallel_predictor_sd(sd, f"{p}.{pred}", node[pred])
     for name in _LIU_PRJ:
         _dense(sd, f"{p}.{name}", node[name])
+
+
+def shard_state_dict(state_dict, specs, rank, size):
+    """Model rank ``rank`` of ``size``'s slices of a whole state_dict: each
+    entry ``specs`` names (a ``parallel.mesh.Spec``) cut along its axis,
+    every other entry as it is."""
+    from ctts_torch.parallel.tensor_parallel import shard_tensor
+    return {k: (shard_tensor(v, specs[k].axis, rank, size,
+                             specs[k].groups).clone() if k in specs else v)
+            for k, v in state_dict.items()}
+
+
+def unshard_state_dict(parts, specs):
+    """The whole state_dict from every model rank's, in rank order."""
+    from ctts_torch.parallel.tensor_parallel import unshard_tensor
+    return {k: (unshard_tensor([p[k] for p in parts], specs[k].axis,
+                               specs[k].groups) if k in specs else v)
+            for k, v in parts[0].items()}
 
 
 def _to_tensors(sd):
