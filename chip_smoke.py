@@ -161,7 +161,21 @@ suppresses the final line:
    and each kernel's first call on each rank held to its plain version at
    that rank's shape; then ``python -m ctts_torch.train --coordinator``
    at world size 1 over NCCL (4 steps, and a resume from step 2);
-15. the ``kernels`` JSON line, the card line, and the result line.
+15. long utterances: the CTC lattice at S = 1023, 1025, 2049 and 4097 and
+   MAS at [T_m, T_s] = (1443, 1024), (10307, 128), (2560, 640) and
+   (1200, 1100), each straddling a limit the kernels had, bit-exact against
+   their plain versions (the CTC gradient within ``CTC_GRAD_TOL``), with
+   the instance or route each took and its device time; one counted,
+   timed and profiled bf16 ``train_unsup`` step of the LJSpeech default at
+   full width and depth (seeded weights, ``max_seq_len`` 3000 and nothing
+   else changed) on 4 utterances of up to 640 phones and 2560 frames
+   (about 30 s of audio), MAS and the CTC lattice on their long routes,
+   the step's hard alignment against ``b_mas_plain`` of its soft
+   attention, and both kernels timed at the step's inputs beside their
+   plain versions and bounds; then ``python -m ctts_torch.train`` with the
+   device cache off (the streaming loader, reading through the native
+   ``.npy`` prefetcher) for 2 steps;
+16. the ``kernels`` JSON line, the card line, and the result line.
 
 Each phase prints its own seconds. Exits non-zero without a result when no
 CUDA device is present.
@@ -210,6 +224,17 @@ B_TRAIN, T_S, T_M = 16, 128, 896
 # the VCTK recipe's longest utterance (configs/VCTK.yaml, max_seq_len's
 # comment): its train step's mel axis
 T_VCTK = 1298
+# phase 15, long utterances: the step's 4 utterances, the longest 640 phones
+# over 2560 frames (29.7 s at 22050 Hz and hop 256); MAS one frame past the
+# warp kernel's shared memory at T_s = 1024 and 128, at the step's axes and
+# past 1024 columns; CTC at text axes of 511, 512, 1024 and 2048 tokens
+# (S = 1023, 1025, 2049, 4097)
+LONG_B, LONG_T_S, LONG_T_M = 4, 640, 2560
+LONG_SRC = (640, 517, 402, 290)
+LONG_MEL = (2560, 2103, 1650, 1222)
+LONG_MAS_SHAPES = ((2, 1443, 1024), (1, 10307, 128), (2, 2560, 640),
+                   (2, 1200, 1100))
+LONG_CTC_TEXT = (511, 512, 1024, 2048)
 # scatter: float32 sums of up to ~20 rows in another order than the plain
 # version's atomics; bfloat16 adds one rounding of the float32 sum on each
 # side, which may land on neighbouring values
@@ -4572,7 +4597,10 @@ class Smoke:
         one process a card (N = 1 on one card, through its ``main`` in this
         process; ``train.mesh`` data 2 × model N/2 on N cards, dropout on):
         4 steps, and a resume from their step-2 checkpoint for steps 3-4,
-        rank 0's log within ``RESUME_TOL``."""
+        rank 0's log within ``RESUME_TOL``. On N cards also the same 4 steps
+        with the device cache off (each rank streams its shard and pads it
+        to the step's largest on the prefetch thread), every step's total
+        within ``RESUME_TOL`` of the cached run's."""
         from ctts_torch.config import dump_yaml, load_yaml
         tmp = tempfile.mkdtemp(prefix="ctts_smoke_grid_cli_")
         try:
@@ -4586,7 +4614,11 @@ class Smoke:
             if cards > 1:
                 raw["train"]["mesh"] = {"data": 2, "model": cards // 2}
             runs = {}
-            for name, restore in (("straight", 0), ("resumed", 2)):
+            cached = raw["train"]["device_cache_mb"]
+            for name, restore, cache_mb in (
+                    ("straight", 0, cached), ("resumed", 2, cached),
+                    *([("streamed", 0, 0)] if cards > 1 else [])):
+                raw["train"]["device_cache_mb"] = cache_mb
                 if restore:
                     self.copy_checkpoint(tmp, restore)
                 cfg_dir = os.path.join(tmp, name)
@@ -4625,6 +4657,9 @@ class Smoke:
                     raise AssertionError(f"train CLI ranks exited {codes}")
                 if f"process group nccl, world {cards}" not in outs[0]:
                     raise AssertionError("the CLI did not join an NCCL group")
+                if ("streaming loader read" in outs[0]) != (cache_mb == 0):
+                    raise AssertionError(f"{name}: the loader is not the "
+                                         f"one its config names")
                 path = os.path.join(cfg_dir, "log_path", "train",
                                     "log.jsonl")
                 runs[name] = {r["step"]: r for r in map(json.loads,
@@ -4641,6 +4676,21 @@ class Smoke:
             if sorted(runs["straight"]) != [1, 2, 3, 4] or diff > RESUME_TOL:
                 raise AssertionError(f"log steps {sorted(runs['straight'])}, "
                                      f"resumed losses differ by {diff}")
+            if "streamed" in runs:
+                diff = max(abs(runs["straight"][s]["total"]
+                               - runs["streamed"][s]["total"])
+                           / max(1.0, abs(runs["straight"][s]["total"]))
+                           for s in range(1, 5))
+                print(f"train CLI over NCCL on {cards} processes, the device "
+                      f"cache off: totals "
+                      + ", ".join(f"{runs['streamed'][s]['total']:.4f}"
+                                  for s in range(1, 5))
+                      + f"; against the cached run, max relative difference "
+                      f"{diff:.3e} (tol {RESUME_TOL:g})")
+                if sorted(runs["streamed"]) != [1, 2, 3, 4] \
+                        or diff > RESUME_TOL:
+                    raise AssertionError(f"the streamed run differs by "
+                                         f"{diff}")
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4662,6 +4712,279 @@ class Smoke:
                     p.kill()
                     p.wait()
         return outs, [p.returncode for p in procs]
+
+
+    # ---- phase 15: long utterances ------------------------------------- #
+    def long_kernels(self):
+        """The CTC lattice and MAS against their plain versions at shapes
+        that straddle every limit they had, each with its instance or route
+        and its device time."""
+        from ctts_torch.ops import forward_sum as fs
+        from ctts_torch.ops import mas
+        dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(16)
+        for T_s in LONG_CTC_TEXT:
+            T_m = T_s + 100
+            il = torch.tensor([T_s, T_s * 3 // 5, T_s // 3, T_s],
+                              dtype=torch.int32, device=dev)
+            # ragged; the last two end below their text (out_len < in_len)
+            ol = torch.tensor([T_m, T_m - 37, T_s // 3 - 5, T_s // 2],
+                              dtype=torch.int32, device=dev)
+            em = self.ctc_states(gen, il, T_m, T_s)
+            S = em.shape[-1]
+            before = fs.lattice_launches, fs.wide_lattice_launches
+            alpha, beta = fs.ctc_lattice(em, il, ol)
+            launched = (fs.lattice_launches - before[0],
+                        fs.wide_lattice_launches - before[1])
+            name = "lattice_wide" if launched == (0, 1) else \
+                "lattice" if launched == (1, 0) else f"launches {launched}"
+            where = ("global" if fs._lib().ctts_ctc_scratch_bytes(4, S)
+                     else "shared")
+            ref_a = fs.ctc_alpha_plain(em, ol)
+            ref_b = fs.ctc_beta_plain(em, il, ol)
+            e = em.clone().requires_grad_(True)
+            nll = fs.ctc_state_nll(e, il, ol)
+            cot = (torch.arange(4, device=dev) + 1.0) / 4
+            (nll * cot).sum().backward()
+            i2 = 2 * il.long()
+            idx = torch.stack([i2, (i2 - 1).clamp(min=0)], 1)
+            log_l = torch.logsumexp(ref_a[:, -1].gather(1, idx), -1)
+            want = fs.ctc_grad_plain(ref_a, ref_b, log_l, cot, ol)
+            torch.cuda.synchronize()
+            reach = ol >= il
+            g_err = ((e.grad - want)[reach].abs().max()
+                     / want[reach].abs().max()).item()
+            exact = (torch.equal(alpha, ref_a), torch.equal(beta, ref_b),
+                     torch.equal(nll.detach(), -log_l))
+            ms, _ = timings(lambda: fs.ctc_lattice(em, il, ol), iters=5)
+            print(f"CTC S={S} [B=4, T_m={T_m}], in_lens {il.tolist()}, "
+                  f"out_lens {ol.tolist()}: launched {name} (counted: "
+                  f"one-state-a-thread, wide {launched}; rows in {where} "
+                  f"memory): alpha, beta, "
+                  f"loss bit-exact {exact}; gradient {g_err:.3e} of its "
+                  f"largest entry where the end is reachable (tol "
+                  f"{CTC_GRAD_TOL:g}); lattice device ms {ms:.4f}")
+            if not all(exact) or not g_err <= CTC_GRAD_TOL \
+                    or not bool(torch.isfinite(e.grad).all()) \
+                    or launched != ((0, 1) if S > 1024 else (1, 0)):
+                raise AssertionError(f"CTC at S={S}: {exact}, {g_err}, "
+                                     f"launches {launched}")
+        for B, T_m, T_s in LONG_MAS_SHAPES:
+            attn = torch.softmax(randn(gen, B, T_m, T_s) * 3.0,
+                                 dim=-1).to(dev)
+            il = torch.tensor([T_s, T_s * 2 // 3][:B], dtype=torch.int32,
+                              device=dev)
+            ol = torch.tensor([T_m, T_s // 2][:B], dtype=torch.int32,
+                              device=dev)
+            before = mas.launches, mas.rows_launches
+            got = mas.b_mas(attn, il, ol)
+            launched = (mas.launches - before[0],
+                        mas.rows_launches - before[1])
+            ref = mas.b_mas_plain(attn, il, ol)
+            torch.cuda.synchronize()
+            exact = torch.equal(got, ref)
+            ms, _ = timings(lambda: mas.b_mas(attn, il, ol), iters=5,
+                            only="mas_")
+            print(f"MAS [B={B}, T_m={T_m}, T_s={T_s}], in_lens "
+                  f"{il.tolist()}, out_lens {ol.tolist()}: route "
+                  f"{mas.route(T_m, T_s)} (counted: warp, rows "
+                  f"{launched}), "
+                  f"{'bit-exact' if exact else 'MISMATCH'}, "
+                  f"{int(got.sum().item())} path cells; device ms {ms:.4f}")
+            if not exact or launched != (0, 1):
+                raise AssertionError(f"MAS at {(B, T_m, T_s)}")
+
+    @staticmethod
+    def ctc_states(gen, il, T_m, T_s):
+        """State log-emissions [B, T_m, 2·T_s + 1] as forward_sum_loss
+        builds them from seeded log-attention."""
+        from ctts_torch.ops import forward_sum as fs
+        B = il.shape[0]
+        logprob = (randn(gen, B, T_m, T_s) * 2.0).to(il.device)
+        logits = torch.cat([logprob.new_full((B, T_m, 1), fs.BLANK_LOGPROB),
+                            logprob], -1)
+        key = torch.arange(T_s + 1, device=il.device)[None, None, :]
+        logits = fs._log_softmax(torch.where(key <= il[:, None, None], logits,
+                                             logits.new_full((), fs.NEG)))
+        return fs._interleave(logits).contiguous()
+
+    def long_step(self):
+        """One bf16 ``train_unsup`` step of the LJSpeech default at full
+        width and depth with ``max_seq_len`` 3000, on 4 utterances of up to
+        640 phones and 2560 frames: counted (MAS and the CTC lattice on
+        their long routes), the hard alignment against ``b_mas_plain`` of
+        the step's soft attention, timed and profiled; then MAS and the
+        lattice at the step's own inputs against their plain versions,
+        timed, with their bounds."""
+        import copy
+        from ctts_torch.config import get_configs_of
+        from ctts_torch.models import variance_adaptor
+        from ctts_torch.models.comp_trans_tts import (CompTransTTS,
+                                                      prepare_model_config)
+        from ctts_torch.ops import forward_sum as fs
+        from ctts_torch.ops import mas
+        from ctts_torch.parallel.train_step import (batch_to_device,
+                                                    create_train_state,
+                                                    make_train_step)
+        from ctts_torch.utils.model import init_weights
+        from ctts_torch.utils.optimizer import build_optimizer
+        from ctts_torch.utils.testing import synth_batch
+        B, T_s, T_m = LONG_B, LONG_T_S, LONG_T_M
+        pre, mc, tr = copy.deepcopy(get_configs_of("LJSpeech"))
+        shipped = mc["max_seq_len"]
+        mc["max_seq_len"] = 3000
+        mc = prepare_model_config(pre, mc)
+        model = init_weights(CompTransTTS(pre, mc, tr), tr["seed"]).cuda()
+        opt, _ = build_optimizer(model, mc, tr)
+        state = create_train_state(                    # every loss on
+            model, opt, step=tr["step"]["var_start_steps"] + 10000,
+            seed=tr["seed"])
+        batch = synth_batch(B=B, T_s=T_s, T_m=T_m, seed=0,
+                            src_lens=np.array(LONG_SRC),
+                            mel_lens=np.array(LONG_MEL), prior=False)
+        batch["mels"] = batch["mels"].astype(np.float16)   # transfer_dtype
+        batch = batch_to_device(batch, "cuda")
+        step = make_train_step(pre, mc, tr, "train_unsup")
+        enc = model.encoder.embed_positions.table.shape[0]
+        dec = model.decoder.embed_positions.table.shape[0]
+        print(f"compute_dtype={mc['compute_dtype']}, batch {B}x[{T_s} "
+              f"tokens, {T_m} frames], src_lens {list(LONG_SRC)}, mel_lens "
+              f"{list(LONG_MEL)}; max_seq_len {shipped} -> 3000: the "
+              f"position tables hold {enc} (encoder) and {dec} (decoder) "
+              f"rows, so no position is clamped (at {shipped} the "
+              f"decoder's {2 * shipped + 1} rows would clamp the frames past "
+              f"{2 * shipped} to the last, as the JAX package does; "
+              f"tests/test_torch_train_step.py holds the port to it there) "
+              f"and nothing truncates the sequences")
+        seen = {}
+        real_mas, real_lattice = variance_adaptor.b_mas, fs.ctc_lattice
+
+        def spy_mas(attn, il, ol, *args, **kwargs):
+            out = real_mas(attn, il, ol, *args, **kwargs)
+            seen["mas"] = (attn.detach().float().clone(), il.clone(),
+                           ol.clone(), out.clone())
+            return out
+
+        def spy_lattice(em, il, ol, with_beta=True):
+            seen["ctc"] = (em.detach().clone(), il.clone(), ol.clone())
+            return real_lattice(em, il, ol, with_beta)
+
+        variance_adaptor.b_mas, fs.ctc_lattice = spy_mas, spy_lattice
+        try:
+            metrics, got = self.counted_step(step, state, batch,
+                                             "long train step")
+        finally:
+            variance_adaptor.b_mas, fs.ctc_lattice = real_mas, real_lattice
+        want = {"fused_attention": 10, "gather_rows": 2, "scatter_rows": 2,
+                "b_mas_rows": 1, "ctc_lattice_wide": 1, "ctc_grad": 1}
+        if got != want:
+            raise AssertionError(f"expected launches {want}, got {got}")
+        attn, il, ol, hard = seen["mas"]
+        exact = torch.equal(hard, mas.b_mas_plain(attn, il, ol))
+        print(f"the step's hard alignment against b_mas_plain of its soft "
+              f"attention [{B}, {T_m}, {T_s}]: "
+              f"{'bit-exact' if exact else 'MISMATCH'} "
+              f"({int(hard.sum().item())} path cells)")
+        if not exact:
+            raise AssertionError("the long step's MAS differs from plain")
+        self.long = self.step_timing(step, state, batch, "long train step")
+
+        # MAS and the lattice at the step's own inputs; the plain versions
+        # (thousands of launches a call) by events
+        ms, ev = timings(lambda: mas.b_mas(attn, il, ol), iters=5,
+                         only="mas_")
+        plain_ms = cuda_ms(lambda: mas.b_mas_plain(attn, il, ol), warmup=1,
+                           iters=1)
+        # rows at or past out_len are never read; every output row is
+        # written
+        nbytes = int(ol.sum()) * T_s * 4 + B * T_m * T_s * 4 + 2 * B * 4
+        b_ms = self.record(
+            "b_mas_rows", "ctts_torch/csrc/mas.cu",
+            "ctts_tpu/ops/mas.py:236,249", 0.0, ms, plain_ms, nbytes, None,
+            f"f32 B={B} T_m={T_m} T_s={T_s}, the long step's lengths",
+            event_ms=ev)
+        print(f"MAS long route at the step's inputs: device ms {ms:.4f} "
+              f"(events {ev:.4f}), plain {plain_ms:.3f} (events), bound {b_ms:.5f} ms "
+              f"(bytes), at {b_ms / ms:.4f} of it; no library call computes "
+              f"it")
+        em, il, ol = seen["ctc"]
+        S = em.shape[-1]
+        wide = fs.wide_lattice_launches
+        alpha, beta = fs.ctc_lattice(em, il, ol)
+        wide = fs.wide_lattice_launches - wide
+        ref_a = fs.ctc_alpha_plain(em, ol)
+        ref_b = fs.ctc_beta_plain(em, il, ol)
+        torch.cuda.synchronize()
+        err = max((alpha - ref_a)[ref_a > -1e8].abs().max().item(),
+                  (beta - ref_b)[ref_b > -1e8].abs().max().item())
+        if not (torch.equal(alpha, ref_a) and torch.equal(beta, ref_b)):
+            raise AssertionError(f"the long step's lattice differs: {err}")
+        ms_l, ev_l = timings(lambda: fs.ctc_lattice(em, il, ol), iters=5)
+        plain_l = cuda_ms(lambda: (fs.ctc_alpha_plain(em, ol),
+                                   fs.ctc_beta_plain(em, il, ol)),
+                          warmup=1, iters=1)
+        # the library's CTC on the same log-probabilities (blank, labels)
+        lp = torch.cat([em[..., :1], em[..., 1::2]], -1).transpose(0, 1)
+        targets = torch.arange(1, T_s + 1, device=em.device).expand(B, T_s)
+        lib_ms, _ = timings(lambda: F.ctc_loss(
+            lp, targets, ol.long(), il.long(), blank=0, reduction="none"),
+            iters=5)
+        # the Pallas pair's function: em below out_len read, alpha written
+        nbytes = int(ol.sum()) * S * 4 + B * T_m * S * 4 + 2 * B * 4
+        b_l = self.record(
+            "ctc_lattice_wide", "ctts_torch/csrc/forward_sum.cu",
+            "ctts_tpu/ops/forward_sum.py:272,310", err, ms_l, plain_l,
+            nbytes, lib_ms, f"f32 B={B} T_m={T_m} S={S}, the long step's "
+            f"lengths", event_ms=ev_l)
+        if wide != 1:
+            raise AssertionError(f"the long step's lattice launched the wide "
+                                 f"instance {wide} times")
+        print(f"CTC lattice, the wide instance (counted {wide}) at the "
+              f"step's inputs "
+              f"[B={B}, T_m={T_m}, S={S}]: alpha and beta bit-exact; device "
+              f"ms {ms_l:.4f} (events {ev_l:.4f}), plain alpha + beta "
+              f"{plain_l:.3f} (events), F.ctc_loss forward {lib_ms:.4f}, bound "
+              f"{b_l:.5f} ms (bytes), at {b_l / ms_l:.4f} of it")
+        for name, n in got.items():
+            if name in ("b_mas_rows", "ctc_lattice_wide"):
+                self.kernels[name]["launches"] = n
+            elif name in self.kernels:
+                self.kernels[name]["launches_long_step"] = n
+
+    def long_stream_cli(self):
+        """``python -m ctts_torch.train`` of the LJSpeech default with the
+        device cache off, so batches stream from the prefetch thread
+        through the native ``.npy`` prefetcher: 2 steps on a synthetic
+        store."""
+        from ctts_torch.config import load_yaml
+        tmp = tempfile.mkdtemp(prefix="ctts_smoke_")
+        try:
+            store = os.path.join(tmp, "store")
+            self.write_store(store, n_train=32, n_val=4)
+            raw = load_yaml(open(os.path.join(REPO, "configs",
+                                              "LJSpeech.yaml")))
+            raw["preprocess"]["path"]["preprocessed_path"] = store
+            raw["train"]["device_cache_mb"] = 0
+            raw["train"]["step"].update(log_step=1, save_step=100000,
+                                        val_step=100000, synth_step=100000)
+            logs = self.run_train_cli(raw, tmp, "stream", 2)
+            out = self.cli_stdout
+            native = ("streaming loader: .npy files read by the native "
+                      "prefetcher")
+            counts = [ln for ln in out.splitlines()
+                      if ln.startswith("streaming loader read ")]
+            totals = [logs[s]["total"] for s in (1, 2)]
+            print(f"streaming loader through the native prefetcher: "
+                  f"{native in out}; {counts}; total over 2 steps {totals}; "
+                  f"launches per step in the log "
+                  f"{logs[2]['launches_per_step']}")
+            if native not in out or not counts \
+                    or not counts[0].endswith(" 0 through numpy") \
+                    or not all(np.isfinite(totals)):
+                raise AssertionError("the streaming loader did not read "
+                                     "through the native prefetcher")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---- phase 14's ranks: the (data, model) process grid ------------------- #
@@ -5238,7 +5561,13 @@ def main():
          ("synthesize CLI, batch and stream", smoke.cli_batch),
          ("flip kernel vs plain", smoke.flip)],
         [("the (data, model) grid: two ranks on the card, and the train "
-          "CLI over NCCL", smoke.grid)]]
+          "CLI over NCCL", smoke.grid)],
+        [("long utterances: the kernels across their old limits",
+          smoke.long_kernels),
+         ("long utterances: a train_unsup step at 640 phones, 2560 frames",
+          smoke.long_step),
+         ("long utterances: the train CLI on the streaming loader",
+          smoke.long_stream_cli)]]
     for group in groups:
         for name, fn in group:
             if not smoke.failures:

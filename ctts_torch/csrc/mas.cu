@@ -55,6 +55,26 @@
 // starts are the durations' prefix. The block then writes one 1.0 per
 // frame below mel_len from the runs, over the zeros.
 //
+// The long route. The warp kernel holds an utterance's move bits and its
+// ring in one block's shared memory, so it takes T_s <= 1024 and a T_m whose
+// bits fit beside the ring (T_m <= 1442 at T_s in (768, 1024], 10306 at
+// T_s <= 128). Every other shape takes mas_rows_kernel, a simpler design
+// whose limits are device memory's: one block an utterance, a thread for
+// each column (K = ceil(T_s/1024) columns a thread, c = tid + k*blockDim,
+// so that a warp's columns are one word of move bits), the previous frame's
+// row double-buffered in shared memory (8*T_s bytes; past what a block may
+// hold, in a global scratch of the same layout) and one barrier a frame.
+// Each frame reads its probabilities one frame ahead (the first kRowsAhead
+// columns of a thread) and takes their logarithm as mas_log does. The move
+// bits go to a global scratch [B, T_m, ceil(T_s/32)] of 32-bit words, one
+// __ballot_sync a warp and a frame. The block zeroes each output row as it
+// passes it; after the chain warp 0 backtracks 32 frames at a time: lane j
+// loads the two words frame i0 - j can need (the column moves at most one
+// a frame, so it stays in word w or w - 1 of the round's first), the warp
+// walks the 32 frames by shuffles, and each lane writes its frame's 1.0.
+// At T_m = 10307, T_s = 128 its chain is 10307 barriers; the warp kernel's
+// skewed warp has none, which is why the train shape keeps it.
+//
 // Arithmetic: float32 adds and compares only, after the logarithm. The
 // result is bit-identical to b_mas_plain whatever the schedule: sentinel
 // -1e30 (not -inf) for columns at or past text_len, row 0 reachable only at
@@ -75,6 +95,8 @@ constexpr int kSkew = 2;             // steps lane L runs behind lane L-1
 // blocks of 32 steps in which a lane meets its frame 0 (at step kSkew*L)
 constexpr int kFirstBlocks = kSkew * (kWarp - 1) / kWarp + 1;
 constexpr int kMaxShared = 232448;   // bytes one block may use on sm_90
+constexpr int kRowsThreads = 1024;   // the long route's most threads a block
+constexpr int kRowsAhead = 8;        // its columns a thread read ahead
 
 // Columns a lane owns: the smallest instantiated K >= ceil(T_s / 32).
 __host__ __device__ constexpr int cols_per_lane(int t_s) {
@@ -580,6 +602,125 @@ mas_kernel(const float* __restrict__ attn, const int* __restrict__ in_lens,
   }
 }
 
+// The long route's shape: columns a thread, threads a block (whole warps),
+// words of move bits a frame, and whether the two rows fit shared memory.
+__host__ __device__ inline int rows_cols(int t_s) {
+  return (t_s + kRowsThreads - 1) / kRowsThreads;
+}
+__host__ __device__ inline int rows_threads(int t_s) {
+  const int k = rows_cols(t_s);
+  return ((t_s + k - 1) / k + kWarp - 1) / kWarp * kWarp;
+}
+__host__ __device__ inline long long rows_words(long long t_s) {
+  return (t_s + kWarp - 1) / kWarp;
+}
+__host__ __device__ inline bool rows_shared(long long t_s) {
+  return 8 * t_s <= kMaxShared;
+}
+
+// The warp kernel takes the shape: T_s <= 1024 and its shared memory fits.
+inline bool warp_route(long long t_m, long long t_s) {
+  return t_s <= 1024 && layout(t_m, cols_per_lane(static_cast<int>(t_s))).bytes
+                            <= kMaxShared;
+}
+
+// One utterance a block, columns over threads, one barrier a frame (the
+// long route; see the head of the file). moves: [B, T_m, words] words, rows:
+// a global scratch of 2*T_s floats a block where shared memory cannot hold
+// them, else null.
+__global__ void __launch_bounds__(kRowsThreads)
+mas_rows_kernel(const float* __restrict__ attn, const int* __restrict__ in_lens,
+                const int* __restrict__ out_lens, float* __restrict__ out,
+                unsigned* __restrict__ moves, float* scratch_rows, int t_m,
+                int t_s, float eps) {
+  extern __shared__ float shared_rows[];
+  const int b = blockIdx.x, tid = threadIdx.x, n = blockDim.x;
+  const int lane = tid % kWarp;
+  const int kn = (t_s + n - 1) / n;
+  const long long words = rows_words(t_s);
+  const int text_len = min(max(in_lens[b], 0), t_s);
+  const int mel_len = min(max(out_lens[b], 0), t_m);
+  const long long slab = static_cast<long long>(t_m) * t_s;
+  const float* pb = attn + b * slab;
+  float* ob = out + b * slab;
+  unsigned* mb = moves + b * static_cast<long long>(t_m) * words;
+  float* rows = scratch_rows ? scratch_rows + 2LL * b * t_s : shared_rows;
+
+  // frame 0: only column 0 is reachable
+  for (int k = 0; k < kn; ++k) {
+    const int c = tid + k * n;
+    if (c >= t_s) break;
+    rows[c] = (c == 0 && text_len > 0) ? mas_log(pb[0], eps) : kNeg;
+    ob[c] = 0.f;
+  }
+  __syncthreads();
+  float cur[kRowsAhead], nxt[kRowsAhead];
+#pragma unroll
+  for (int k = 0; k < kRowsAhead; ++k) {
+    const int c = tid + k * n;
+    cur[k] = (k < kn && c < text_len && 1 < mel_len) ? pb[t_s + c] : 1.f;
+  }
+  for (int i = 1; i < mel_len; ++i) {
+    const float* prev = rows + ((i - 1) & 1) * t_s;
+    float* row = rows + (i & 1) * t_s;
+#pragma unroll
+    for (int k = 0; k < kRowsAhead; ++k) {
+      const int c = tid + k * n;
+      nxt[k] = (k < kn && c < text_len && i + 1 < mel_len)
+                   ? pb[static_cast<long long>(i + 1) * t_s + c] : 1.f;
+    }
+    for (int k = 0; k < kn; ++k) {
+      const int c = tid + k * n;
+      bool move = false;
+      if (c < text_len) {
+        float p = 1.f;
+#pragma unroll
+        for (int j = 0; j < kRowsAhead; ++j)
+          if (j == k) p = cur[j];
+        if (k >= kRowsAhead) p = pb[static_cast<long long>(i) * t_s + c];
+        const float here = prev[c];
+        const float left = c > 0 ? prev[c - 1] : kNeg;
+        move = left >= here;                        // tie -> diagonal
+        row[c] = mas_log(p, eps) + (move ? left : here);
+      }
+      const unsigned w = __ballot_sync(0xffffffffu, move);
+      if (lane == 0 && c < t_s) mb[i * words + c / kWarp] = w;
+      if (c < t_s) ob[static_cast<long long>(i) * t_s + c] = 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kRowsAhead; ++k) cur[k] = nxt[k];
+  }
+  // the rows the chain did not pass
+  for (long long e = static_cast<long long>(max(mel_len, 1)) * t_s + tid;
+       e < slab; e += n)
+    ob[e] = 0.f;
+  __syncthreads();
+
+  // the backtrack, from (mel_len-1, text_len-1): 32 frames a round
+  if (tid < kWarp) {
+    int curr = max(text_len - 1, 0);
+    for (int i0 = mel_len - 1; i0 >= 0; i0 -= kWarp) {
+      const int i = i0 - lane;                      // this lane's frame
+      const int w0 = curr / kWarp;
+      unsigned hi = 0u, lo = 0u;
+      if (i >= 1) {
+        hi = mb[i * words + w0];
+        if (w0 > 0) lo = mb[i * words + w0 - 1];
+      }
+      int mine = 0;
+      for (int j = 0; j < kWarp && i0 - j >= 0; ++j) {
+        const unsigned h = __shfl_sync(0xffffffffu, hi, j);
+        const unsigned l = __shfl_sync(0xffffffffu, lo, j);
+        if (lane == j) mine = curr;
+        const unsigned word = curr / kWarp == w0 ? h : l;
+        if (i0 - j > 0 && curr > 0 && ((word >> (curr % kWarp)) & 1u)) --curr;
+      }
+      if (i >= 0) ob[static_cast<long long>(i) * t_s + mine] = 1.f;
+    }
+  }
+}
+
 // Applies mas_log elementwise: the kernel's logarithm, for a test to hold
 // against torch.log(torch.clamp(p, eps)).
 __global__ void mas_log_kernel(const float* __restrict__ p, float* __restrict__ out,
@@ -641,34 +782,60 @@ cudaError_t launch(const float* attn, const int* in_lens, const int* out_lens,
 // Columns a lane of the chain warp owns at T_s (the K of the instance run).
 extern "C" int ctts_mas_cols_per_lane(int t_s) { return cols_per_lane(t_s); }
 
-// Bytes of shared memory a chain block needs for [t_m, t_s]; the wrapper
-// checks it against the card's limit before launching.
+// Bytes of shared memory a chain block of the warp kernel needs for
+// [t_m, t_s] (its ring and its move bits).
 extern "C" long long ctts_mas_shared_bytes(long long t_m, long long t_s) {
   return layout(t_m, cols_per_lane(static_cast<int>(t_s))).bytes;
 }
 
-// Bytes of device scratch a call needs for [b, t_m, t_s]: the logarithms in
-// step rows, the flags and the ticket.
+// The kernel a shape takes: 0 the warp kernel, 1 the long route.
+extern "C" int ctts_mas_route(long long t_m, long long t_s) {
+  return warp_route(t_m, t_s) ? 0 : 1;
+}
+
+// Bytes of device scratch a call needs for [b, t_m, t_s]: for the warp
+// kernel the logarithms in step rows, the flags and the ticket; for the long
+// route the move words, then the rows where shared memory cannot hold them.
 extern "C" long long ctts_mas_scratch_bytes(long long b, long long t_m,
                                             long long t_s) {
+  if (!warp_route(t_m, t_s))
+    return b * t_m * rows_words(t_s) * 4 + (rows_shared(t_s) ? 0 : b * 2 * t_s * 4);
   const int k = cols_per_lane(static_cast<int>(t_s));
   return b * (scratch_floats(t_m, k) + n_flags(t_m, k)) * 4 + 4;
 }
 
 // attn [B, T_m, T_s] float32 probabilities, in_lens/out_lens [B] int32, out
 // [B, T_m, T_s] float32 (every element is written), scratch of
-// ctts_mas_scratch_bytes (16-byte aligned, any content; the launch zeroes
-// its flags and ticket on the stream first). Returns a cudaError_t (0 =
-// launched); cudaErrorInvalidValue for T_s > 1024 or a shape whose ring and
-// move bits do not fit one block's shared memory.
+// ctts_mas_scratch_bytes (16-byte aligned, any content; the warp kernel's
+// launch zeroes its flags and ticket on the stream first). Any shape: the
+// warp kernel where it fits, else the long route. Returns a cudaError_t
+// (0 = launched).
 extern "C" int ctts_mas(const float* attn, const int* in_lens,
                         const int* out_lens, float* out, void* scratch, int b,
                         int t_m, int t_s, float eps, void* stream) {
   if (b < 0 || t_m < 0 || t_s < 0) return cudaErrorInvalidValue;
   if (b == 0 || t_m == 0 || t_s == 0) return cudaSuccess;
-  if (t_s > 1024 || ctts_mas_shared_bytes(t_m, t_s) > kMaxShared)
-    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!warp_route(t_m, t_s)) {
+    unsigned* moves = static_cast<unsigned*>(scratch);
+    float* rows = nullptr;
+    size_t bytes = 0;
+    if (rows_shared(t_s)) {
+      bytes = 2 * static_cast<size_t>(t_s) * sizeof(float);
+      if (bytes > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            mas_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(bytes));
+        if (err != cudaSuccess) return err;
+      }
+    } else {
+      rows = reinterpret_cast<float*>(moves + static_cast<long long>(b) * t_m *
+                                                  rows_words(t_s));
+    }
+    mas_rows_kernel<<<b, rows_threads(t_s), bytes, s>>>(
+        attn, in_lens, out_lens, out, moves, rows, t_m, t_s, eps);
+    return cudaGetLastError();
+  }
   switch (cols_per_lane(t_s)) {
 #define CTTS_MAS_CASE(K)                                                     \
     case K:                                                                  \

@@ -7,8 +7,11 @@ attn_prior/cwt .npy + metadata txt + speakers.json), and the same batches:
 the shuffle by ``RandomState(seed + epoch)``, the per-host shard, the sort
 by text length inside groups of ``group_size·batch_size`` and the padding to
 shape buckets (next multiple of ``bucket_src``/``bucket_mel``), so that a
-run sees the utterances in the JAX package's order. Files are read with
-``np.load``.
+run sees the utterances in the JAX package's order. A :class:`Dataset`
+reads its files through the threaded C++ reader of
+:mod:`ctts_torch.data.native_loader` (built at first use), as the JAX
+``Dataset`` does, and a file that reader rejects with ``np.load``; without
+a host compiler every file goes through ``np.load``.
 """
 
 import json
@@ -18,6 +21,7 @@ import threading
 
 import numpy as np
 
+from ctts_torch.data import native_loader
 from ctts_torch.text import text_to_sequence
 
 
@@ -112,13 +116,26 @@ class Dataset:
         self._text_lens = None            # token counts, computed on demand
         with open(os.path.join(self.preprocessed_path, "speakers.json")) as f:
             self.speaker_map = json.load(f)
+        # the threaded C++ .npy reader (native/npy_loader.cc), None where
+        # it cannot be built; files read through it and through numpy
+        self._native = (native_loader.NativePrefetcher(8)
+                        if native_loader.build() else None)
+        self.native_reads = self.numpy_reads = 0
 
     def __len__(self):
         return len(self.text)
 
-    @staticmethod
-    def _load_many(paths):
-        return [np.load(p) for p in paths]
+    def _load_many(self, paths):
+        arrays = [None] * len(paths)
+        if self._native is not None:
+            arrays = self._native.fetch(self._native.submit(paths))
+        for i, a in enumerate(arrays):        # rejected or not read: numpy
+            if a is None:
+                arrays[i] = np.load(paths[i])
+                self.numpy_reads += 1
+            else:
+                self.native_reads += 1
+        return arrays
 
     def __getitem__(self, idx):
         basename = self.basename[idx]
@@ -188,13 +205,17 @@ class Dataset:
 
     # ---- batching -------------------------------------------------- #
 
-    def collate(self, samples):
-        """Pack a list of samples into one padded, bucketed batch dict."""
+    def collate(self, samples, pad_to=None):
+        """Pack a list of samples into one padded, bucketed batch dict.
+        ``pad_to`` maps the buckets (T_s, T_m) to the lengths to pad to
+        (at least the buckets): a data-parallel step's largest."""
         B = len(samples)
         T_s = _round_up(max(s["text"].shape[0] for s in samples),
                         self.bucket_src)
         T_m = _round_up(max(s["mel"].shape[0] for s in samples),
                         self.bucket_mel)
+        if pad_to is not None:
+            T_s, T_m = pad_to((T_s, T_m))
         n_mel = samples[0]["mel"].shape[1]
 
         def pad1(key, dtype=np.float32, T=None):
@@ -292,15 +313,15 @@ class Dataset:
         return out
 
     def batches(self, group_size=4, shuffle=True, seed=0, epoch=0,
-                num_shards=1, shard=0, start=0):
+                num_shards=1, shard=0, start=0, pad_to=None):
         """Yield padded batch dicts; sort-by-length inside groups of
         group_size·batch_size (reference train.py:45-49, dataset.py:229-248).
         num_shards/shard give per-host sharding (DistributedSampler
         equivalent); ``start`` skips the epoch's first batches without
-        reading them (a resumed run)."""
+        reading them (a resumed run); ``pad_to`` as in :meth:`collate`."""
         for sub in self._order(group_size, shuffle, seed, epoch, num_shards,
                                shard)[start:]:
-            yield self.collate([self[i] for i in sub])
+            yield self.collate([self[i] for i in sub], pad_to)
 
     def n_batches(self, group_size=4, num_shards=1, shard=0):
         """Batches per epoch (the same for every shuffle)."""

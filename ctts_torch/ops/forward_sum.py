@@ -9,8 +9,10 @@ log-softmax, the interleave into S = 2*T_s + 1 lattice states, the finals'
 logsumexp and the normalisation are torch ops; the lattice itself is
 :func:`ctc_state_nll`, a ``torch.autograd.Function`` over two kernels of
 ``csrc/forward_sum.cu`` on the card (forward: the alpha and beta recursions
-in one launch, both saved, or alpha alone where no gradient is wanted;
-backward: the gradient, elementwise from them)
+in one launch, both saved, or alpha alone where no gradient is wanted, by
+one state a thread up to 1024 states and several past them; backward: the
+gradient,
+elementwise from them)
 and over their plain versions, :func:`ctc_alpha_plain`,
 :func:`ctc_beta_plain` and :func:`ctc_grad_plain`, on the CPU.
 """
@@ -25,9 +27,16 @@ from ctts_torch.parallel.tensor_parallel import global_mean, global_sum
 BLANK_LOGPROB = -1.0
 NEG = -1e9
 
-# kernel launches since the last reset (read by chip_smoke.py)
+# kernel launches since the last reset (read by chip_smoke.py): the
+# lattice's one-state-a-thread instances (S <= 1024), its wide instance
+# (S > 1024), and the gradient
 lattice_launches = 0
+wide_lattice_launches = 0
 grad_launches = 0
+
+# csrc/forward_sum.cu's kMaxThreads: the most states its one-state-a-thread
+# instances take; past them the wide instance
+MAX_THREADS = 1024
 
 
 def _log_softmax(x):
@@ -116,17 +125,16 @@ def _lib():
     fn = lib.ctts_ctc_lattice
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
+        lib.ctts_ctc_scratch_bytes.argtypes = [ctypes.c_longlong,
+                                               ctypes.c_int]
+        lib.ctts_ctc_scratch_bytes.restype = ctypes.c_longlong
         fn = lib.ctts_ctc_grad
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
-
-
-# csrc/forward_sum.cu: one thread a state in one block
-MAX_STATES = 1024
 
 
 def _check(em, floats, lens):
@@ -136,11 +144,6 @@ def _check(em, floats, lens):
     if em.dim() != 3:
         raise ValueError(f"the CTC kernels take [B, T_m, S], got "
                          f"{tuple(em.shape)}")
-    if em.shape[2] > MAX_STATES:
-        raise ValueError(
-            f"the card's CTC lattice runs one thread a state and takes at "
-            f"most S = {MAX_STATES} states (text axis <= 511), got "
-            f"{tuple(em.shape)}; see ROADMAP.md §3 L2")
     B = em.shape[0]
     for t in (em, *floats):
         if t.dtype != torch.float32:
@@ -159,7 +162,7 @@ def ctc_lattice(em, in_lens, out_lens, with_beta=True):
     """em [B, T_m, S] float32 state log-emissions, in_lens and out_lens [B]
     int32 → the alpha and beta lattices, each [B, T_m, S], in one launch;
     beta is None when ``with_beta`` is false."""
-    global lattice_launches
+    global lattice_launches, wide_lattice_launches
     if em.device.type == "cpu":
         return (ctc_alpha_plain(em, out_lens),
                 ctc_beta_plain(em, in_lens, out_lens) if with_beta else None)
@@ -168,12 +171,20 @@ def ctc_lattice(em, in_lens, out_lens, with_beta=True):
     lib = _lib()
     alpha = torch.empty_like(em)
     beta = torch.empty_like(em) if with_beta else None
+    # the wide instance's rows, where they do not fit shared memory
+    n = lib.ctts_ctc_scratch_bytes(2 * B if with_beta else B, S)
+    scratch = torch.empty(n // 4, dtype=torch.float32,
+                          device=em.device) if n else None
     err = lib.ctts_ctc_lattice(
         em.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
         alpha.data_ptr(), beta.data_ptr() if with_beta else None, B, T_m, S,
+        scratch.data_ptr() if n else None,
         torch.cuda.current_stream(em.device).cuda_stream)
     kernels.check(err, lib, "ctc_lattice")
-    lattice_launches += 1
+    if S <= MAX_THREADS:
+        lattice_launches += 1
+    else:
+        wide_lattice_launches += 1
     return alpha, beta
 
 

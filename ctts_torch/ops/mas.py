@@ -4,7 +4,11 @@
 frames (a path starts at (0, 0), moves down or diagonally, and ends at
 (mel_len-1, text_len-1)) and a backtrack to a {0, 1} alignment. On the card
 it launches ``csrc/mas.cu`` on the probabilities, which computes their
-logarithm itself, as the Pallas forward does; on the CPU it runs
+logarithm itself, as the Pallas forward does: the warp kernel where its
+ring and move bits fit one block's shared memory (T_s <= 1024, T_m up to
+1442-10306 frames by T_s), else the long route, one barrier a frame with the
+move bits in device memory (:func:`route` names the kernel a shape takes);
+on the CPU it runs
 :func:`b_mas_plain`, the semantics of ``_mas_single`` / ``b_mas_scan``, on
 the logarithm of one torch expression. The kernel's logarithm is that
 expression's bits (``logf`` at full precision, the clamp keeping a NaN), and
@@ -20,10 +24,11 @@ import torch
 from ctts_torch.ops import kernels
 
 NEG = -1e30
-_MAX_SHARED = 232448        # bytes of shared memory one block may use (sm_90)
 
-# kernel launches since the last reset (read by chip_smoke.py)
+# kernel launches since the last reset (read by chip_smoke.py): the warp
+# kernel's and the long route's
 launches = 0
+rows_launches = 0
 
 
 def _log_attn(attn_soft, eps):
@@ -77,6 +82,8 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.ctts_mas_shared_bytes.argtypes = [ctypes.c_longlong] * 2
         lib.ctts_mas_shared_bytes.restype = ctypes.c_longlong
+        lib.ctts_mas_route.argtypes = [ctypes.c_longlong] * 2
+        lib.ctts_mas_route.restype = ctypes.c_int
         lib.ctts_mas_scratch_bytes.argtypes = [ctypes.c_longlong] * 3
         lib.ctts_mas_scratch_bytes.restype = ctypes.c_longlong
         lib.ctts_mas_log.argtypes = [ctypes.c_void_p] * 2 + [
@@ -86,10 +93,18 @@ def _lib():
 
 
 def shared_bytes(T_m, T_s):
-    """Bytes of shared memory one block of the kernel needs at [T_m, T_s]
-    (its ring of step rows and its move bits), as ``csrc/mas.cu``
-    computes them."""
+    """Bytes of shared memory one block of the warp kernel needs at
+    [T_m, T_s] (its ring of step rows and its move bits), as
+    ``csrc/mas.cu`` computes them."""
     return _lib().ctts_mas_shared_bytes(T_m, T_s)
+
+
+def route(T_m, T_s):
+    """The kernel of ``csrc/mas.cu`` that [T_m, T_s] takes, as its
+    ``ctts_mas_route`` picks it: "warp" (``mas_kernel<K>``) where
+    T_s <= 1024 and its shared memory fits one block, else "rows"
+    (``mas_rows_kernel``). Needs the built library."""
+    return "rows" if _lib().ctts_mas_route(T_m, T_s) else "warp"
 
 
 def b_mas(attn_soft, in_lens, out_lens, eps=1e-12):
@@ -97,7 +112,7 @@ def b_mas(attn_soft, in_lens, out_lens, eps=1e-12):
     out_lens [B] mel lengths, int32. Returns the hard alignment
     [B, T_m, T_s] float32 in {0, 1}; rows at or past mel_len and columns at
     or past text_len are zero. No gradient flows."""
-    global launches
+    global launches, rows_launches
     if attn_soft.device.type == "cpu":
         return b_mas_plain(attn_soft, in_lens, out_lens, eps)
     if attn_soft.device.type != "cuda":
@@ -114,15 +129,10 @@ def b_mas(attn_soft, in_lens, out_lens, eps=1e-12):
             raise ValueError(f"{name} must be contiguous on "
                              f"{attn_soft.device}")
     lib = _lib()
-    need = lib.ctts_mas_shared_bytes(T_m, T_s)
-    if T_s > 1024 or need > _MAX_SHARED:
-        raise ValueError(
-            f"the MAS kernel takes T_s <= 1024 and a ring of step rows plus "
-            f"the move bits of T_m + 62 frames within {_MAX_SHARED} bytes of "
-            f"shared memory; [{T_m}, {T_s}] needs {need}")
     probs = attn_soft.detach().float().contiguous()
     out = torch.empty_like(probs)
-    # the kernel's log blocks write the logarithms here and flag each chunk
+    # the warp kernel's log blocks write the logarithms here and flag each
+    # chunk; the long route keeps its move bits (and rows) here
     scratch = torch.empty(lib.ctts_mas_scratch_bytes(B, T_m, T_s),
                           dtype=torch.uint8, device=attn_soft.device)
     err = lib.ctts_mas(
@@ -130,7 +140,10 @@ def b_mas(attn_soft, in_lens, out_lens, eps=1e-12):
         out.data_ptr(), scratch.data_ptr(), B, T_m, T_s, eps,
         torch.cuda.current_stream(attn_soft.device).cuda_stream)
     kernels.check(err, lib, "b_mas")
-    launches += 1
+    if lib.ctts_mas_route(T_m, T_s):
+        rows_launches += 1
+    else:
+        launches += 1
     return out
 
 

@@ -146,6 +146,34 @@ def shard_batch(batch, grid):
     return {k: take(v) for k, v in batch.items()}
 
 
+def host_data_group(grid):
+    """A gloo twin of ``grid``'s data group, for host integers that a
+    thread other than the step's exchanges (the streaming loader's step
+    lengths): two threads must not issue collectives on one group. None
+    where the data axis has one rank. Every rank calls it, in the same
+    order, since it creates the groups."""
+    if grid is None or grid.data == 1:
+        return None
+    cells = np.arange(grid.data * grid.model).reshape(grid.data, grid.model)
+    mine = None
+    for m in range(grid.model):
+        g = dist.new_group(cells[:, m].tolist(), backend="gloo")
+        if m == grid.model_rank:
+            mine = g
+    return mine
+
+
+def step_lengths(lengths, group):
+    """The step's padded lengths: the largest of each entry of
+    ``lengths`` (this rank's [T_s, T_m]) over ``group``'s ranks, in one
+    all-reduce of two integers; ``lengths`` as they are without a group."""
+    if group is None:
+        return tuple(int(x) for x in lengths)
+    t = torch.tensor([int(x) for x in lengths], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return tuple(int(x) for x in t.tolist())
+
+
 # ---- the tensor-parallel rules -------------------------------------------- #
 
 @dataclasses.dataclass(frozen=True)

@@ -93,6 +93,39 @@ def preprocess_english(text, preprocess_config):
     return np.array(text_to_sequence(phones, cleaners))
 
 
+def preprocess_mandarin(text, preprocess_config):
+    """Hanzi → pinyin (``pypinyin``, tone 3 style, tone 5 for the neutral
+    tone) → phones through the config's lexicon, or the rule-built one of
+    :func:`ctts_torch.text.pinyin_lexicon.build_lexicon` where the config
+    names none; a syllable missing from it reads as ``sp``
+    (synthesize.py:95-116). Needs ``pypinyin``."""
+    from pypinyin import Style, pinyin
+    lexicon = read_lexicon(preprocess_config["path"]["lexicon_path"])
+    if not lexicon:
+        from ctts_torch.text.pinyin_lexicon import build_lexicon
+        lexicon = build_lexicon()
+    phones = []
+    for p in (p[0] for p in pinyin(text, style=Style.TONE3, strict=False,
+                                   neutral_tone_with_five=True)):
+        phones += lexicon[p] if p in lexicon else ["sp"]
+    phones = "{" + " ".join(phones) + "}"
+    print(f"Raw Text Sequence: {text}")
+    print(f"Phoneme Sequence: {phones}")
+    return np.array(text_to_sequence(
+        phones, preprocess_config["preprocessing"]["text"]["text_cleaners"]))
+
+
+def preprocess_text(text, preprocess_config):
+    """The single-mode frontend of the config's language: ``en`` or ``zh``
+    (synthesize.py:241-247); any other raises ValueError."""
+    language = preprocess_config["preprocessing"]["text"]["language"]
+    if language == "en":
+        return preprocess_english(text, preprocess_config)
+    if language == "zh":
+        return preprocess_mandarin(text, preprocess_config)
+    raise ValueError(language)
+
+
 def infer_mels(model, batch, configs, controls=(1.0, 1.0, 1.0),
                max_mel_len=None, bucket=128):
     """Run the acoustic model on a batch of phone IDs.
@@ -242,10 +275,6 @@ def main(argv=None):
 
     configs = get_configs_of(args.dataset, args.config_dir)
     preprocess_config, model_config, train_config = configs
-    language = preprocess_config["preprocessing"]["text"]["language"]
-    if language != "en":
-        raise NotImplementedError(f"language {language!r}: only English is "
-                                  "ported yet")
     device = resolve_device(args.device)
     model = get_model(args.restore_step, configs,
                       packed_ckpt=args.packed_ckpt, device=device)
@@ -260,7 +289,7 @@ def main(argv=None):
         dataset = TextDataset(args.source, preprocess_config, model_config)
         batches = dataset.batches(batch_size=8)
     else:
-        seq = preprocess_english(args.text, preprocess_config)
+        seq = preprocess_text(args.text, preprocess_config)
         speaker, spker_embed = speaker_inputs(args.speaker_id, configs)
         batches = [{"ids": [args.text[:100]],
                     "speakers": np.array([speaker], np.int64),

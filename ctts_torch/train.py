@@ -50,7 +50,9 @@ read the same batches) and takes ``optimizer.batch_size`` utterances a
 step, so the global batch is ``batch_size × data``, as under the JAX
 package's multi-host runs and upstream DDP. The device cache stays on:
 every rank holds the store and draws its shard's indices, padded to the
-longest of the step's shards. The step is the single-device step on the
+longest of the step's shards. The streaming loader pads each rank's batch
+to the step's largest bucket, taken with one all-reduce of two integers
+on the prefetch thread. The step is the single-device step on the
 global batch (``parallel.train_step``). Logs, previews, the profile and the
 checkpoint files come from rank 0; a checkpoint holds whole tensors,
 gathered from every rank, and restores under any grid. Validation runs the
@@ -58,6 +60,7 @@ whole validation set on every rank: its means are one process's.
 """
 
 import argparse
+import functools
 import itertools
 import os
 import time
@@ -228,8 +231,9 @@ def _train(configs, restore_step, max_steps, dev, vocoder_ckpt,
                                                   prepare_model_config)
     from ctts_torch.models.registry import block_hidden
     from ctts_torch.ops.kernels import launch_counts
-    from ctts_torch.parallel.mesh import (check_tp_coverage, make_mesh,
-                                          shard_model_)
+    from ctts_torch.parallel.mesh import (check_tp_coverage,
+                                          host_data_group, make_mesh,
+                                          shard_model_, step_lengths)
     from ctts_torch.parallel.train_step import (batch_to_device,
                                                 create_train_state,
                                                 make_eval_step,
@@ -302,6 +306,19 @@ def _train(configs, restore_step, max_steps, dev, vocoder_ckpt,
             say(f"device cache skipped: store {dc.nbytes / 2 ** 20:.0f} "
                   f"MiB > budget {budget} MiB; streaming loader", flush=True)
     compress = _compress_f16 if transfer_dtype == "float16" else (lambda b: b)
+    if cache is None:
+        say(f"streaming loader: .npy files read by "
+            + ("the native prefetcher (native/npy_loader.cc)"
+               if train_set._native is not None else "numpy (no native "
+               "prefetcher)"), flush=True)
+    pad_to = None
+    if cache is None and n_data > 1:
+        # every data rank pads its streamed batch to the step's largest
+        # lengths, as the cache pads to the longest of the step's shards:
+        # one all-reduce of two integers on the prefetch thread, over a
+        # gloo group of its own
+        loader_group = host_data_group(grid)
+        pad_to = functools.partial(step_lengths, group=loader_group)
 
     def stage(batch):                      # runs on the prefetch thread
         return batch["ids"], batch_to_device(_device_batch(compress(batch)),
@@ -338,10 +355,13 @@ def _train(configs, restore_step, max_steps, dev, vocoder_ckpt,
                         epoch=epoch, seed=seed, start=b0, num_shards=n_data,
                         shard=s), n_data, start)
             else:
+                # no read-ahead past the run's last step: the prefetch
+                # thread's last collective is made before that step
                 batch_iter = prefetch_iter(map(stage, itertools.islice(
                     train_set.batches(epoch=epoch, seed=seed, start=start,
-                                      num_shards=n_data, shard=data_rank),
-                    per_epoch - start)))
+                                      num_shards=n_data, shard=data_rank,
+                                      pad_to=pad_to),
+                    min(per_epoch - start, total_step - step))))
             for batch in batch_iter:
                 if cache is not None:
                     idx = batch[data_rank][0]
@@ -411,6 +431,10 @@ def _train(configs, restore_step, max_steps, dev, vocoder_ckpt,
         if step % save_step:
             save_checkpoint(ckpt_dir, state, step)
             say(f"saved checkpoint @ {step}", flush=True)
+        if cache is None:
+            say(f"streaming loader read {train_set.native_reads} train "
+                f"files through the native prefetcher and "
+                f"{train_set.numpy_reads} through numpy", flush=True)
     finally:
         train_logger.close()
         val_logger.close()

@@ -12,9 +12,9 @@ It is read with ``weights_only=True``.
 A checkpoint holds whole tensors whatever the process grid that wrote it
 (the JAX CLI's gathered save, train.py:255-262): on a grid every rank
 calls :func:`save_checkpoint`, the tensor-parallel slices of the
-parameters and of the optimizer's moments are gathered over the model
-group, the accumulator is summed over the data group, and rank 0 alone
-writes. :func:`restore_checkpoint` cuts each rank's slices from the whole
+parameters, of the optimizer's moments and of its accumulator (the data
+group's mean micro-gradient, which every data rank holds) are gathered
+over the model group, and rank 0 alone writes. :func:`restore_checkpoint` cuts each rank's slices from the whole
 tensors, so a checkpoint of any grid restores under any other, or in one
 process. Every data rank's dropout stream is saved (gathered over the data
 group; model-group peers share theirs), so a run resumed on the same data
@@ -64,15 +64,14 @@ def _per_param(state, optimizer, fn):
 
 
 def _whole_optimizer(state):
-    """The optimizer's state with whole tensors (every rank takes part)."""
+    """The optimizer's state with whole tensors (every rank takes part).
+    Every data rank holds the whole accumulator (the optimizer accumulates
+    reduced micro-gradients), so it is gathered on the model group only."""
     from ctts_torch.parallel.mesh import gather_params
-    from ctts_torch.parallel.tensor_parallel import all_reduce
     opt = dict(state.optimizer.state_dict())
     grid = state.grid
     if grid is None:
         return opt
-    if opt["acc"] is not None and grid.data_group is not None:
-        opt["acc"] = [all_reduce(a, grid.data_group) for a in opt["acc"]]
     return _per_param(state, opt, lambda sd: gather_params(
         sd, state.model.tp_specs, grid))
 
@@ -146,8 +145,6 @@ def restore_checkpoint(ckpt_dir, state, step=None):
         model_sd = shard_params(model_sd, state.model.tp_specs, grid)
         optimizer = _per_param(state, optimizer, lambda sd: shard_params(
             sd, state.model.tp_specs, grid))
-        if optimizer["acc"] is not None:        # each rank's share of it
-            optimizer["acc"] = [a / grid.data for a in optimizer["acc"]]
     state.model.load_state_dict(model_sd, strict=True)
     state.optimizer.load_state_dict(optimizer)
     state.step = int(saved["step"])

@@ -17,9 +17,11 @@ direction before the rate scales it. ``grad_acc_step = k > 1`` is
 micro-gradients, one clipped update every k calls (none in between), and the
 schedule counting updates.
 
-On a (data, model) grid (``grid``, a ``parallel.mesh.Grid``) each update
+On a (data, model) grid (``grid``, a ``parallel.mesh.Grid``) each call
 first sums the gradients over the data group, in one all-reduce of the
-flat gradients (once per update: with k > 1, of the accumulated mean),
+flat gradients (with k > 1 each micro-gradient is reduced so, and the
+reduced ones are accumulated: the norm of every call is then the global
+micro-gradient's, as ``optax.global_norm`` logs it in the JAX step),
 sums over the model group the gradients of the replicated parameters that
 each model rank applies to its own heads only (``tp_partial``: the
 lstransformer's per-head norms and projection), gives every other
@@ -29,8 +31,7 @@ backward are not deterministic, so its last bits can differ, and peers
 that update apart drift apart), and clips by the global norm: the squares
 of the tensor-parallel slices summed over the model group, each
 replicated parameter counted once. Every rank then applies the same clip
-factor and the single-device update. The norm
-returned at an accumulating call is that of this rank's micro-gradient.
+factor and the single-device update.
 """
 
 import torch
@@ -136,8 +137,7 @@ class NoamAdam:
 
     @torch.no_grad()
     def update(self, grads):
-        if self.acc_steps == 1:
-            grads = self._reduce(grads)
+        grads = self._reduce(grads)
         norm = self._norm(grads)
         if self.acc_steps > 1:
             i = self.mini_step
@@ -149,7 +149,7 @@ class NoamAdam:
             self.mini_step = (i + 1) % self.acc_steps
             if self.mini_step:
                 return norm
-            grads, self.acc = self._reduce(self.acc), None
+            grads, self.acc = self.acc, None
             clip_norm = self._norm(grads)
         else:
             clip_norm = norm

@@ -15,6 +15,7 @@ import os
 import sys
 import traceback
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -28,10 +29,11 @@ BLOCKS = ("transformer_fs2", "transformer", "conformer", "reformer",
           "fastformer", "lstransformer")
 
 
-def configs(case, heads=2):
+def configs(case, heads=2, acc=1):
     """The tiny configs of a case: a block name, or ``du2021`` /
     ``liu2021`` (the fs2 model with that prosody model, ``train_sup``).
-    ``heads``: the transformer-section and reformer blocks' head count."""
+    ``heads``: the transformer-section and reformer blocks' head count;
+    ``acc``: the optimizer's ``grad_acc_step``."""
     from ctts_torch.models.comp_trans_tts import prepare_model_config
     from ctts_torch.utils.testing import tiny_configs
     pre, mc, tr = tiny_configs()
@@ -50,6 +52,7 @@ def configs(case, heads=2):
         pre["preprocessing"]["pitch"]["pitch_type"] = "frame"
         pre["preprocessing"]["energy"]["feature"] = "frame_level"
         tr["prosody"]["prosody_loss_enable_steps"] = 0
+    tr["optimizer"]["grad_acc_step"] = acc
     return pre, prepare_model_config(pre, mc), tr
 
 
@@ -57,10 +60,57 @@ def mode_of(case):
     return "train_sup" if case in ("du2021", "liu2021") else "train_unsup"
 
 
-def global_batch(case):
+def global_batch(case, seed=0):
     from ctts_torch.utils.testing import synth_batch
-    return synth_batch(B=B, T_s=12, T_m=32, seed=0, src_lens=SRC_LENS,
+    return synth_batch(B=B, T_s=12, T_m=32, seed=seed, src_lens=SRC_LENS,
                        mel_lens=MEL_LENS, sup=mode_of(case) == "train_sup")
+
+
+def loader_batch(batch, T_s=None, T_m=None):
+    """``batch`` as the streaming loader collates it (``Dataset.collate``):
+    every per-token and per-frame array at T_s tokens and T_m frames (by
+    default the rows' own longest) and zero past each row's lengths."""
+    src, mel = batch["src_lens"], batch["mel_lens"]
+    T_s = T_s or int(src.max())
+    T_m = T_m or int(mel.max())
+    n0, m0 = batch["texts"].shape[1], batch["mels"].shape[1]
+    masks = {"s": (np.arange(T_s)[None] < src[:, None], T_s, n0),
+             "m": (np.arange(T_m)[None] < mel[:, None], T_m, m0)}
+
+    def fit(a, axes):
+        if a is None:
+            return None
+        out = np.zeros((a.shape[0], *[masks[x][1] for x in axes],
+                        *a.shape[1 + len(axes):]), a.dtype)
+        keep = tuple(slice(0, min(masks[x][1], masks[x][2])) for x in axes)
+        out[(slice(None), *keep)] = a[(slice(None), *keep)]
+        for i, x in enumerate(axes):
+            shape = [a.shape[0]] + [1] * (out.ndim - 1)
+            shape[1 + i] = masks[x][1]
+            out = out * masks[x][0].reshape(shape).astype(a.dtype)
+        return out
+
+    out = dict(batch)
+    out["texts"] = fit(batch["texts"], "s")
+    out["mels"] = fit(batch["mels"], "m")
+    out["energies"] = fit(batch["energies"],
+                          "s" if batch["energies"].shape[1] == n0 else "m")
+    out["durations"] = fit(batch["durations"], "s")
+    out["attn_priors"] = fit(batch["attn_priors"], "ms")
+    out["pitch_data"] = {k: fit(v, "m") if v.ndim > 1 else v
+                         for k, v in batch["pitch_data"].items()}
+    return out
+
+
+def streamed(batch, grid, pad=True):
+    """This rank's rows as the train CLI's streaming loader hands them to
+    the step: collated at the rows' own lengths, then (``pad``) at the
+    step's largest over the data group (``parallel.mesh.step_lengths`` on
+    the loader's gloo group, as ``ctts_torch.train`` takes them)."""
+    from ctts_torch.parallel.mesh import host_data_group, step_lengths
+    own = (int(batch["src_lens"].max()), int(batch["mel_lens"].max()))
+    group = host_data_group(grid) if pad else None
+    return loader_batch(batch, *step_lengths(own, group))
 
 
 def build_model(case, dropout=False, seed=3, heads=2):
@@ -90,12 +140,12 @@ def build_model(case, dropout=False, seed=3, heads=2):
     return model
 
 
-def train_state(case, grid=None, dropout=False, step=STEP0):
+def train_state(case, grid=None, dropout=False, step=STEP0, acc=1):
     from ctts_torch.models.registry import block_hidden
     from ctts_torch.parallel.mesh import shard_model_
     from ctts_torch.parallel.train_step import create_train_state
     from ctts_torch.utils.optimizer import build_optimizer
-    pre, mc, tr = configs(case)
+    pre, mc, tr = configs(case, acc=acc)
     model = build_model(case, dropout)
     if grid is not None:
         shard_model_(model, grid)
@@ -113,6 +163,19 @@ def run_steps(case, state, batch, n):
     tb = batch_to_device(batch, "cpu")
     return [{k: float(v) for k, v in step(state, tb).items()}
             for _ in range(n)]
+
+
+def run_varied(case, state, grid, n):
+    """n steps as :func:`run_steps`, each on the global batch of seed
+    ``step % 2`` (this rank's rows of it on a grid), so accumulated
+    micro-gradients differ in direction and not in scale alone."""
+    from ctts_torch.parallel.mesh import shard_batch
+    losses = []
+    for _ in range(n):
+        batch = global_batch(case, seed=state.step % 2)
+        losses += run_steps(case, state, batch if grid is None
+                            else shard_batch(batch, grid), 1)
+    return losses
 
 
 def param_names(state):
@@ -162,11 +225,16 @@ def job_train(job, grid):
     """``steps`` steps of ``case`` on the grid; rank 0 keeps the whole
     first moments after the first update and the whole parameters after
     the last, every rank its own slices (``keep_local``) and the gradients
-    its updates were given before any collective (``raw``)."""
+    its updates were given before any collective (``raw``). ``acc``
+    sets ``grad_acc_step``; ``stream`` hands the step this rank's rows as
+    the streaming loader does (``pad: false``: at their own lengths)."""
     from ctts_torch.parallel.mesh import gather_params, shard_batch
     case = job["case"]
-    state = train_state(case, grid, dropout=job.get("dropout", False))
+    state = train_state(case, grid, dropout=job.get("dropout", False),
+                        acc=job.get("acc", 1))
     batch = shard_batch(global_batch(case), grid)
+    if job.get("stream"):
+        batch = streamed(batch, grid, job.get("pad", True))
     raw = keep_raw_grads(state) if job.get("raw") else None
     losses = run_steps(case, state, batch, 1)
     mu = whole_mu(state, grid)
@@ -194,28 +262,48 @@ def job_infer(job, grid):
 
 
 def job_save(job, grid):
-    """Two steps on the grid, then a checkpoint (rank 0 writes), then
-    ``after`` more steps."""
+    """``calls`` steps on the grid (2 by default), then a checkpoint (rank 0
+    writes), then ``after`` more steps; ``acc`` sets ``grad_acc_step``
+    (and the steps then alternate two batches, :func:`run_varied`).
+    Rank 0 keeps the whole first moments after the last step."""
     from ctts_torch.parallel.mesh import shard_batch
     from ctts_torch.utils.checkpoint import save_checkpoint
-    case = job["case"]
-    state = train_state(case, grid, dropout=job.get("dropout", False))
+    case, acc = job["case"], job.get("acc", 1)
+    state = train_state(case, grid, dropout=job.get("dropout", False),
+                        acc=acc)
     batch = shard_batch(global_batch(case), grid)
-    losses = run_steps(case, state, batch, 2)
+
+    def run(n):
+        return (run_varied(case, state, grid, n) if acc > 1 else
+                run_steps(case, state, batch, n))
+    losses = run(job.get("calls", 2))
     save_checkpoint(job["ckpt_dir"], state, state.step)
-    return {"losses": losses + run_steps(case, state, batch,
-                                         job.get("after", 0))}
+    losses += run(job.get("after", 0))
+    return keep_mu({"losses": losses}, state, grid)
 
 
 def job_resume(job, grid):
-    """Restore ``ckpt_dir``'s step on the grid and take two more steps."""
+    """Restore ``ckpt_dir``'s step ``ckpt_step`` (the latest without one)
+    on the grid and take two more steps; ``acc`` sets ``grad_acc_step``
+    (the steps then as in :func:`job_save`).
+    Rank 0 keeps the whole first moments after them."""
     from ctts_torch.parallel.mesh import shard_batch
     from ctts_torch.utils.checkpoint import restore_checkpoint
     case = job["case"]
-    state = train_state(case, grid, dropout=job.get("dropout", False))
-    restore_checkpoint(job["ckpt_dir"], state, job["ckpt_step"])
-    return {"losses": run_steps(case, state,
-                                shard_batch(global_batch(case), grid), 2)}
+    state = train_state(case, grid, dropout=job.get("dropout", False),
+                        acc=job.get("acc", 1))
+    restore_checkpoint(job["ckpt_dir"], state, job.get("ckpt_step"))
+    losses = (run_varied(case, state, grid, 2) if job.get("acc", 1) > 1 else
+              run_steps(case, state, shard_batch(global_batch(case), grid),
+                        2))
+    return keep_mu({"losses": losses}, state, grid)
+
+
+def keep_mu(res, state, grid):
+    mu = whole_mu(state, grid)
+    if grid.rank == 0:
+        res["mu"] = mu
+    return res
 
 
 JOBS = {"train": job_train, "infer": job_infer, "save": job_save,

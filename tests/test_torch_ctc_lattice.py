@@ -15,6 +15,13 @@ model repeats that geometry and arithmetic; it reads the constants and
 expressions it models from the CUDA source, so a change there fails here
 until the model follows. The card tests (tests/test_torch_gpu.py) hold the
 kernels themselves.
+
+Past 1024 states the wide instance keeps one block a chain and one barrier
+a frame, with K = ceil(S/1024) states a thread (s = tid + k·blockDim), the
+two rows S floats each (shared memory, or a global scratch past what a
+block may hold), the state's own value read from its row, and em read one
+frame ahead for the first kWideAhead states of a thread (the others on the
+chain). :class:`WideBlock` models it.
 """
 
 import pathlib
@@ -37,7 +44,9 @@ CU = (pathlib.Path(__file__).resolve().parents[1] / "ctts_torch" / "csrc"
 NEG = np.float32(-1e9)   # kNeg
 CHUNK = 8                # frames of em read ahead (kChunk)
 WARP = 32
-MAX_S = 1024             # the kernels take S <= 1024
+MAX_S = 1024             # one state a thread up to S = 1024 (kMaxThreads)
+WIDE_AHEAD = 8           # the wide instance's states read ahead (kWideAhead)
+MAX_SHARED = 232448      # bytes of shared memory a block may use (kMaxShared)
 # the model against the plain version (float32 on both sides; numpy's exp
 # and log against PyTorch's differ by ulps): relative to max(1, |plain|)
 TOL_LATTICE = 2e-6
@@ -408,9 +417,246 @@ def test_model_mirrors_the_kernel_source():
             "threads <= 512 ? ctc_lattice_kernel : ctc_lattice_kernel_1024;",
             "const bool is_beta = static_cast<int>(blockIdx.x) >= n_b;",
             # the gradient
-            "const unsigned row = idx / n_s, b = row / t_m;",
+            "const I row = idx / n_s, b = row / t_m;",
             "? -expf(alpha[idx] + beta[idx] - log_l[b]) * g_out[b]",
-            "if (total >= (1u << 31)) return cudaErrorInvalidValue;",
-            "n_s > 1024"):
+            "if (total < (1u << 31))",
+            "if (n_s <= kMaxThreads) {"):
         assert line in src, line
     assert MAX_S == 1024
+    assert "n_s > 1024" not in src
+
+
+# ---- the wide instance (S > 1024) ----------------------------------------- #
+
+def wide_shape(S):
+    """(threads, states a thread) of the wide instance: K = ceil(S/1024),
+    threads ceil(S/K) in whole warps."""
+    k = -(-S // MAX_S)
+    return -(-(-(-S // k)) // WARP) * WARP, k
+
+
+class WideBlock:
+    """One block of the wide instance: thread tid owns states tid + k·n,
+    k < K; the two rows hold S floats each (poisoned with NaN until
+    written); each frame reads the row of the other parity and writes its
+    own after one barrier. ``reads`` counts the reads of each em cell."""
+
+    def __init__(self, em):
+        self.em = np.asarray(em, np.float32)
+        self.T_m, self.S = self.em.shape
+        self.n, self.K = wide_shape(self.S)
+        owner = np.arange(self.n)[:, None] + np.arange(self.K)[None] * self.n
+        self.owned = owner[owner < self.S]           # every live (tid, k)
+        self.k_of = (np.arange(self.S) // self.n)    # k of state s
+        self.rows = np.full(2 * self.S, np.nan, np.float32)
+        self.reads = np.zeros((self.T_m, self.S), np.int64)
+
+    def row(self, parity):
+        return self.rows[parity * self.S:(parity + 1) * self.S]
+
+    def read(self, t, states):
+        np.add.at(self.reads, (t, states), 1)
+        return self.em[t, states]
+
+    def ahead(self, t):
+        """em[t] of the states read ahead (k < kWideAhead), read the frame
+        before; the others are read on the chain, in frame t itself."""
+        near = np.arange(self.S)[self.k_of < WIDE_AHEAD]
+        far = np.arange(self.S)[self.k_of >= WIDE_AHEAD]
+        e = np.empty(self.S, np.float32)
+        e[near] = self.read(t, near)
+        return e, far
+
+    def alpha(self, olen):
+        T_m, S = self.T_m, self.S
+        olen = min(max(int(olen), 0), T_m)
+        s = np.arange(S)
+        out = np.zeros((T_m, S), np.float32)
+        a = np.full(S, NEG, np.float32)
+        a[:2] = self.read(0, s[:2])
+        self.row(0)[:] = a
+        out[0] = a
+        for t in range(1, olen):
+            e, far = self.ahead(t)
+            e[far] = self.read(t, far)
+            prev = self.row((t - 1) & 1)
+            p1 = np.where(s >= 1, prev[np.maximum(s - 1, 0)], NEG)
+            p2 = np.where((s % 2 == 1) & (s >= 3), prev[np.maximum(s - 2, 0)],
+                          NEG)
+            a = lse3(prev, p1, p2) + e
+            self.row(t & 1)[:] = a
+            out[t] = a
+        out[max(olen, 1):] = self.row((max(olen, 1) - 1) & 1)
+        return out
+
+    def beta(self, ilen, olen):
+        T_m, S = self.T_m, self.S
+        olen = min(max(int(olen), 0), T_m)
+        s = np.arange(S)
+        last = 2 * int(ilen)
+        fin = np.where((s == last) | (s == last - 1), np.float32(0),
+                       NEG).astype(np.float32)
+        out = np.zeros((T_m, S), np.float32)
+        if olen < 2:
+            out[:] = fin
+            return out
+        self.row((olen - 2) & 1)[:] = self.read(olen - 1, s) + fin
+        for t in range(olen - 2, -1, -1):
+            e, far = self.ahead(t)
+            e[far] = self.read(t, far)
+            nxt = self.row(t & 1)
+            bt = lse3(nxt, np.where(s + 1 < S, nxt[np.minimum(s + 1, S - 1)],
+                                    NEG),
+                      np.where((s % 2 == 1) & (s + 2 < S),
+                               nxt[np.minimum(s + 2, S - 1)], NEG))
+            out[t] = bt
+            self.row((t - 1) & 1)[:] = e + bt
+        out[olen - 1:] = fin
+        return out
+
+
+def wide_lattices(em, in_lens, out_lens):
+    alpha = np.stack([WideBlock(e).alpha(o) for e, o in zip(em, out_lens)])
+    beta = np.stack([WideBlock(e).beta(i, o)
+                     for e, i, o in zip(em, in_lens, out_lens)])
+    return alpha, beta
+
+
+WIDE_CASES = {
+    # S = 1025, 1281 (the long step's 640 tokens) and 2049: two and three
+    # states a thread over every state of the axis (the dead ones past
+    # 2·in_len + 1 included), ragged lengths with reachable ends, and
+    # out_len < in_len, 0, 1 and 2
+    "1025": (5, 40, 512, [512, 20, 7, 30], [40, 37, 10, 2]),
+    "1281": (6, 60, 640, [640, 1, 25, 50], [60, 0, 1, 60]),
+    "2049": (7, 50, 1024, [1024, 30, 15], [50, 49, 50]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_wide_model_matches_the_plain_versions_and_the_jax_scan(name):
+    """The wide instance's alpha and beta as the plain versions compute
+    them, its -logL as ``_ctc_nll_scan`` (the sentinel's scale where the
+    end is unreachable), and every em cell the chains use read once."""
+    seed, T_m, T_s, il, ol = WIDE_CASES[name]
+    em, il, ol = case(seed, T_m, T_s, il, ol)
+    alpha, beta = wide_lattices(em, il, ol)
+    t_em = torch.from_numpy(em.copy())
+    ref_a = t_fs.ctc_alpha_plain(t_em, torch.from_numpy(ol)).numpy()
+    ref_b = t_fs.ctc_beta_plain(t_em, torch.from_numpy(il),
+                                torch.from_numpy(ol)).numpy()
+    assert lattice_err(alpha, ref_a) <= TOL_LATTICE
+    assert lattice_err(beta, ref_b) <= TOL_LATTICE
+    nll = np.asarray(j_fs._ctc_nll_scan(jnp.asarray(em), jnp.asarray(il),
+                                        jnp.asarray(ol)))
+    ll = log_l(alpha, il)
+    assert np.all(np.abs(-ll - nll) <= TOL_NLL * np.maximum(1, np.abs(nll)))
+    for b, o in enumerate(ol):
+        blk = WideBlock(em[b])
+        blk.alpha(o)
+        want = np.zeros_like(blk.reads)
+        want[0, :2] = 1
+        want[1:max(int(o), 1)] = 1
+        assert np.array_equal(blk.reads, want)
+
+
+def test_wide_model_past_the_read_ahead_matches_the_plain_versions():
+    """S = 8193: nine states a thread, the ninth read on the chain, not
+    ahead; every em cell the chains use read once."""
+    em, il, ol = case(8, 6, 4096, [4096, 2], [6, 5])
+    alpha, beta = wide_lattices(em, il, ol)
+    t_em = torch.from_numpy(em.copy())
+    assert lattice_err(alpha, t_fs.ctc_alpha_plain(
+        t_em, torch.from_numpy(ol)).numpy()) <= TOL_LATTICE
+    assert lattice_err(beta, t_fs.ctc_beta_plain(
+        t_em, torch.from_numpy(il), torch.from_numpy(ol)).numpy()) \
+        <= TOL_LATTICE
+    blk = WideBlock(em[0])
+    assert blk.K == 9 and blk.k_of.max() == 8 >= WIDE_AHEAD
+    blk.beta(il[0], ol[0])
+    assert np.array_equal(blk.reads, np.ones_like(blk.reads))
+
+
+def test_wide_gradient_matches_jax_grad():
+    """The elementwise gradient from the wide lattices at S = 1025 against
+    ``jax.grad`` of ``_ctc_nll_scan`` where both ends are reachable, as
+    the CPU route is held."""
+    seed, T_m, T_s, il, ol = WIDE_CASES["1025"]
+    em, il, ol = case(seed, T_m, T_s, il[1:3], ol[1:3])
+    g = np.asarray([0.7, 1.3], np.float32)
+    want = np.asarray(jax.grad(lambda e: jnp.sum(j_fs._ctc_nll_scan(
+        e, jnp.asarray(il), jnp.asarray(ol)) * g))(jnp.asarray(em)))
+    alpha, beta = wide_lattices(em, il, ol)
+    np.testing.assert_allclose(gradient(alpha, beta, log_l(alpha, il), g, ol),
+                               want, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+
+
+def route(S):
+    """The instance of forward_sum.cu that a lattice of S states launches:
+    (name, threads a block, states a thread, where the two rows of a chain
+    live)."""
+    if S <= MAX_S:
+        return ("lattice" if threads(S) <= 512 else "lattice_1024",
+                threads(S), 1, "shared")
+    return ("lattice_wide", *wide_shape(S),
+            "shared" if 8 * S <= MAX_SHARED else "global")
+
+
+@pytest.mark.parametrize("S", [1, 257, 513, 1024, 1025, 1281, 2049, 4097,
+                               8191, 8193, 29056, 29057, 65537])
+def test_the_wrapper_routes_each_width_to_its_instance(S):
+    """:func:`route`, the launch's choice as a plain function, against the
+    launch in the source: one state a thread up to 1024 (the 512-thread
+    instance first), the wide instance past it, every state owned once by
+    a thread of at most 1024, its two rows in shared memory while 8·S
+    bytes fit one block, else in the global scratch. The wrapper counts a
+    launch as wide past ``MAX_THREADS``, the source's kMaxThreads."""
+    name, threads, k, where = route(S)
+    if S <= MAX_S:
+        assert (k, where) == (1, "shared") and threads == -(-S // WARP) * WARP
+        assert name == ("lattice" if threads <= 512 else "lattice_1024")
+        return
+    assert name == "lattice_wide" and (threads, k) == wide_shape(S)
+    assert threads % WARP == 0 and threads <= MAX_S
+    owner = np.arange(threads)[:, None] + np.arange(k)[None] * threads
+    assert np.array_equal(np.sort(owner[owner < S]), np.arange(S))
+    assert (owner < S).sum(1).min() >= k - 1          # no idle thread rows
+    assert where == ("shared" if 8 * S <= MAX_SHARED else "global")
+
+
+def test_wide_model_mirrors_the_kernel_source():
+    src = CU.read_text()
+    for name, want in (("kMaxThreads", MAX_S), ("kWideAhead", WIDE_AHEAD),
+                       ("kMaxShared", MAX_SHARED)):
+        m = re.search(rf"constexpr (?:int|long long) {name} = (\d+);", src)
+        assert m and int(m.group(1)) == want, name
+    assert t_fs.MAX_THREADS == MAX_S
+    for line in (
+            # K states a thread, whole warps, rows in shared memory while
+            # they fit
+            "int wide_states(int n_s) { return (n_s + kMaxThreads - 1) / "
+            "kMaxThreads; }",
+            "return ((n_s + k - 1) / k + 31) / 32 * 32;",
+            "bool wide_rows_shared(int n_s) { return 8LL * n_s <= kMaxShared; }",
+            "const int tid = threadIdx.x, n = blockDim.x, kn = (n_s + n - 1) / n;",
+            "const int s = tid + k * n;",
+            # alpha: the own value and s-1, s-2 from the previous row
+            "const float* prev = rows + ((t - 1) & 1) * n_s;",
+            "const float p2 = ((s & 1) && s >= 3) ? prev[s - 2] : kNeg;",
+            "const float a = lse3(prev[s], p1, p2) + em_wide(cur, k, eb, t, s, n_s);",
+            "const float* fin = rows + ((max(olen, 1) - 1) & 1) * n_s;",
+            # beta: s, s+1, s+2 of the next row, the own q into the other
+            "const float* next = rows + (t & 1) * n_s;",
+            "const float bt = lse3(next[s], s + 1 < n_s ? next[s + 1] : kNeg,",
+            "((s & 1) && s + 2 < n_s) ? next[s + 2] : kNeg);",
+            "row[s] = em_wide(cur, k, eb, t, s, n_s) + bt;",
+            "rows[((olen - 2) & 1) * n_s + s] =",
+            # em: the first kWideAhead states a frame ahead, the rest on the
+            # chain
+            "return k < kWideAhead ? e : eb[static_cast<size_t>(t) * n_s + s];",
+            "nxt[k] = (k < kn && s < n_s && t + 1 < olen)",
+            # the global scratch: 2*S floats a block
+            "float* rows = scratch ? scratch + 2 * static_cast<size_t>"
+            "(blockIdx.x) * n_s",
+            "return n_blocks * 2 * n_s * static_cast<long long>(sizeof(float));"):
+        assert line in src, line

@@ -347,25 +347,67 @@ def test_mas_kernel_edge_lengths():
 
 @pytest.mark.parametrize("T_s", [128, 1024])
 def test_mas_kernel_near_its_shared_memory_limit(T_s):
-    """The longest T_m whose ring and move bits fit a block runs
-    bit-exact; one frame past the fit raises, naming the limit. At
+    """The longest T_m whose ring and move bits fit a block (232448 B,
+    mas.cu's kMaxShared) runs the warp kernel bit-exact; one frame past the
+    fit runs the long route, bit-exact too (``mas.route``, the card's own
+    ``ctts_mas_route``, and the launch counters agree on both). At
     T_s = 1024 that T_m is past T_s."""
     dev = _need_card()
     from ctts_torch.ops import mas
     T_m = 1024
-    while mas.shared_bytes(T_m + 32, T_s) <= mas._MAX_SHARED:
+    while mas.shared_bytes(T_m + 32, T_s) <= 232448:
         T_m += 32
-    while mas.shared_bytes(T_m + 1, T_s) <= mas._MAX_SHARED:
+    while mas.shared_bytes(T_m + 1, T_s) <= 232448:
         T_m += 1
-    rng = np.random.RandomState(9)
-    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
-                               _mas_case(rng, 2, T_m, T_s, "seeded"))
     assert T_m > T_s
+    for frames, route in ((T_m, "warp"), (T_m + 1, "rows")):
+        rng = np.random.RandomState(9)
+        attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
+                                   _mas_case(rng, 2, frames, T_s, "seeded"))
+        assert mas.route(frames, T_s) == route
+        before = mas.launches, mas.rows_launches
+        got = mas.b_mas(attn, in_lens, out_lens)
+        torch.cuda.synchronize()
+        assert (mas.launches - before[0], mas.rows_launches - before[1]) == (
+            (1, 0) if route == "warp" else (0, 1))
+        assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
+
+
+@pytest.mark.parametrize("kind", ["seeded", "ties", "short"])
+@pytest.mark.parametrize("B,T_m,T_s", [(2, 1443, 1024), (1, 10307, 128),
+                                       (2, 2560, 640), (3, 1200, 1100),
+                                       (3, 70, 2049)])
+def test_mas_long_route_bit_exact(B, T_m, T_s, kind):
+    """The shapes past the warp kernel (T_m one frame past its shared
+    memory at T_s = 1024 and 128, 2560 frames at 640 tokens, T_s past 1024)
+    take the long route, one launch a call, bit-exact against
+    ``b_mas_plain`` on seeded inputs, all ties and out_len < in_len."""
+    dev = _need_card()
+    from ctts_torch.ops import mas
+    rng = np.random.RandomState(B + T_s + T_m)
+    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
+                               _mas_case(rng, B, T_m, T_s, kind))
+    assert mas.route(T_m, T_s) == "rows"
+    before = mas.rows_launches
+    got = mas.b_mas(attn, in_lens, out_lens)
+    torch.cuda.synchronize()
+    assert mas.rows_launches == before + 1
+    assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
+
+
+def test_mas_long_route_rows_in_device_memory():
+    """Past 29056 columns the long route's two rows leave shared memory for
+    its scratch: bit-exact, edge lengths included."""
+    dev = _need_card()
+    from ctts_torch.ops import mas
+    rng = np.random.RandomState(15)
+    attn, _, _ = _mas_case(rng, 3, 24, 29100, "seeded")
+    in_lens = np.array([29100, 1, 15000], np.int32)
+    out_lens = np.array([24, 24, 3], np.int32)
+    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev)
+                               for a in (attn, in_lens, out_lens))
     got = mas.b_mas(attn, in_lens, out_lens)
     assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
-    with pytest.raises(ValueError, match="shared"):
-        mas.b_mas(torch.rand(1, T_m + 1, T_s, device=dev), in_lens[:1],
-                  out_lens[:1])
 
 
 def test_mas_kernel_beside_a_busy_stream():
@@ -429,13 +471,16 @@ def _check_ctc(em, in_lens, out_lens, cot):
     autograd.Function; each kernel against its plain version run on the
     card."""
     from ctts_torch.ops import forward_sum as fs
-    before = fs.lattice_launches, fs.grad_launches
+
+    def counts():
+        return fs.lattice_launches + fs.wide_lattice_launches, fs.grad_launches
+
+    before = counts()
     e = em.clone().requires_grad_(True)
     nll = fs.ctc_state_nll(e, in_lens, out_lens)
     (nll * cot).sum().backward()
     torch.cuda.synchronize()
-    assert (fs.lattice_launches, fs.grad_launches) == (before[0] + 1,
-                                                       before[1] + 1)
+    assert counts() == (before[0] + 1, before[1] + 1)
     alpha, beta = fs.ctc_lattice(em, in_lens, out_lens)
     ref_a = fs.ctc_alpha_plain(em, out_lens)
     ref_b = fs.ctc_beta_plain(em, in_lens, out_lens)
@@ -526,23 +571,49 @@ def test_ctc_lattice_alpha_alone_without_a_gradient():
 
 
 def test_ctc_lattice_at_its_state_limit():
-    """ROADMAP.md §3 L2: one thread a state, so at most 1024 states. A text
-    axis of 511 (S = 1023) runs bit-exact against the plain versions; 512
-    (S = 1025) raises, naming the item."""
+    """Across the old limit of one thread a state: a text axis of 511
+    (S = 1023, the 1024-thread instance) and of 512 (S = 1025, the wide
+    instance, two states a thread) both run bit-exact against the plain
+    versions, each on its instance (the launch counters say which)."""
     dev = _need_card()
     from ctts_torch.ops import forward_sum as fs
     rng = np.random.RandomState(14)
     B, T_m = 2, 1100
     in_lens = torch.tensor([511, 300], dtype=torch.int32, device=dev)
     out_lens = torch.tensor([1100, 700], dtype=torch.int32, device=dev)
-    em = _ctc_em(rng, dev, B, T_m, 511, in_lens, out_lens)
-    assert em.shape[2] == 1023
     cot = torch.from_numpy(rng.rand(B).astype(np.float32) + 0.5).to(dev)
+    for T_s, S in ((511, 1023), (512, 1025)):
+        em = _ctc_em(rng, dev, B, T_m, T_s, in_lens, out_lens)
+        assert em.shape[2] == S
+        before = fs.lattice_launches, fs.wide_lattice_launches
+        _check_ctc(em, in_lens, out_lens, cot)
+        assert (fs.lattice_launches > before[0],
+                fs.wide_lattice_launches > before[1]) == (S <= 1024,
+                                                          S > 1024)
+
+
+@pytest.mark.parametrize("T_s", [1024, 2048, 4100, 14600])
+def test_ctc_wide_lattice_bit_exact(T_s):
+    """S = 2049, 4097 and 8201 (three to nine states a thread, the ninth
+    past the read-ahead) and 29201 (the rows in the device scratch), with
+    lengths ragged down to out_len < in_len, 0 and 1: alpha, beta and the
+    NLL bit-exact, the gradient within 5e-3 where the end is reachable."""
+    dev = _need_card()
+    from ctts_torch.ops import forward_sum as fs
+    rng = np.random.RandomState(T_s)
+    T_m = T_s + 40 if T_s <= 4100 else 30
+    lens = ([T_s, T_s // 2, T_s // 3, 7] if T_s <= 4100
+            else [T_s, 5, T_s // 2, 2])
+    mels = ([T_m, T_m - 9, 1, 0] if T_s <= 4100 else [T_m, T_m, 1, 0])
+    in_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out_lens = torch.tensor(mels, dtype=torch.int32, device=dev)
+    em = _ctc_em(rng, dev, len(lens), T_m, T_s, in_lens, out_lens)
+    S = em.shape[2]
+    # the rows leave shared memory for the scratch past 29056 states
+    assert (fs._lib().ctts_ctc_scratch_bytes(2 * len(lens), S) > 0) == (
+        S > 29056)
+    cot = torch.from_numpy(rng.rand(len(lens)).astype(np.float32) + 0.5).to(dev)
     _check_ctc(em, in_lens, out_lens, cot)
-    em = _ctc_em(rng, dev, B, T_m, 512, in_lens, out_lens)
-    assert em.shape[2] == 1025
-    with pytest.raises(ValueError, match="ROADMAP.md §3 L2"):
-        fs.ctc_lattice(em, in_lens, out_lens)
 
 
 def _attention_case(rng, dev, N, T, d, lens):
@@ -622,10 +693,17 @@ def test_training_wrappers_raise_on_untaken_cuda_input():
     lens = torch.tensor([3, 2], dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         mas.b_mas(torch.rand(2, 6, 3, device=dev), lens.long(), lens)
-    with pytest.raises(ValueError, match="1024"):
-        mas.b_mas(torch.rand(2, 6, 1030, device=dev), lens, lens)
     with pytest.raises(ValueError):
-        fs.ctc_lattice(torch.zeros(2, 6, 1025, device=dev), lens, lens)
+        mas.b_mas(torch.rand(2, 6, device=dev), lens, lens)
+    with pytest.raises(ValueError):
+        fs.ctc_lattice(torch.zeros(2, 6, device=dev), lens, lens)
+    # past the old limits (T_s 1024, S 1024) the long routes take them
+    attn = torch.rand(2, 6, 1030, device=dev)
+    assert torch.equal(mas.b_mas(attn, lens, lens),
+                       mas.b_mas_plain(attn, lens, lens))
+    em = torch.zeros(2, 6, 1025, device=dev)
+    assert torch.equal(fs.ctc_lattice(em, lens, lens)[0],
+                       fs.ctc_alpha_plain(em, lens))
     with pytest.raises(TypeError):
         fs.ctc_lattice(torch.zeros(2, 6, 7, device=dev, dtype=torch.float64),
                        lens, lens)

@@ -189,7 +189,12 @@ def test_cuda_inputs_of_the_training_kernels_never_reach_plain(monkeypatch):
         t_fs.ctc_lattice(_OnCuda(torch.zeros(2, 6, 7, dtype=torch.bfloat16)),
                          lens, lens)
     with pytest.raises(ValueError):
+        t_fs.ctc_lattice(_OnCuda(torch.zeros(2, 6)), lens, lens)
+    # past 1024 states the wide instance takes the lattice
+    with pytest.raises(_KernelReached):
         t_fs.ctc_lattice(_OnCuda(torch.zeros(2, 6, 1025)), lens, lens)
+    with pytest.raises(_KernelReached):
+        t_mas.b_mas(_OnCuda(torch.full((2, 6, 1100), 1 / 1100)), lens, lens)
     with pytest.raises(TypeError):
         t_sg.scatter_rows(_OnCuda(torch.zeros(2, 3, 8, dtype=torch.float16)),
                           idx, 5)

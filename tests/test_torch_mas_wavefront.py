@@ -16,6 +16,14 @@ mel_len. The model repeats that geometry and arithmetic, with
 cells nobody writes poisoned with NaN; it reads the constants it models
 from the CUDA source, so a change there fails here until the model follows.
 The card tests (tests/test_torch_gpu.py) hold the kernel itself.
+
+Shapes the warp kernel cannot hold (T_s > 1024, or move bits past its
+shared memory) take the long route, ``mas_rows_kernel``: one block an
+utterance, K = ceil(T_s/1024) columns a thread, the previous frame's row
+double-buffered, one barrier a frame, the move bits in a global
+[T_m, ceil(T_s/32)] array of words (one ballot a warp and a frame), and a
+backtrack by one warp, 32 frames a round, each lane loading the two words
+its frame can need. :func:`rows_model` models it.
 """
 
 import pathlib
@@ -342,3 +350,180 @@ def test_a_path_as_long_as_the_text_fits_shared_memory(T_s):
     assert "l.bytes = l.bits_off + words * cols * 4;" in src
     assert "const long long words = chain_rows(t_m) / kWarp;" in src
     assert f"kMaxShared = {MAX_SHARED};" in src
+
+
+# ---- the long route (mas_rows_kernel) ------------------------------------- #
+
+ROWS_THREADS = 1024        # kRowsThreads
+ROWS_AHEAD = 8             # kRowsAhead
+
+
+def route(T_m, T_s):
+    """The kernel [T_m, T_s] takes, as mas.cu's ``warp_route`` picks it
+    (and ``ctts_mas_route`` reports it to the wrapper, which counts the
+    launch by it): "warp" where T_s <= 1024 and the warp kernel's layout
+    fits one block, else "rows"."""
+    if T_s <= 1024 and shared_bytes(T_m, cols_per_lane(T_s)) <= MAX_SHARED:
+        return "warp"
+    return "rows"
+
+
+def rows_shape(T_s):
+    """(threads, columns a thread, words of move bits a frame)."""
+    k = -(-T_s // ROWS_THREADS)
+    return -(-(-(-T_s // k)) // WARP) * WARP, k, -(-T_s // WARP)
+
+
+def rows_model(attn, in_lens, out_lens, counts=None):
+    """The long route's result, [B, T_m, T_s] float32, built as the kernel
+    builds it: the two rows poisoned with NaN until written, the move words
+    of frame 0 never written (and never read: a read of an unwritten word
+    fails), the output zeroed row by row and one 1.0 a frame below mel_len
+    from the warp's backtrack rounds. ``counts`` collects each element's
+    zero writes and one writes."""
+    B, T_m, T_s = attn.shape
+    n, K, W = rows_shape(T_s)
+    la = torch.log(torch.clamp(torch.from_numpy(attn), min=EPS)).numpy()
+    out = np.full((B, T_m, T_s), np.nan, np.float32)
+    cols = np.arange(T_s)
+    for b in range(B):
+        text_len = min(max(int(in_lens[b]), 0), T_s)
+        mel_len = min(max(int(out_lens[b]), 0), T_m)
+        zeros = np.zeros((T_m, T_s), np.int64)
+        ones = np.zeros((T_m, T_s), np.int64)
+        rows = np.full((2, T_s), np.nan, np.float32)
+        moves = np.zeros((T_m, W), np.uint32)
+        written = np.zeros((T_m, W), bool)
+        rows[0] = np.where((cols == 0) & (text_len > 0), la[b, 0, 0], NEG)
+        zeros[0] += 1
+        c = cols[:text_len]
+        with np.errstate(invalid="ignore"):
+            for i in range(1, mel_len):
+                prev = rows[(i - 1) & 1]
+                here = prev[c]
+                left = np.where(c > 0, prev[np.maximum(c - 1, 0)], NEG)
+                move = left >= here                        # tie -> diagonal
+                rows[i & 1, c] = la[b, i, c] + np.where(move, left, here)
+                bits = np.zeros(W * WARP, bool)
+                bits[c] = move
+                moves[i] = np.packbits(bits.reshape(W, WARP), axis=1,
+                                       bitorder="little").view(np.uint32)[:, 0]
+                written[i] = True
+                zeros[i] += 1
+        zeros[max(mel_len, 1):] += 1
+        out[b][zeros > 0] = 0.0
+        curr = max(text_len - 1, 0)
+        for i0 in range(mel_len - 1, -1, -WARP):       # a round of 32 frames
+            w0 = curr // WARP
+            frames = [i0 - j for j in range(WARP) if i0 - j >= 0]
+            hi, lo = {}, {}
+            for i in frames:                           # lane j's two loads
+                if i >= 1:
+                    assert written[i, w0] and (w0 == 0 or written[i, w0 - 1])
+                    hi[i] = int(moves[i, w0])
+                    lo[i] = int(moves[i, w0 - 1]) if w0 > 0 else 0
+            for i in frames:                           # the walk
+                out[b, i, curr] = 1.0
+                ones[i, curr] += 1
+                if i > 0 and curr > 0:
+                    assert curr // WARP in (w0, w0 - 1)
+                    word = hi[i] if curr // WARP == w0 else lo[i]
+                    curr -= (word >> (curr % WARP)) & 1
+        if counts is not None:
+            counts.append((zeros, ones, mel_len))
+    return out
+
+
+@pytest.mark.parametrize("T_m,T_s", [(40, 1025), (70, 1100), (33, 2049),
+                                     (300, 100)])
+def test_rows_model_equals_plain_bit_for_bit(T_m, T_s):
+    """Full, ragged and short lengths, text_len 0 and 1, mel_len 0 and 1,
+    out_len < in_len and lengths past the axes: the long route's result
+    is the plain version's, bit for bit; every element is zeroed once and
+    each frame below mel_len gets one 1.0."""
+    in_lens = [T_s, T_s // 2, 0, 1, T_s - 3, T_s + 9, 17]
+    out_lens = [T_m, T_m - 5, T_m, T_m, 1, T_m + 4, 0]
+    attn, il, ol = case(T_s + T_m, len(in_lens), T_m, T_s, in_lens, out_lens)
+    counts = []
+    got = rows_model(attn, il, ol, counts)
+    assert np.array_equal(got, plain(attn, il, ol)), (T_m, T_s)
+    for zeros, ones, mel_len in counts:
+        assert (zeros == 1).all()
+        assert (ones.sum(1)[:mel_len] == 1).all() and not ones[mel_len:].any()
+
+
+def test_rows_model_equals_the_jax_scan_past_the_warp_kernel():
+    """T_s = 1100, past the warp kernel's 1024 columns, against
+    ``b_mas_scan``: seeded, and all ties (every move diagonal)."""
+    for B, T_m, T_s, seed, il, ol, ties in (
+            (2, 60, 1100, 3, [1100, 600], [60, 41], False),
+            (2, 60, 1100, 4, [1100, 37], [48, 60], True)):
+        attn, il, ol = case(seed, B, T_m, T_s, il, ol, ties=ties)
+        want = np.asarray(j_mas.b_mas_scan(jnp.asarray(attn),
+                                           jnp.asarray(il), jnp.asarray(ol)))
+        assert np.array_equal(rows_model(attn, il, ol), want), (T_m, T_s)
+
+
+@pytest.mark.parametrize("T_s", [1, 64, 128, 640, 768, 1024, 1025, 4096,
+                                 29056, 29057])
+def test_the_wrapper_routes_each_shape_to_its_kernel(T_s):
+    """:func:`route`, the card's choice as a plain function (held to the
+    source by test_rows_model_mirrors_the_kernel_source, and on the card to
+    ``ctts_mas_route`` and the launch counters): the warp kernel exactly
+    where T_s <= 1024 and its ring and move bits fit one block, the long
+    route everywhere else, at the edge of each T_s; the train shape
+    [896, 128] keeps the warp kernel and the long-utterance shapes take
+    the long route. The long route's threads own each column once, in
+    whole warps whose columns are one word of move bits."""
+    if T_s <= 1024:
+        K = cols_per_lane(T_s)
+        edge = 1
+        while shared_bytes(edge + 1, K) <= MAX_SHARED:
+            edge += 1
+        assert route(edge, T_s) == "warp"
+        assert route(edge + 1, T_s) == "rows"
+    else:
+        assert route(1, T_s) == "rows"
+    n, K, W = rows_shape(T_s)
+    assert n % WARP == 0 and n <= ROWS_THREADS
+    owner = np.arange(n)[:, None] + np.arange(K)[None] * n
+    assert np.array_equal(np.sort(owner[owner < T_s]), np.arange(T_s))
+    first = (np.arange(n)[:, None] + np.arange(K)[None] * n)[::WARP]
+    assert (first % WARP == 0).all()
+    assert route(896, 128) == "warp"
+    for shape in ((1443, 1024), (10307, 128), (2560, 640), (1200, 1100)):
+        assert route(*shape) == "rows", shape
+
+
+def test_rows_model_mirrors_the_kernel_source():
+    src = CU.read_text()
+
+    def const(name):
+        return re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1)
+
+    assert int(const("kRowsThreads")) == ROWS_THREADS
+    assert int(const("kRowsAhead")) == ROWS_AHEAD
+    for line in (
+            # columns over threads in whole warps, rows while they fit
+            "return (t_s + kRowsThreads - 1) / kRowsThreads;",
+            "return ((t_s + k - 1) / k + kWarp - 1) / kWarp * kWarp;",
+            "return 8 * t_s <= kMaxShared;",
+            "return t_s <= 1024 && layout(t_m, cols_per_lane("
+            "static_cast<int>(t_s))).bytes",
+            # frame 0, the frame's update and its move word
+            "rows[c] = (c == 0 && text_len > 0) ? mas_log(pb[0], eps) : kNeg;",
+            "const float left = c > 0 ? prev[c - 1] : kNeg;",
+            "move = left >= here;",
+            "row[c] = mas_log(p, eps) + (move ? left : here);",
+            "const unsigned w = __ballot_sync(0xffffffffu, move);",
+            "if (lane == 0 && c < t_s) mb[i * words + c / kWarp] = w;",
+            # the backtrack: two words a lane, the walk by shuffles
+            "hi = mb[i * words + w0];",
+            "if (w0 > 0) lo = mb[i * words + w0 - 1];",
+            "const unsigned word = curr / kWarp == w0 ? h : l;",
+            "if (i0 - j > 0 && curr > 0 && ((word >> (curr % kWarp)) & 1u)) "
+            "--curr;",
+            "if (i >= 0) ob[static_cast<long long>(i) * t_s + mine] = 1.f;"):
+        assert line in src, line
+    assert ("if (!warp_route(t_m, t_s)) {" in src
+            and "return warp_route(t_m, t_s) ? 0 : 1;" in src)

@@ -41,6 +41,9 @@ TIMEOUT = 240
 OTHER_BLOCKS = ("transformer", "conformer", "reformer", "fastformer",
                 "lstransformer")
 CKPT_STEP = W.STEP0 + 2
+ACC_CALLS = 4            # two updates at grad_acc_step 2
+ACC_SAVE_CALLS = 3       # a save halfway through the second update
+STREAM_BLOCKS = ("transformer_fs2", "reformer")
 GRAD_RTOL = 1e-4
 GRAD_FLOOR = 1e-3
 
@@ -125,11 +128,14 @@ def _train_job(name, case, grid, steps=2, **extra):
 
 
 @functools.lru_cache(maxsize=None)
-def _one_process(case, steps=2, dropout=False):
-    """The port's one-process steps on the global batch: (losses, whole
-    state_dict, first moments after the first update)."""
-    state = W.train_state(case, dropout=dropout)
+def _one_process(case, steps=2, dropout=False, acc=1, stream=False):
+    """The port's one-process steps on the global batch (``stream``: as the
+    streaming loader collates it): (losses, whole state_dict, first
+    moments after the first update)."""
+    state = W.train_state(case, dropout=dropout, acc=acc)
     batch = W.global_batch(case)
+    if stream:
+        batch = W.loader_batch(batch)
     losses = W.run_steps(case, state, batch, 1)
     mu = W.whole_mu(state)
     losses += W.run_steps(case, state, batch, steps - 1)
@@ -140,8 +146,9 @@ def _one_process(case, steps=2, dropout=False):
 def grid_runs(tmp_path_factory):
     from ctts_torch.utils.checkpoint import save_checkpoint
     out = str(tmp_path_factory.mktemp("grid"))
-    ckpt_1p, ckpt_tp, ckpt_dp = (os.path.join(out, d) for d in
-                                 ("ckpt_1p", "ckpt_tp", "ckpt_dp"))
+    ckpt_1p, ckpt_tp, ckpt_dp, ckpt_acc = (
+        os.path.join(out, d) for d in ("ckpt_1p", "ckpt_tp", "ckpt_dp",
+                                       "ckpt_acc"))
     # the straight one-process run writes its step-2 checkpoint first
     state = W.train_state("transformer_fs2")
     batch = W.global_batch("transformer_fs2")
@@ -152,7 +159,10 @@ def grid_runs(tmp_path_factory):
         {"ranks": [0, 1, 2, 3], "port": _free_port(), "jobs": [
             _train_job("fs2_2x2", "transformer_fs2", [2, 2]),
             _train_job("dropout_2x2", "transformer_fs2", [2, 2], steps=3,
-                       dropout=True, keep_local=True, raw=True)]},
+                       dropout=True, keep_local=True, raw=True),
+            dict(name="acc_save_2x2", kind="save", case="transformer_fs2",
+                 grid=[2, 2], ckpt_dir=ckpt_acc, acc=2, calls=ACC_SAVE_CALLS,
+                 after=2)]},
         {"ranks": [0, 1], "port": _free_port(), "jobs": [
             _train_job("fs2_2x1", "transformer_fs2", [2, 1]),
             _train_job("du2021_2x1", "du2021", [2, 1]),
@@ -165,7 +175,13 @@ def grid_runs(tmp_path_factory):
                  grid=[2, 1], ckpt_dir=ckpt_dp, dropout=True, after=2),
             dict(name="dropout_resume_2x1", kind="resume",
                  case="transformer_fs2", grid=[2, 1], ckpt_dir=ckpt_dp,
-                 ckpt_step=CKPT_STEP, dropout=True)]},
+                 ckpt_step=CKPT_STEP, dropout=True),
+            _train_job("fs2_acc_2x1", "transformer_fs2", [2, 1],
+                       steps=ACC_CALLS, acc=2),
+            *[_train_job(f"{b}_stream_2x1", b, [2, 1], stream=True)
+              for b in STREAM_BLOCKS],
+            dict(name="acc_resume_2x1", kind="resume", case="transformer_fs2",
+                 grid=[2, 1], ckpt_dir=ckpt_acc, acc=2)]},
         {"ranks": [2, 3], "port": _free_port(), "jobs": [
             _train_job("fs2_1x2", "transformer_fs2", [1, 2]),
             *[_train_job(f"{b}_1x2", b, [1, 2]) for b in OTHER_BLOCKS],
@@ -174,10 +190,14 @@ def grid_runs(tmp_path_factory):
             dict(name="infer_1x2", kind="infer", case="transformer_fs2",
                  grid=[1, 2]),
             dict(name="save_1x2", kind="save", case="transformer_fs2",
-                 grid=[1, 2], ckpt_dir=ckpt_tp)]}]
+                 grid=[1, 2], ckpt_dir=ckpt_tp),
+            _train_job("fs2_acc_1x2", "transformer_fs2", [1, 2],
+                       steps=ACC_CALLS, acc=2),
+            dict(name="acc_resume_1x2", kind="resume", case="transformer_fs2",
+                 grid=[1, 2], ckpt_dir=ckpt_acc, acc=2)]}]
     grid = _Grid(out, phases, 4)
     grid.straight = straight
-    grid.ckpt_tp = ckpt_tp
+    grid.ckpt_tp, grid.ckpt_acc = ckpt_tp, ckpt_acc
     try:
         yield grid
     finally:
@@ -227,11 +247,12 @@ def _assert_params(got, want, atol=1e-5):
 # ---- the JAX package's single-device step ---------------------------------- #
 
 @functools.lru_cache(maxsize=None)
-def _jax_steps(case, steps=2):
+def _jax_steps(case, steps=2, acc=1):
     """The JAX package's train-mode step (dropout patched out, as the port's
-    rates are 0) from the port's initial weights, ``steps`` times: (the
-    losses, the first update's (1 - b1) times clipped gradients carried to
-    the port's names and layouts, which is the port's ``mu`` after it)."""
+    rates are 0) from the port's initial weights, ``steps`` times, with
+    ``grad_acc_step`` ``acc``: (the losses, the first call's (1 - b1) times
+    clipped gradients carried to the port's names and layouts, which is
+    the port's ``mu`` after the first update at ``acc`` 1)."""
     import flax.linen as nn
     import jax
     import jax.numpy as jnp
@@ -241,7 +262,7 @@ def _jax_steps(case, steps=2):
     from ctts_tpu.utils.optimizer import build_optimizer
     from ctts_torch.utils.weights import (jax_tree_from_state_dict,
                                           state_dict_from_jax)
-    pre, mc, tr = W.configs(case)
+    pre, mc, tr = W.configs(case, acc=acc)
     jm = CompTransTTS(pre, mc, tr)
     tree = jax_tree_from_state_dict(W.build_model(case).state_dict(), mc)
     tx, _ = build_optimizer(mc, tr)
@@ -409,6 +430,54 @@ def test_dropout_keeps_replicated_parameters_identical(grid_runs):
                 assert torch.equal(res[r]["local"][k], v), (k, r)
 
 
+@pytest.mark.parametrize("grid", ["2x1", "1x2"])
+def test_accumulating_calls_return_the_global_gradient_norm(grid_runs, grid):
+    """``grad_acc_step: 2`` over four calls (two updates): every call's
+    ``grad_norm`` is one process's on the global batch within 1e-5
+    relative, and the JAX step's ``optax.global_norm`` of its
+    micro-gradient (under ``optax.MultiSteps``) within 1e-5 too; the
+    losses and the parameters after the updates are one process's as in
+    the other grid cases."""
+    res = grid_runs.result(f"fs2_acc_{grid}")
+    losses, params, _ = _one_process("transformer_fs2", steps=ACC_CALLS,
+                                     acc=2)
+    want_jax, _ = _jax_steps("transformer_fs2", steps=ACC_CALLS, acc=2)
+    got = [r["grad_norm"] for r in res["losses"]]
+    np.testing.assert_allclose(got, [r["grad_norm"] for r in losses],
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got, [r["grad_norm"] for r in want_jax],
+                               rtol=1e-5, atol=0)
+    _assert_losses(res["losses"], losses, rtol=5e-4)
+    _assert_params(res["params"], params)
+
+
+@pytest.mark.parametrize("case", STREAM_BLOCKS)
+def test_streaming_loader_on_the_data_axis_matches_one_process(grid_runs,
+                                                               case):
+    """The device cache off at (2, 1): each rank's rows come as the
+    streaming loader collates them, at their own lengths, and are padded
+    to the step's largest over the data group (one all-reduce of two
+    integers on the loader's gloo group). So the means over padded entries
+    (the CWT spectrogram loss, the masked mel means) and the reformer's
+    rotations, drawn at the padded length, are one process's: its losses
+    within 1e-5 and its first update's gradients within 1e-3 of each
+    leaf's scale."""
+    res = grid_runs.result(f"{case}_stream_2x1")
+    losses, params, mu = _one_process(case, stream=True)
+    _assert_losses(res["losses"], losses, rtol=1e-5)
+    _assert_grads(res["mu"], mu, 1e-3)
+    _assert_params(res["params"], params)
+
+
+def test_step_lengths_without_a_group_are_the_rows_own():
+    """One data rank: no gloo twin is made and the lengths stay as the
+    loader bucketed them."""
+    from ctts_torch.parallel.mesh import Grid, host_data_group, step_lengths
+    assert host_data_group(None) is None
+    assert host_data_group(Grid(1, 2, 0, 1)) is None
+    assert step_lengths((32, 384), None) == (32, 384)
+
+
 # ---- inference and checkpoints ------------------------------------------- #
 
 @pytest.mark.parametrize("grid", ["2x1", "1x2"])
@@ -457,6 +526,34 @@ def test_resume_on_the_data_axis_keeps_each_ranks_dropout_stream(grid_runs):
     straight = grid_runs.result("dropout_save_2x1")["losses"]
     resumed = grid_runs.result("dropout_resume_2x1")["losses"]
     _assert_losses(resumed, straight[2:], rtol=1e-5)
+
+
+def test_checkpoint_halfway_through_an_update_restores_across_grids(
+        grid_runs):
+    """``grad_acc_step: 2`` at (2, 2), saved after the third call, with one
+    micro-gradient of the second update accumulated: the checkpoint holds
+    the whole accumulator (the data group's mean micro-gradient, which
+    every data rank holds). Resumed in one process, at (2, 1) and at
+    (1, 2), the fourth call completes the update the straight run makes
+    and the fifth takes its loss: the losses within 1e-5, and the first
+    moments after the update within ``GRAD_RTOL`` of each leaf's scale (a
+    wrong accumulator moves them by a share of a micro-gradient, where the
+    losses at the schedule's first rates move by less than their
+    tolerance)."""
+    from ctts_torch.utils.checkpoint import load_checkpoint, restore_checkpoint
+    straight = grid_runs.result("acc_save_2x2")
+    want = straight["losses"][ACC_SAVE_CALLS:]
+    saved = load_checkpoint(grid_runs.ckpt_acc, W.STEP0 + ACC_SAVE_CALLS)
+    assert saved["optimizer"]["mini_step"] == 1
+    state = W.train_state("transformer_fs2", acc=2)
+    restore_checkpoint(grid_runs.ckpt_acc, state)
+    resumed = W.run_varied("transformer_fs2", state, None, 2)
+    _assert_losses(resumed, want, rtol=1e-5)
+    _assert_grads(W.whole_mu(state), straight["mu"], GRAD_RTOL)
+    for grid in ("2x1", "1x2"):
+        res = grid_runs.result(f"acc_resume_{grid}")
+        _assert_losses(res["losses"], want, rtol=1e-5)
+        _assert_grads(res["mu"], straight["mu"], GRAD_RTOL)
 
 
 # ---- the grid's rules ------------------------------------------------------ #
@@ -600,24 +697,20 @@ def test_rules_shard_what_the_jax_rules_shard(case, model_axis):
 
 # ---- the train CLI ----------------------------------------------------------- #
 
-def test_train_cli_two_gloo_ranks(tmp_path):
-    """``python -m ctts_torch.train --coordinator ... --device cpu`` on two
-    processes with ``train.mesh`` data 2, the device cache on: both ranks
-    take 3 steps; rank 0 alone writes the log lines (one a step, the
-    global batch's losses) and the checkpoints, which hold whole tensors."""
+def _cli_config(tmp_path, store, name, cache_mb):
+    """A merged config directory for the train CLI on ``store`` at
+    ``train.mesh`` data 2 (batch 2 a rank, 3 steps, a checkpoint at step 2
+    and at the end); returns (its directory, the train config)."""
     from ctts_torch.config import dump_yaml, load_yaml
     from ctts_torch.utils.testing import tiny_configs
-    from test_train_e2e import make_fake_store
-    store = str(tmp_path / "store")
-    make_fake_store(store, n_utts=10)
-    out = str(tmp_path / "run")
+    out = str(tmp_path / name)
     pre, mc, tr = tiny_configs()
     pre["path"]["preprocessed_path"] = store
     tr["path"] = {k: os.path.join(out, k) for k in
                   ("ckpt_path", "log_path", "result_path")}
     tr["optimizer"]["batch_size"] = 2
     tr["on_device_prior"] = True
-    tr["device_cache_mb"] = 64
+    tr["device_cache_mb"] = cache_mb
     tr["mesh"] = {"data": 2, "model": 1}
     tr["step"].update(total_step=3, log_step=1, val_step=1000, save_step=2,
                       synth_step=1000)
@@ -627,10 +720,14 @@ def test_train_cli_two_gloo_ranks(tmp_path):
     for section, cfg in (("preprocess", pre), ("model", mc), ("train", tr)):
         raw[section] = cfg
     raw["preprocess"]["preprocessing"]["pitch"].pop("cwt_scales", None)
-    cfg_dir = str(tmp_path / "cfg")
+    cfg_dir = str(tmp_path / f"{name}_cfg")
     os.makedirs(cfg_dir)
     with open(os.path.join(cfg_dir, "LJSpeech.yaml"), "w") as f:
         f.write(dump_yaml(raw))
+    return cfg_dir, tr
+
+
+def _start_cli_ranks(cfg_dir):
     port = _free_port()
     no_tb = "import sys; sys.modules['torch.utils.tensorboard'] = None; "
     procs = []
@@ -645,22 +742,94 @@ def test_train_cli_two_gloo_ranks(tmp_path):
              "run_name='__main__', alter_sys=True)"],
             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True, env=_env()))
+    return procs
+
+
+def _finish(procs):
+    """Each rank's output; fails unless every rank exits 0 in time."""
+    deadline = time.time() + TIMEOUT
     outs = []
     for p in procs:
         try:
-            outs.append(p.communicate(timeout=TIMEOUT)[0])
+            outs.append(p.communicate(
+                timeout=max(deadline - time.time(), 1))[0])
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            pytest.fail("the two ranks did not finish")
+            pytest.fail("the ranks did not finish")
     for p, o in zip(procs, outs):
         assert p.returncode == 0, o[-3000:]
+    return outs
+
+
+def _logged(tr):
+    return [json.loads(ln) for ln in open(os.path.join(
+        tr["path"]["log_path"], "train", "log.jsonl"))]
+
+
+def test_train_cli_two_gloo_ranks(tmp_path):
+    """``python -m ctts_torch.train --coordinator ... --device cpu`` on two
+    processes with ``train.mesh`` data 2, the device cache on: both ranks
+    take 3 steps; rank 0 alone writes the log lines (one a step, the
+    global batch's losses) and the checkpoints, which hold whole tensors."""
+    from test_train_e2e import make_fake_store
+    store = str(tmp_path / "store")
+    make_fake_store(store, n_utts=10)
+    cfg_dir, tr = _cli_config(tmp_path, store, "run", 64)
+    outs = _finish(_start_cli_ranks(cfg_dir))
     assert "grid data 2 × model 1, global batch 4" in outs[0]
     assert "device cache:" in outs[0]
     assert "step 1:" in outs[0] and "step" not in outs[1]
-    lines = [json.loads(ln) for ln in open(os.path.join(
-        tr["path"]["log_path"], "train", "log.jsonl"))]
+    lines = _logged(tr)
     assert [r["step"] for r in lines] == [1, 2, 3]
     assert all(np.isfinite(r["total"]) for r in lines)
     assert sorted(os.listdir(tr["path"]["ckpt_path"])) == ["2.pth.tar",
                                                           "3.pth.tar"]
+
+
+def _lengthen(store, every=2, reps=4):
+    """Every ``every``-th utterance of a ``make_fake_store`` store made
+    ``reps`` times as long (each per-frame array tiled along its frames),
+    so its 30-59 frames cross the loader's 128-frame bucket."""
+    import glob
+    names = [ln.split("|")[0] for ln in
+             open(os.path.join(store, "train_unsup.txt")).read().split()][
+        ::every]
+    for name in names:
+        for path in glob.glob(os.path.join(store, "*", f"*-{name}.npy")):
+            a = np.load(path)
+            if "f0cwt_mean_std" in path:
+                continue
+            axis = 1 if "attn_prior" in path else 0
+            np.save(path, np.concatenate([a] * reps, axis=axis))
+
+
+def test_train_cli_two_gloo_ranks_streaming(tmp_path):
+    """The train CLI on two gloo ranks at ``train.mesh`` (2, 1) with the
+    device cache off, on a store whose utterances fall in two frame
+    buckets: each rank streams its shard and pads it to the step's largest
+    lengths (an all-reduce of two integers on the prefetch thread). The
+    run crosses an epoch and ends inside the next, where a prefetch thread
+    that read ahead would wait on a collective its peer never makes: both
+    ranks exit within the timeout, and the logged losses of every step are
+    those of the same run with the device cache on (which gives every rank
+    the step's longest shard, the padding one process has) within 1e-5."""
+    from test_train_e2e import make_fake_store
+    store = str(tmp_path / "store")
+    make_fake_store(store, n_utts=10)
+    _lengthen(store)
+    runs = [_cli_config(tmp_path, store, name, mb)
+            for name, mb in (("cached", 64), ("streamed", 0))]
+    procs = [_start_cli_ranks(cfg_dir) for cfg_dir, _ in runs]
+    outs = [_finish(p) for p in procs]
+    assert "device cache:" in outs[0][0]
+    assert "streaming loader read" in outs[1][0]
+    assert "device cache" not in outs[1][0]
+    want, got = (_logged(tr) for _, tr in runs)
+    assert [r["step"] for r in got] == [1, 2, 3]
+    timing = ("step", "lr", "s_per_step", "launches_per_step")
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w.keys() - set(timing):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-5, atol=1e-6,
+                                       err_msg=k)

@@ -82,9 +82,9 @@ def _tbatch(batch):
 
 class _Pair:
     """The JAX model with its compiled steps, and the maker of the port's
-    model from the same tree."""
+    model from the same tree; ``max_seq_len`` overrides the config's."""
 
-    def __init__(self):
+    def __init__(self, max_seq_len=None):
         from ctts_tpu.models.comp_trans_tts import (CompTransTTS,
                                                     prepare_model_config)
         from ctts_tpu.models.loss import compute_loss
@@ -92,6 +92,8 @@ class _Pair:
         from ctts_tpu.utils.testing import tiny_configs
         from ctts_torch.utils.testing import synth_batch
         pre, mc, tr = tiny_configs()
+        if max_seq_len is not None:
+            mc["max_seq_len"] = max_seq_len
         mc = prepare_model_config(pre, mc)
         self.configs = (pre, mc, tr)
         self.jmodel = CompTransTTS(pre, mc, tr)
@@ -394,6 +396,41 @@ def test_train_step_matches_jax_across_gates(pair, gate):
               "bin": variance, "var": ()}[gate]
     for k in ("bin",) + variance:
         assert (metrics[k].item() == 0) == (k in closed), k
+
+
+def test_train_step_past_max_seq_len_matches_jax():
+    """``max_seq_len`` 8 under the batch's 11 tokens and 40 frames (the
+    decoder's table holds 2·8): both sides clamp the positions past the
+    sinusoid tables to their last row and truncate nothing, so one step
+    with every gate open gives the JAX step's loss components, gradient
+    norm, gradient leaves and MAS durations, as at the shipped limits."""
+    from ctts_torch.parallel.train_step import make_train_step
+    long = _Pair(max_seq_len=8)
+    pre, mc, tr = long.configs
+    assert T_S > mc["max_seq_len"] and T_M > 2 * mc["max_seq_len"]
+    step0 = GATES["var"]
+    want, want_grads, _, _, _, jout = long.jax_step(step0 + 1)
+    state = long.torch_state(step0)
+    state.model.eval()
+    grads = []
+    opt = state.optimizer
+    update = opt.update
+
+    def keep(g):
+        grads.append([x.clone() for x in g])
+        return update(g)
+    opt.update = keep
+    metrics = make_train_step(pre, mc, tr, "train_unsup",
+                              deterministic=True)(state, _tbatch(long.batch))
+    for k, w in want.items():
+        tol = 1e-4 if k != "grad_norm" else 1e-3 * float(w)
+        assert abs(metrics[k].item() - float(w)) <= tol, (k, metrics[k], w)
+    got_g, want_g = _flat(_grad_tree(state.model, grads[0], mc)), \
+        _flat(want_grads)
+    for k, w in want_g.items():
+        top = np.abs(w).max()
+        assert np.abs(got_g[k] - w).max() <= max(1e-3 * top, 2e-5), k
+    assert int(np.asarray(jout["mel2ph"]).max()) > 0
 
 
 def test_parameters_after_two_updates_match_through_the_inverse_bridge(pair):
