@@ -161,18 +161,25 @@ suppresses the final line:
    and each kernel's first call on each rank held to its plain version at
    that rank's shape; then ``python -m ctts_torch.train --coordinator``
    at world size 1 over NCCL (4 steps, and a resume from step 2);
-15. long utterances: the CTC lattice at S = 1023, 1025, 2049 and 4097 and
-   MAS at [T_m, T_s] = (1443, 1024), (10307, 128), (2560, 640) and
-   (1200, 1100), each straddling a limit the kernels had, bit-exact against
+15. long utterances: the CTC lattice at S = 513, 1023, 1025, 2049 and 4097 and
+   MAS at [T_m, T_s] = (1443, 1024), (10307, 128), (2560, 640),
+   (1200, 1100) and (300, 6500), each straddling a limit the kernels had,
+   bit-exact against
    their plain versions (the CTC gradient within ``CTC_GRAD_TOL``), with
-   the instance or route each took and its device time; one counted,
+   the kernel each route named (counted), its device time and its chain
+   floor; up to 640 states the cluster kernel beside the one-block
+   instance the route keeps, and both on each side of that edge; one
+   counted,
    timed and profiled bf16 ``train_unsup`` step of the LJSpeech default at
    full width and depth (seeded weights, ``max_seq_len`` 3000 and nothing
    else changed) on 4 utterances of up to 640 phones and 2560 frames
-   (about 30 s of audio), MAS and the CTC lattice on their long routes,
-   the step's hard alignment against ``b_mas_plain`` of its soft
-   attention, and both kernels timed at the step's inputs beside their
-   plain versions and bounds; then ``python -m ctts_torch.train`` with the
+   (about 30 s of audio), MAS on its warp kernel with the move words in
+   device memory and the CTC lattice on its cluster kernel, the step's
+   hard alignment against ``b_mas_plain`` of its soft attention, and both
+   kernels timed at the step's inputs beside their plain versions, bounds,
+   chain floors (the barrier, warp and cluster chains of
+   ``csrc/barrier_chain.cu`` at 2560 frames) and ``F.ctc_loss`` forward
+   and forward+backward; then ``python -m ctts_torch.train`` with the
    device cache off (the streaming loader, reading through the native
    ``.npy`` prefetcher) for 2 steps;
 16. the ``kernels`` JSON line, the card line, and the result line.
@@ -226,15 +233,15 @@ B_TRAIN, T_S, T_M = 16, 128, 896
 T_VCTK = 1298
 # phase 15, long utterances: the step's 4 utterances, the longest 640 phones
 # over 2560 frames (29.7 s at 22050 Hz and hop 256); MAS one frame past the
-# warp kernel's shared memory at T_s = 1024 and 128, at the step's axes and
-# past 1024 columns; CTC at text axes of 511, 512, 1024 and 2048 tokens
-# (S = 1023, 1025, 2049, 4097)
+# warp kernel's shared memory at T_s = 1024 and 128, at the step's axes,
+# past 1024 columns and past the wide kernel's 6144; CTC at text axes of 256, 511, 512, 1024 and 2048 tokens
+# (S = 513, 1023, 1025, 2049, 4097)
 LONG_B, LONG_T_S, LONG_T_M = 4, 640, 2560
 LONG_SRC = (640, 517, 402, 290)
 LONG_MEL = (2560, 2103, 1650, 1222)
 LONG_MAS_SHAPES = ((2, 1443, 1024), (1, 10307, 128), (2, 2560, 640),
-                   (2, 1200, 1100))
-LONG_CTC_TEXT = (511, 512, 1024, 2048)
+                   (2, 1200, 1100), (1, 300, 6500))
+LONG_CTC_TEXT = (256, 511, 512, 1024, 2048)
 # scatter: float32 sums of up to ~20 rows in another order than the plain
 # version's atomics; bfloat16 adds one rounding of the float32 sum on each
 # side, which may land on neighbouring values
@@ -4717,10 +4724,12 @@ class Smoke:
     # ---- phase 15: long utterances ------------------------------------- #
     def long_kernels(self):
         """The CTC lattice and MAS against their plain versions at shapes
-        that straddle every limit they had, each with its instance or route
-        and its device time."""
+        that straddle every limit they had, each with the kernel its route
+        names (counted), its device time and its chain floors; up to 640
+        states the cluster kernel beside the one-block instance the route
+        keeps, and both at each side of that edge."""
         from ctts_torch.ops import forward_sum as fs
-        from ctts_torch.ops import mas
+        from ctts_torch.ops import kernels, mas
         dev = torch.device("cuda")
         gen = torch.Generator().manual_seed(16)
         for T_s in LONG_CTC_TEXT:
@@ -4732,13 +4741,12 @@ class Smoke:
                               dtype=torch.int32, device=dev)
             em = self.ctc_states(gen, il, T_m, T_s)
             S = em.shape[-1]
-            before = fs.lattice_launches, fs.wide_lattice_launches
+            name, ctas = fs.route(S)
+            before = fs.lattice_launches, fs.cluster_lattice_launches
             alpha, beta = fs.ctc_lattice(em, il, ol)
             launched = (fs.lattice_launches - before[0],
-                        fs.wide_lattice_launches - before[1])
-            name = "lattice_wide" if launched == (0, 1) else \
-                "lattice" if launched == (1, 0) else f"launches {launched}"
-            where = ("global" if fs._lib().ctts_ctc_scratch_bytes(4, S)
+                        fs.cluster_lattice_launches - before[1])
+            where = ("global" if fs._lib().ctts_ctc_scratch_bytes(4, S, 0)
                      else "shared")
             ref_a = fs.ctc_alpha_plain(em, ol)
             ref_b = fs.ctc_beta_plain(em, il, ol)
@@ -4757,18 +4765,60 @@ class Smoke:
             exact = (torch.equal(alpha, ref_a), torch.equal(beta, ref_b),
                      torch.equal(nll.detach(), -log_l))
             ms, _ = timings(lambda: fs.ctc_lattice(em, il, ol), iters=5)
+            # up to 640 states the cluster kernel beside the one-block
+            # instance the route keeps
+            o_text = ""
+            if not ctas:
+                oa, ob = fs.ctc_lattice_cluster(em, il, ol, 8)
+                torch.cuda.synchronize()
+                if not (torch.equal(oa, ref_a) and torch.equal(ob, ref_b)):
+                    raise AssertionError(f"the cluster kernel at S={S}")
+                o_ms, _ = timings(lambda: fs.ctc_lattice_cluster(
+                    em, il, ol, 8), iters=5)
+                o_text = (f"; the cluster kernel on 8 CTAs (not routed): "
+                          f"bit-exact, device ms {o_ms:.4f}")
+            n, floors = self.cluster_floors(S, 4, T_m)
+            kind = (f"{name} ({ctas} CTAs a chain, the ghost states handed "
+                    f"over every 8 frames)" if ctas else name)
             print(f"CTC S={S} [B=4, T_m={T_m}], in_lens {il.tolist()}, "
-                  f"out_lens {ol.tolist()}: launched {name} (counted: "
-                  f"one-state-a-thread, wide {launched}; rows in {where} "
+                  f"out_lens {ol.tolist()}: launched {kind} (counted: "
+                  f"one-block, cluster {launched}; rows in {where} "
                   f"memory): alpha, beta, "
                   f"loss bit-exact {exact}; gradient {g_err:.3e} of its "
                   f"largest entry where the end is reachable (tol "
-                  f"{CTC_GRAD_TOL:g}); lattice device ms {ms:.4f}")
+                  f"{CTC_GRAD_TOL:g}); lattice device ms {ms:.4f}{o_text}; "
+                  f"cluster-chain floors at 8 CTAs of {n} threads, {T_m} "
+                  f"frames: {floors}")
             if not all(exact) or not g_err <= CTC_GRAD_TOL \
                     or not bool(torch.isfinite(e.grad).all()) \
-                    or launched != ((0, 1) if S > 1024 else (1, 0)):
+                    or launched != ((0, 1) if ctas else (1, 0)):
                 raise AssertionError(f"CTC at S={S}: {exact}, {g_err}, "
                                      f"launches {launched}")
+        # the route hands a chain to the cluster kernel past 640 states:
+        # both kernels, bit-exact, at each side of that edge
+        edge = []
+        for T_s in (288, 320, 352, 384, 448, 480):
+            T_m = T_s + 100
+            il = torch.tensor([T_s, T_s * 3 // 5, T_s // 3, T_s],
+                              dtype=torch.int32, device=dev)
+            ol = torch.tensor([T_m, T_m - 37, T_s // 3 - 5, T_s // 2],
+                              dtype=torch.int32, device=dev)
+            em = self.ctc_states(gen, il, T_m, T_s)
+            S = em.shape[-1]
+            one = fs.ctc_lattice_cluster(em, il, ol, 1)
+            eight = fs.ctc_lattice_cluster(em, il, ol, 8)
+            got = fs.ctc_lattice(em, il, ol)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(one + eight, got + got)):
+                raise AssertionError(f"CTC at S={S}: the kernels disagree")
+            ms = [timings(fn, iters=5)[0] for fn in (
+                lambda: fs.ctc_lattice(em, il, ol),
+                lambda: fs.ctc_lattice_cluster(em, il, ol, 8))]
+            edge.append(f"S={S} (T_m={T_m}) {fs.route(S)[0]} {ms[0]:.4f}, "
+                        f"cluster on 8 CTAs {ms[1]:.4f}")
+        print(f"CTC route's edge at 640 states, device ms (the routed "
+              f"kernel, then the cluster kernel on 8 CTAs; all bit-exact): "
+              f"{'; '.join(edge)}")
         for B, T_m, T_s in LONG_MAS_SHAPES:
             attn = torch.softmax(randn(gen, B, T_m, T_s) * 3.0,
                                  dim=-1).to(dev)
@@ -4776,23 +4826,65 @@ class Smoke:
                               device=dev)
             ol = torch.tensor([T_m, T_s // 2][:B], dtype=torch.int32,
                               device=dev)
-            before = mas.launches, mas.rows_launches
+            route = mas.route(T_m, T_s)
+            before = (mas.launches, mas.dev_launches, mas.wide_launches,
+                      mas.rows_launches)
             got = mas.b_mas(attn, il, ol)
-            launched = (mas.launches - before[0],
-                        mas.rows_launches - before[1])
+            launched = (mas.launches - before[0], mas.dev_launches - before[1],
+                        mas.wide_launches - before[2],
+                        mas.rows_launches - before[3])
             ref = mas.b_mas_plain(attn, il, ol)
             torch.cuda.synchronize()
             exact = torch.equal(got, ref)
             ms, _ = timings(lambda: mas.b_mas(attn, il, ol), iters=5,
                             only="mas_")
+            K = mas._lib().ctts_mas_cols_per_lane(T_s) if T_s <= 1024 else 32
+            out_w = torch.empty(B, 32, device=dev)
+            floor = timings(lambda: kernels.warp_chain(out_w, B, T_m, K),
+                            iters=5)[0]
+            plain_ms = cuda_ms(lambda: mas.b_mas_plain(attn, il, ol),
+                               warmup=1, iters=1)
+            # rows at or past out_len are never read; every output row is
+            # written
+            nbytes = int(ol.sum()) * T_s * 4 + B * T_m * T_s * 4 + 2 * B * 4
+            if route in ("warps", "rows"):
+                name = "b_mas_wide" if route == "warps" else "b_mas_rows"
+                self.record(
+                    name, "ctts_torch/csrc/mas.cu",
+                    "ctts_tpu/ops/mas.py:236,249", 0.0, ms, plain_ms, nbytes,
+                    None, f"f32 B={B} T_m={T_m} T_s={T_s}, phase 15's case "
+                    f"(launches: that case's)")
+                self.kernels[name]["launches"] = sum(launched)
             print(f"MAS [B={B}, T_m={T_m}, T_s={T_s}], in_lens "
                   f"{il.tolist()}, out_lens {ol.tolist()}: route "
-                  f"{mas.route(T_m, T_s)} (counted: warp, rows "
+                  f"{route} (counted: warp, warp_dev, warps, rows "
                   f"{launched}), "
                   f"{'bit-exact' if exact else 'MISMATCH'}, "
-                  f"{int(got.sum().item())} path cells; device ms {ms:.4f}")
-            if not exact or launched != (0, 1):
-                raise AssertionError(f"MAS at {(B, T_m, T_s)}")
+                  f"{int(got.sum().item())} path cells; device ms {ms:.4f}, "
+                  f"plain {plain_ms:.3f} (events), bound "
+                  f"{nbytes / PEAK_BYTES * 1e3:.5f} (bytes); warp-chain "
+                  f"floor at K={K} {floor:.4f}")
+            want = ((0, 0, 0, 1) if T_s > 6144 else (0, 0, 1, 0)
+                    if T_s > 1024 else (0, 1, 0, 0))
+            if not exact or launched != want:
+                raise AssertionError(f"MAS at {(B, T_m, T_s)}: {launched}")
+
+    @staticmethod
+    def cluster_floors(S, B, T_m):
+        """The cluster lattice's threads a CTA at S states over 8 CTAs, and
+        the floors of ``csrc/barrier_chain.cu``'s cluster chain for its 2B
+        chains over T_m frames: one cluster barrier a frame, the st.async
+        handoff every frame, and every 8 (the lattice's)."""
+        from ctts_torch.ops import kernels
+        tile = -(-S // 8) + 16
+        k = -(-tile // 1024)
+        n = -(-(-(-tile // k)) // 32) * 32
+        out = torch.empty(2 * B * 8, n, device="cuda")
+        floors = {span: timings(lambda: kernels.cluster_chain(
+            out, 2 * B, 8, n, T_m, span), iters=5)[0] for span in (0, 1, 8)}
+        return n, (f"one cluster barrier a frame {floors[0]:.4f}, st.async "
+                   f"handoff every frame {floors[1]:.4f}, every 8 frames "
+                   f"{floors[8]:.4f}")
 
     @staticmethod
     def ctc_states(gen, il, T_m, T_s):
@@ -4812,7 +4904,7 @@ class Smoke:
         """One bf16 ``train_unsup`` step of the LJSpeech default at full
         width and depth with ``max_seq_len`` 3000, on 4 utterances of up to
         640 phones and 2560 frames: counted (MAS and the CTC lattice on
-        their long routes), the hard alignment against ``b_mas_plain`` of
+        their long-shape kernels), the hard alignment against ``b_mas_plain`` of
         the step's soft attention, timed and profiled; then MAS and the
         lattice at the step's own inputs against their plain versions,
         timed, with their bounds."""
@@ -4876,7 +4968,7 @@ class Smoke:
         finally:
             variance_adaptor.b_mas, fs.ctc_lattice = real_mas, real_lattice
         want = {"fused_attention": 10, "gather_rows": 2, "scatter_rows": 2,
-                "b_mas_rows": 1, "ctc_lattice_wide": 1, "ctc_grad": 1}
+                "b_mas_dev": 1, "ctc_lattice_cluster": 1, "ctc_grad": 1}
         if got != want:
             raise AssertionError(f"expected launches {want}, got {got}")
         attn, il, ol, hard = seen["mas"]
@@ -4891,27 +4983,40 @@ class Smoke:
 
         # MAS and the lattice at the step's own inputs; the plain versions
         # (thousands of launches a call) by events
+        from ctts_torch.ops import kernels
         ms, ev = timings(lambda: mas.b_mas(attn, il, ol), iters=5,
                          only="mas_")
         plain_ms = cuda_ms(lambda: mas.b_mas_plain(attn, il, ol), warmup=1,
                            iters=1)
+        K = mas._lib().ctts_mas_cols_per_lane(T_s)
+        out_w = torch.empty(B, 32, device=attn.device)
+        warp_floor = timings(lambda: kernels.warp_chain(out_w, B, T_m, K),
+                             iters=5)[0]
+        n_b = -(-T_s // 32) * 32
+        out_b = torch.empty(B, n_b, device=attn.device)
+        barrier_floor = timings(lambda: kernels.barrier_chain(
+            out_b, B, n_b, T_m), iters=5)[0]
         # rows at or past out_len are never read; every output row is
         # written
         nbytes = int(ol.sum()) * T_s * 4 + B * T_m * T_s * 4 + 2 * B * 4
         b_ms = self.record(
-            "b_mas_rows", "ctts_torch/csrc/mas.cu",
+            "b_mas_dev", "ctts_torch/csrc/mas.cu",
             "ctts_tpu/ops/mas.py:236,249", 0.0, ms, plain_ms, nbytes, None,
             f"f32 B={B} T_m={T_m} T_s={T_s}, the long step's lengths",
-            event_ms=ev)
-        print(f"MAS long route at the step's inputs: device ms {ms:.4f} "
-              f"(events {ev:.4f}), plain {plain_ms:.3f} (events), bound {b_ms:.5f} ms "
-              f"(bytes), at {b_ms / ms:.4f} of it; no library call computes "
-              f"it")
+            event_ms=ev, warp_chain_floor_ms=warp_floor,
+            barrier_chain_floor_ms=barrier_floor)
+        print(f"MAS, the warp kernel with its move words in device memory "
+              f"(K={K}), at the step's inputs: device ms {ms:.4f} (events "
+              f"{ev:.4f}), plain {plain_ms:.3f} (events), bound {b_ms:.5f} ms "
+              f"(bytes), at {b_ms / ms:.4f} of it; chain floors at {T_m} "
+              f"frames: warp chain (K={K}) {warp_floor:.4f}, one barrier a "
+              f"frame over {n_b} threads {barrier_floor:.4f}; no library call "
+              f"computes it")
         em, il, ol = seen["ctc"]
         S = em.shape[-1]
-        wide = fs.wide_lattice_launches
+        n_cl = fs.cluster_lattice_launches
         alpha, beta = fs.ctc_lattice(em, il, ol)
-        wide = fs.wide_lattice_launches - wide
+        n_cl = fs.cluster_lattice_launches - n_cl
         ref_a = fs.ctc_alpha_plain(em, ol)
         ref_b = fs.ctc_beta_plain(em, il, ol)
         torch.cuda.synchronize()
@@ -4923,30 +5028,40 @@ class Smoke:
         plain_l = cuda_ms(lambda: (fs.ctc_alpha_plain(em, ol),
                                    fs.ctc_beta_plain(em, il, ol)),
                           warmup=1, iters=1)
-        # the library's CTC on the same log-probabilities (blank, labels)
+        # the library's CTC on the same log-probabilities (blank, labels):
+        # forward, and forward and backward
         lp = torch.cat([em[..., :1], em[..., 1::2]], -1).transpose(0, 1)
         targets = torch.arange(1, T_s + 1, device=em.device).expand(B, T_s)
         lib_ms, _ = timings(lambda: F.ctc_loss(
             lp, targets, ol.long(), il.long(), blank=0, reduction="none"),
             iters=5)
+        lp_g = lp.detach().clone().requires_grad_(True)
+        lib_fb, _ = timings(lambda: F.ctc_loss(
+            lp_g, targets, ol.long(), il.long(), blank=0,
+            reduction="none").sum().backward(), iters=5)
+        name, ctas = fs.route(S)
+        n_thr, floors = self.cluster_floors(S, B, T_m)
         # the Pallas pair's function: em below out_len read, alpha written
         nbytes = int(ol.sum()) * S * 4 + B * T_m * S * 4 + 2 * B * 4
         b_l = self.record(
-            "ctc_lattice_wide", "ctts_torch/csrc/forward_sum.cu",
+            "ctc_lattice_cluster", "ctts_torch/csrc/forward_sum.cu",
             "ctts_tpu/ops/forward_sum.py:272,310", err, ms_l, plain_l,
             nbytes, lib_ms, f"f32 B={B} T_m={T_m} S={S}, the long step's "
-            f"lengths", event_ms=ev_l)
-        if wide != 1:
-            raise AssertionError(f"the long step's lattice launched the wide "
-                                 f"instance {wide} times")
-        print(f"CTC lattice, the wide instance (counted {wide}) at the "
-              f"step's inputs "
+            f"lengths", event_ms=ev_l, library_fwd_bwd_ms=lib_fb,
+            cluster_chain_floors=floors)
+        if n_cl != 1:
+            raise AssertionError(f"the long step's lattice launched the "
+                                 f"cluster kernel {n_cl} times")
+        print(f"CTC lattice, {name} ({ctas} CTAs a chain; counted {n_cl}) "
+              f"at the step's inputs "
               f"[B={B}, T_m={T_m}, S={S}]: alpha and beta bit-exact; device "
-              f"ms {ms_l:.4f} (events {ev_l:.4f}), plain alpha + beta "
-              f"{plain_l:.3f} (events), F.ctc_loss forward {lib_ms:.4f}, bound "
-              f"{b_l:.5f} ms (bytes), at {b_l / ms_l:.4f} of it")
+              f"ms {ms_l:.4f} (events {ev_l:.4f}); plain alpha + beta "
+              f"{plain_l:.3f} (events), F.ctc_loss forward {lib_ms:.4f}, "
+              f"forward+backward {lib_fb:.4f}, bound {b_l:.5f} ms (bytes), "
+              f"at {b_l / ms_l:.4f} of it; cluster-chain floors at {ctas} "
+              f"CTAs of {n_thr} threads, {T_m} frames: {floors}")
         for name, n in got.items():
-            if name in ("b_mas_rows", "ctc_lattice_wide"):
+            if name in ("b_mas_dev", "ctc_lattice_cluster"):
                 self.kernels[name]["launches"] = n
             elif name in self.kernels:
                 self.kernels[name]["launches_long_step"] = n

@@ -55,10 +55,27 @@
 // starts are the durations' prefix. The block then writes one 1.0 per
 // frame below mel_len from the runs, over the zeros.
 //
-// The long route. The warp kernel holds an utterance's move bits and its
-// ring in one block's shared memory, so it takes T_s <= 1024 and a T_m whose
-// bits fit beside the ring (T_m <= 1442 at T_s in (768, 1024], 10306 at
-// T_s <= 128). Every other shape takes mas_rows_kernel, a simpler design
+// Move bits in device memory. The warp kernel holds an utterance's move
+// bits beside its ring in one block's shared memory, which caps T_m (1442
+// frames at T_s in (768, 1024], 10306 at T_s <= 128). Past that cap, at any
+// T_m with T_s <= 1024, the same kernel runs with GBITS set: the chain warp
+// stores each 32-step block's words to a [B, chain_rows/32, 32K] array of
+// the scratch instead (the same words, by column, coalesced), and warp 0
+// backtracks 32 frames a round from device memory: in a round that starts
+// at frame i0 in column c the path can only be in columns c - 31 .. c, so
+// lane j loads the two words of column c - j that hold frames i0 - 31 .. i0
+// (shifted by the lane's skew), all 32 loads at once, and the warp walks
+// the round's runs by shuffles (one masked count of leading zeros a run);
+// each lane then writes its frame's 1.0. The log blocks zero the output
+// as for the shared instance, off the chain, and nothing in the chain
+// block waits on a block-wide barrier. The shared-memory instances (the
+// train and VCTK shapes) compile as before: GBITS only adds code under
+// `if constexpr`.
+//
+// Past 1024 columns, up to 1024*kWideMax, mas_wide_kernel spreads the
+// chain over several chain warps (see its section below).
+//
+// The long route. Past those, mas_rows_kernel, a simpler design
 // whose limits are device memory's: one block an utterance, a thread for
 // each column (K = ceil(T_s/1024) columns a thread, c = tid + k*blockDim,
 // so that a warp's columns are one word of move bits), the previous frame's
@@ -97,6 +114,14 @@ constexpr int kFirstBlocks = kSkew * (kWarp - 1) / kWarp + 1;
 constexpr int kMaxShared = 232448;   // bytes one block may use on sm_90
 constexpr int kRowsThreads = 1024;   // the long route's most threads a block
 constexpr int kRowsAhead = 8;        // its columns a thread read ahead
+// The wide kernel (T_s > 1024): chain warps of 1024 columns (K = 32), warp
+// w kWarpGap steps behind lane 31 of warp w-1 past the lanes' skew, at most
+// kWideMax of them (its ring's shared memory); kEdge steps of lane 31's
+// highest column a warp keeps for the next.
+constexpr int kWideK = 32;
+constexpr int kWarpGap = 32;
+constexpr int kWideMax = 6;
+constexpr int kEdge = 128;
 
 // Columns a lane owns: the smallest instantiated K >= ceil(T_s / 32).
 __host__ __device__ constexpr int cols_per_lane(int t_s) {
@@ -477,12 +502,68 @@ __device__ void log_block(const float* __restrict__ attn,
   }
 }
 
+// Where the device-memory move words start in the scratch: past the ticket,
+// 16-byte aligned; chain_rows(t_m) * K words (chain_rows/32 words of each
+// of the 32K columns) an utterance.
+__host__ __device__ inline long long moves_off(long long b, long long t_m, int k) {
+  return ((b * (scratch_floats(t_m, k) + n_flags(t_m, k)) + 1) * 4 + 15) / 16 * 16;
+}
+
+// The backtrack from device memory (GBITS, and the wide kernel), 32 frames
+// a round: frame f of column c is bit f + skew(c) of the column's words in
+// rows of `cols` words, skew(c) = kSkew*(c/K) + kWarpGap*(c/(32K)) (the
+// second term is the wide kernel's gap between chain warps; one warp's
+// columns have none), no bit below frame 1 is set, and the path falls at
+// most one column a frame. Each lane writes the 1.0 of its frame of the
+// round.
+template <int K>
+__device__ void walk(const unsigned* bits, float* ob, int text_len,
+                     int mel_len, int t_s, int cols, int lane) {
+  int c = max(text_len - 1, 0);
+  for (int i0 = mel_len - 1; i0 >= 0; i0 -= kWarp) {
+    const int base = i0 - (kWarp - 1);           // the window's bit 0
+    const int lo_f = max(base, 0);
+    // lane j: frames base .. i0 of column c - j (column 0 never moves)
+    const int cj = c - lane;
+    unsigned win = 0u;
+    if (cj > 0) {
+      const int pos = base + kSkew * (cj / K) + kWarpGap * (cj / (kWarp * K));
+      const int w = pos >> 5, sh = pos & 31;     // floor, also below 0
+      const unsigned lo = w >= 0 ? bits[w * cols + cj] : 0u;
+      const unsigned hi = sh ? bits[(w + 1) * cols + cj] : 0u;
+      win = sh ? (lo >> sh) | (hi << (32 - sh)) : lo;
+    }
+    const int mine_f = i0 - lane;                // this lane's frame
+    int mine = 0, d = 0, i = i0;
+    while (true) {
+      const unsigned wd = __shfl_sync(0xffffffffu, win, d);
+      const int col = c - d;
+      const unsigned m = wd & (0xffffffffu >> (31 - (i - base)));
+      // the run in col: frames f .. i, f the highest with its move bit set
+      const int f = m ? base + 31 - __clz(m) : lo_f;
+      if (mine_f >= f && mine_f <= i) mine = col;
+      if (m == 0u) {                             // down past the round
+        c = col;
+        break;
+      }
+      i = f - 1;                                 // frame f-1 in col - 1
+      ++d;
+      if (i < lo_f) {
+        c = col - 1;
+        break;
+      }
+    }
+    if (mine_f >= 0) ob[static_cast<long long>(mine_f) * t_s + mine] = 1.f;
+  }
+}
+
 // A block takes its role from a ticket in the order blocks start, not
 // from blockIdx: tickets [0, n_log) make log blocks, the next B chain
 // blocks (ticket n_log + b carries utterance b). A chain block waits only
 // on log blocks, and those took their tickets before it, so they are
-// already running whatever order the card dispatches the grid in.
-template <int K>
+// already running whatever order the card dispatches the grid in. GBITS:
+// the move words in the scratch (moves_off), the backtrack by walk().
+template <int K, bool GBITS>
 __global__ void __launch_bounds__(Cfg<K>::threads, 1)
 mas_kernel(const float* __restrict__ attn, const int* __restrict__ in_lens,
            const int* __restrict__ out_lens, float* __restrict__ out,
@@ -507,6 +588,10 @@ mas_kernel(const float* __restrict__ attn, const int* __restrict__ in_lens,
   unsigned* bits = reinterpret_cast<unsigned*>(smem_raw + lay.bits_off);
 
   const int b = *role - n_log;
+  if constexpr (GBITS)
+    bits = reinterpret_cast<unsigned*>(reinterpret_cast<unsigned char*>(scratch) +
+                                       moves_off(b_total, t_m, K)) +
+           b * chain_rows(t_m) * K;
   const int tid = threadIdx.x;
   const int warp = tid / kWarp, lane = tid % kWarp;
   const int text_len = min(max(in_lens[b], 0), t_s);
@@ -545,7 +630,8 @@ mas_kernel(const float* __restrict__ attn, const int* __restrict__ in_lens,
                                 blk, lane);
       }
       __syncwarp();
-      if (lane == 0) c0 = backtrack<K>(bits, start, text_len, mel_len);
+      if constexpr (!GBITS)
+        if (lane == 0) c0 = backtrack<K>(bits, start, text_len, mel_len);
     } else if (lane == 0) {
       start[0] = 0;                               // column 0 holds every frame
     }
@@ -580,6 +666,18 @@ mas_kernel(const float* __restrict__ attn, const int* __restrict__ in_lens,
       asm volatile("bar.sync 1, %0;\n" :: "n"(G::fillers) : "memory");
       if (t == 0) bar_arrive(&full[q], kWarp);
     }
+  }
+  if constexpr (GBITS) {
+    // warp 0 alone: after the log blocks have zeroed the slab, the walk
+    if (warp == 0) {
+      if (lane == 0) {
+        while (load_flag(&uflags[nq]) == 0u) __nanosleep(256);
+        __threadfence();
+      }
+      __syncwarp();
+      walk<K>(bits, ob, text_len, mel_len, t_s, kWarp * K, lane);
+    }
+    return;
   }
   // the log blocks have zeroed the slab
   if (tid == 0) {
@@ -618,10 +716,15 @@ __host__ __device__ inline bool rows_shared(long long t_s) {
   return 8 * t_s <= kMaxShared;
 }
 
-// The warp kernel takes the shape: T_s <= 1024 and its shared memory fits.
-inline bool warp_route(long long t_m, long long t_s) {
-  return t_s <= 1024 && layout(t_m, cols_per_lane(static_cast<int>(t_s))).bytes
-                            <= kMaxShared;
+// The kernel a shape takes: 0 the warp kernel, 2 the warp kernel with its
+// move words in device memory (T_s <= 1024 whose shared memory does not
+// fit), 3 the wide kernel (T_s in (1024, 1024*kWideMax]), 1 the long route
+// (past it).
+inline int mas_route(long long t_m, long long t_s) {
+  if (t_s > kWarp * kWideK * kWideMax) return 1;
+  if (t_s > 1024) return 3;
+  return layout(t_m, cols_per_lane(static_cast<int>(t_s))).bytes <= kMaxShared
+             ? 0 : 2;
 }
 
 // One utterance a block, columns over threads, one barrier a frame (the
@@ -721,6 +824,280 @@ mas_rows_kernel(const float* __restrict__ attn, const int* __restrict__ in_lens,
   }
 }
 
+
+// ---- the wide kernel: W chain warps, T_s in (1024, 1024*kWideMax] --------- //
+//
+// The warp kernel's design spread over W = ceil(T_s/1024) chain warps of one
+// block, so that its chain has no block-wide barrier a frame past 1024
+// columns either. Virtual lane L' = 32w + L owns columns [32L', 32L' + 32)
+// and runs at skew(L') = kSkew*L' + kWarpGap*w steps: at step s it works on
+// frame s - skew. Inside a warp the left neighbour comes by shuffle, as in
+// the warp kernel; lane 0 of warp w > 0 takes it from the edge ring that
+// lane 31 of warp w-1 writes (its highest column after each step): with the
+// gap, the value a step needs was written 33 steps before, in an earlier
+// 32-step block, so a warp waits only at the start of a block, for the
+// previous warp to have finished the block before (a counter in shared
+// memory; the previous warp in turn waits before it overwrites ring
+// entries not yet read). The logarithms come from log blocks into a device
+// scratch of step rows (1024*W columns), flagged chunk by chunk and staged
+// into a shared ring by a stager warp, as in the warp kernel (every chunk,
+// no fillers); each chunk is handed back once all W chain warps read it.
+// The move words go to device memory ([B, rows/32, 1024*W], by column) and
+// warp 0 backtracks them by walk() once every chain warp has finished.
+
+__host__ __device__ inline int wide_warps(long long t_s) {
+  return static_cast<int>((t_s + kWarp * kWideK - 1) / (kWarp * kWideK));
+}
+__host__ __device__ inline int wide_skew(int c) {
+  return kSkew * (c / kWideK) + kWarpGap * (c / (kWarp * kWideK));
+}
+// step rows of an utterance's scratch: t_m + the largest skew, whole blocks
+__host__ __device__ inline long long wide_rows(long long t_m, int w) {
+  return (t_m + kSkew * (kWarp * w - 1) + kWarpGap * (w - 1) + kWarp - 1) /
+         kWarp * kWarp;
+}
+
+struct WideLayout {
+  long long edge_off, ring_off, bytes;
+};
+
+// Shared memory: 2*4 mbarriers, the warps' block counters and the role,
+// the edge rings ((W-1) x kEdge floats), the ring (4 chunks of 2 step rows
+// of 1024*W floats).
+__host__ __device__ inline WideLayout wide_layout(int w) {
+  WideLayout l;
+  l.edge_off = 2 * 4 * 8 + 64;
+  l.ring_off = l.edge_off + (w - 1) * kEdge * 4LL;
+  l.bytes = l.ring_off + ring_chunks(kWideK) * chunk_steps(kWideK) * 1024LL * w * 4;
+  return l;
+}
+
+// The scratch: the logs (rows x 1024W floats an utterance), a flag a chunk
+// and one for the zeroed output an utterance, the ticket, then (16-byte
+// aligned) the move words, rows/32 x 1024W an utterance.
+__host__ __device__ inline long long wide_moves_off(long long b, long long t_m,
+                                                    int w) {
+  const long long rows = wide_rows(t_m, w);
+  return ((b * (rows * 1024 * w + rows / chunk_steps(kWideK) + 1)) + 1) * 4 /
+         16 * 16 + 16;
+}
+
+// Chunks an utterance's chain reads: mel_len + skew of its last column.
+__device__ __forceinline__ int wide_chunks(int text_len, int mel_len) {
+  if (mel_len <= 0 || text_len <= 1) return 0;
+  const int steps = mel_len + wide_skew(text_len - 1);
+  return (steps + kWarp - 1) / kWarp * (kWarp / chunk_steps(kWideK));
+}
+
+__device__ void wide_log_block(const float* __restrict__ attn,
+                               const int* __restrict__ in_lens,
+                               const int* __restrict__ out_lens,
+                               float* __restrict__ out, float* scratch,
+                               unsigned* flags, int b_total, int n_log,
+                               int t_m, int t_s, float eps, int block) {
+  constexpr int C = chunk_steps(kWideK);
+  const int w = wide_warps(t_s), cols = kWarp * kWideK * w, cells = C * cols;
+  const long long rows = wide_rows(t_m, w), nq = rows / C;
+  const long long slab = static_cast<long long>(t_m) * t_s;
+  const int tid = threadIdx.x, n = blockDim.x;
+  for (long long k = block; k < nq * b_total; k += n_log) {
+    const int q = static_cast<int>(k / b_total);
+    const int b = static_cast<int>(k % b_total);
+    const int text_len = min(max(in_lens[b], 0), t_s);
+    const int mel_len = min(max(out_lens[b], 0), t_m);
+    if (q >= wide_chunks(text_len, mel_len)) continue;     // past its chain
+    const float* pb = attn + b * slab;
+    float* dst = scratch + b * rows * cols + static_cast<long long>(q) * cells;
+    for (int e0 = 0; e0 < cells; e0 += 8 * n) {            // 8 loads, 8 logs
+      float v[8];
+      int at[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = e0 + i * n + tid, c = e % cols;
+        const int f = q * C + e / cols - wide_skew(c);
+        const bool live = e < cells && c < text_len &&
+                          static_cast<unsigned>(f) < static_cast<unsigned>(mel_len);
+        at[i] = live ? e : -1;
+        v[i] = live ? pb[static_cast<long long>(f) * t_s + c] : 1.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (at[i] >= 0) dst[at[i]] = mas_log(v[i], eps);
+    }
+    __syncthreads();
+    if (tid == 0) set_flag(&flags[b * (nq + 1) + q]);
+  }
+  for (int b = block; b < b_total; b += n_log) {
+    float* ob = out + b * slab;
+    for (long long e = tid; e < slab; e += n) ob[e] = 0.f;
+    __syncthreads();
+    if (tid == 0) set_flag(&flags[b * (nq + 1) + nq]);
+  }
+}
+
+__device__ __forceinline__ int load_count(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
+}
+
+// Roles from a ticket as the warp kernel's: [0, n_log) log blocks, then a
+// chain block an utterance. A chain block: warps [0, W) the chain, warp W
+// the stager.
+__global__ void __launch_bounds__(256, 1)
+mas_wide_kernel(const float* __restrict__ attn, const int* __restrict__ in_lens,
+                const int* __restrict__ out_lens, float* __restrict__ out,
+                float* scratch, unsigned* flags, unsigned* ticket, int b_total,
+                int n_log, int t_m, int t_s, float eps) {
+  constexpr int K = kWideK, C = chunk_steps(K), R = ring_chunks(K);
+  constexpr int kRows = R * C;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* consumed = full + R;
+  int* done = reinterpret_cast<int*>(consumed + R);
+  int* role = done + kWideMax;
+  if (threadIdx.x == 0) *role = static_cast<int>(atomicAdd(ticket, 1u));
+  __syncthreads();
+  if (*role < n_log) {
+    wide_log_block(attn, in_lens, out_lens, out, scratch, flags, b_total,
+                   n_log, t_m, t_s, eps, *role);
+    return;
+  }
+  const int W = wide_warps(t_s), cols = kWarp * K * W;
+  const WideLayout lay = wide_layout(W);
+  float* edge = reinterpret_cast<float*>(smem_raw + lay.edge_off);
+  float* ring = reinterpret_cast<float*>(smem_raw + lay.ring_off);
+  const int b = *role - n_log;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int text_len = min(max(in_lens[b], 0), t_s);
+  const int mel_len = min(max(out_lens[b], 0), t_m);
+  const long long rows = wide_rows(t_m, W), nq = rows / C;
+  const long long slab = static_cast<long long>(t_m) * t_s;
+  float* ob = out + b * slab;
+  const unsigned* uflags = flags + b * (nq + 1);
+  unsigned* bits = reinterpret_cast<unsigned*>(reinterpret_cast<unsigned char*>(scratch) +
+                                               wide_moves_off(b_total, t_m, W)) +
+                   b * (rows / kWarp) * cols;
+  const int n_chunks = wide_chunks(text_len, mel_len);
+  const int n_blk = n_chunks / (kWarp / C);
+
+  if (tid == 0) {
+    for (int j = 0; j < R; ++j) {
+      bar_init(&full[j], kWarp);                  // the stager's lanes
+      bar_init(&consumed[j], W);                  // each chain warp's lane 0
+    }
+    for (int w = 0; w < kWideMax; ++w) done[w] = 0;
+  }
+  __syncthreads();
+
+  if (warp < W) {
+    const int lv = kWarp * warp + lane;           // the virtual lane
+    const int skew = kSkew * lv + kWarpGap * warp;
+    float lp[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) lp[k] = kNeg;
+    float lefts[kSkew];
+#pragma unroll
+    for (int j = 0; j < kSkew; ++j) lefts[j] = kNeg;
+    const float* up = edge + (warp - 1) * kEdge;  // warp w-1's lane 31
+    float* mine = edge + warp * kEdge;
+    for (int blk = 0; blk < n_blk; ++blk) {
+      // the previous warp's block blk-1, and room in this warp's edge ring
+      if (lane == 0) {
+        while ((warp > 0 && load_count(&done[warp - 1]) < blk) ||
+               (warp + 1 < W && load_count(&done[warp + 1]) < blk - 1))
+          __nanosleep(64);
+        __threadfence_block();
+      }
+      __syncwarp();
+      unsigned acc[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] = 0u;
+#pragma unroll
+      for (int u = 0; u < kWarp; ++u) {
+        const int s = blk * kWarp + u;
+        const int q = s / C;
+        if (u % C == 0) bar_wait(&full[q % R], (q / R) & 1);
+        float la[K];
+        load_cols<K>(ring + (s % kRows) * cols + lv * K, la);
+        const float nxt = __shfl_up_sync(0xffffffffu, lp[K - 1], 1);
+        float sh = lefts[0];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float here = lp[k];
+          const bool move = sh >= here;           // tie -> diagonal
+          acc[k] |= move ? (1u << u) : 0u;
+          lp[k] = la[k] + (move ? sh : here);
+          sh = here;
+        }
+        if (s == skew) {                          // frame 0 of this lane
+#pragma unroll
+          for (int k = 0; k < K; ++k) lp[k] = (lv == 0 && k == 0) ? la[k] : kNeg;
+        }
+#pragma unroll
+        for (int j = 0; j + 1 < kSkew; ++j) lefts[j] = lefts[j + 1];
+        // lane 0 of warp w > 0: warp w-1's highest column after step
+        // s - 33 (its skew is 34 below this lane's), the frame before the
+        // one this lane takes at step s+2
+        float left = nxt;
+        if (lane == 0)
+          left = (warp == 0 || s < kSkew + kWarpGap - 1) ? kNeg
+               : up[(s - kSkew - kWarpGap + 1) % kEdge];
+        lefts[kSkew - 1] = left;
+        if (lane == kWarp - 1 && warp + 1 < W) mine[s % kEdge] = lp[K - 1];
+        if (u % C == C - 1) {                     // the chunk's rows are read
+          __syncwarp();
+          if (lane == 0) bar_arrive(&consumed[q % R]);
+        }
+      }
+      // bits at or below a lane's frame 0 mean nothing
+      const int g = skew - blk * kWarp;
+      const unsigned keep = g < 0 ? 0xffffffffu : g >= 31 ? 0u : ~((2u << g) - 1u);
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[k] &= keep;
+      store_words<K>(bits + blk * cols + lv * K, acc);
+      __syncwarp();
+      if (lane == 0) {
+        __threadfence_block();
+        *reinterpret_cast<volatile int*>(&done[warp]) = blk + 1;
+      }
+    }
+    if (warp == 0) {
+      // every chain warp's move words, and the zeroed slab
+      if (lane == 0) {
+        for (int w = 1; w < W; ++w)
+          while (load_count(&done[w]) < n_blk) __nanosleep(64);
+        while (load_flag(&uflags[nq]) == 0u) __nanosleep(256);
+        __threadfence();
+      }
+      __syncwarp();
+      walk<K>(bits, ob, text_len, mel_len, t_s, cols, lane);
+    }
+  } else if (warp == W && n_chunks > 0) {
+    // the stager: every chunk, as the log blocks flag it
+    const float* src0 = scratch + b * rows * cols;
+    const int copies = C * cols * 4 / 16 / kWarp;  // 16-byte copies a lane
+    int ready = 0;
+    for (int q = 0; q < n_chunks; ++q) {
+      while (q >= ready) {
+        const int j = q + lane;
+        const bool set = j >= n_chunks || load_flag_acquire(&uflags[j]) != 0u;
+        const unsigned mask = __ballot_sync(0xffffffffu, set);
+        ready = q + (mask == 0xffffffffu ? kWarp : __ffs(~mask) - 1);
+        if (q >= ready) __nanosleep(128);
+      }
+      __syncwarp();
+      const int slot = q % R;
+      if (q >= R) bar_wait(&consumed[slot], (q / R - 1) & 1);
+      const float* src = src0 + static_cast<long long>(q) * C * cols;
+      float* dst = ring + slot * C * cols;
+      for (int i = 0; i < copies; ++i) {
+        const int e = (i * kWarp + lane) * 4;
+        cp_async16(dst + e, src + e);
+      }
+      bar_arrive_on_copies(&full[slot]);
+    }
+  }
+}
+
 // Applies mas_log elementwise: the kernel's logarithm, for a test to hold
 // against torch.log(torch.clamp(p, eps)).
 __global__ void mas_log_kernel(const float* __restrict__ p, float* __restrict__ out,
@@ -741,17 +1118,17 @@ int sm_count() {
   return cached[dev];
 }
 
-template <int K>
+template <int K, bool GBITS>
 cudaError_t launch(const float* attn, const int* in_lens, const int* out_lens,
                    float* out, void* scratch, int b, int t_m, int t_s,
                    float eps, cudaStream_t stream) {
-  const long long bytes = layout(t_m, K).bytes;
+  const long long bytes = GBITS ? layout(t_m, K).bits_off : layout(t_m, K).bytes;
   static int opted[64] = {};                      // bytes opted into, per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (bytes > 48 * 1024 && (dev >= 64 || opted[dev] < bytes)) {
-    err = cudaFuncSetAttribute(mas_kernel<K>,
+    err = cudaFuncSetAttribute(mas_kernel<K, GBITS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
@@ -770,8 +1147,43 @@ cudaError_t launch(const float* attn, const int* in_lens, const int* out_lens,
   err = cudaMemsetAsync(flags, 0, (b * n_flags(t_m, K) + 1) * sizeof(unsigned),
                         stream);
   if (err != cudaSuccess) return err;
-  mas_kernel<K><<<static_cast<unsigned>(n_log + b), Cfg<K>::threads,
+  mas_kernel<K, GBITS><<<static_cast<unsigned>(n_log + b), Cfg<K>::threads,
                   static_cast<size_t>(bytes), stream>>>(
+      attn, in_lens, out_lens, out, logs, flags, ticket, b,
+      static_cast<int>(n_log), t_m, t_s, eps);
+  return cudaGetLastError();
+}
+
+
+cudaError_t launch_wide(const float* attn, const int* in_lens,
+                        const int* out_lens, float* out, void* scratch, int b,
+                        int t_m, int t_s, float eps, cudaStream_t stream) {
+  const int w = wide_warps(t_s);
+  const long long bytes = wide_layout(w).bytes;
+  static int opted[64] = {};                      // bytes opted into, per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (bytes > 48 * 1024 && (dev >= 64 || opted[dev] < bytes)) {
+    err = cudaFuncSetAttribute(mas_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    if (dev < 64) opted[dev] = static_cast<int>(bytes);
+  }
+  const long long rows = wide_rows(t_m, w);
+  const long long nq = rows / chunk_steps(kWideK);
+  const long long items = nq * b + b;
+  long long n_log = sm_count() - b;
+  if (n_log < 8) n_log = 8;
+  if (n_log > items) n_log = items;
+  float* logs = static_cast<float*>(scratch);
+  unsigned* flags = reinterpret_cast<unsigned*>(logs + b * rows * 1024 * w);
+  unsigned* ticket = flags + b * (nq + 1);
+  err = cudaMemsetAsync(flags, 0, (b * (nq + 1) + 1) * sizeof(unsigned), stream);
+  if (err != cudaSuccess) return err;
+  mas_wide_kernel<<<static_cast<unsigned>(n_log + b), 256,
+                    static_cast<size_t>(bytes), stream>>>(
       attn, in_lens, out_lens, out, logs, flags, ticket, b,
       static_cast<int>(n_log), t_m, t_s, eps);
   return cudaGetLastError();
@@ -788,19 +1200,27 @@ extern "C" long long ctts_mas_shared_bytes(long long t_m, long long t_s) {
   return layout(t_m, cols_per_lane(static_cast<int>(t_s))).bytes;
 }
 
-// The kernel a shape takes: 0 the warp kernel, 1 the long route.
+// The kernel a shape takes: 0 the warp kernel, 1 the long route, 2 the
+// warp kernel with its move words in device memory, 3 the wide kernel.
 extern "C" int ctts_mas_route(long long t_m, long long t_s) {
-  return warp_route(t_m, t_s) ? 0 : 1;
+  return mas_route(t_m, t_s);
 }
 
 // Bytes of device scratch a call needs for [b, t_m, t_s]: for the warp
-// kernel the logarithms in step rows, the flags and the ticket; for the long
-// route the move words, then the rows where shared memory cannot hold them.
+// kernel the logarithms in step rows, the flags and the ticket (and, with
+// its move words in device memory, those past them); for the long route
+// the move words, then the rows where shared memory cannot hold them.
 extern "C" long long ctts_mas_scratch_bytes(long long b, long long t_m,
                                             long long t_s) {
-  if (!warp_route(t_m, t_s))
+  const int route = mas_route(t_m, t_s);
+  if (route == 1)
     return b * t_m * rows_words(t_s) * 4 + (rows_shared(t_s) ? 0 : b * 2 * t_s * 4);
+  if (route == 3) {
+    const int w = wide_warps(t_s);
+    return wide_moves_off(b, t_m, w) + b * wide_rows(t_m, w) / kWarp * 1024 * w * 4;
+  }
   const int k = cols_per_lane(static_cast<int>(t_s));
+  if (route == 2) return moves_off(b, t_m, k) + b * chain_rows(t_m) * k * 4;
   return b * (scratch_floats(t_m, k) + n_flags(t_m, k)) * 4 + 4;
 }
 
@@ -808,15 +1228,15 @@ extern "C" long long ctts_mas_scratch_bytes(long long b, long long t_m,
 // [B, T_m, T_s] float32 (every element is written), scratch of
 // ctts_mas_scratch_bytes (16-byte aligned, any content; the warp kernel's
 // launch zeroes its flags and ticket on the stream first). Any shape: the
-// warp kernel where it fits, else the long route. Returns a cudaError_t
-// (0 = launched).
+// kernel mas_route picks. Returns a cudaError_t (0 = launched).
 extern "C" int ctts_mas(const float* attn, const int* in_lens,
                         const int* out_lens, float* out, void* scratch, int b,
                         int t_m, int t_s, float eps, void* stream) {
   if (b < 0 || t_m < 0 || t_s < 0) return cudaErrorInvalidValue;
   if (b == 0 || t_m == 0 || t_s == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!warp_route(t_m, t_s)) {
+  const int route = mas_route(t_m, t_s);
+  if (route == 1) {
     unsigned* moves = static_cast<unsigned*>(scratch);
     float* rows = nullptr;
     size_t bytes = 0;
@@ -836,11 +1256,16 @@ extern "C" int ctts_mas(const float* attn, const int* in_lens,
         attn, in_lens, out_lens, out, moves, rows, t_m, t_s, eps);
     return cudaGetLastError();
   }
+  if (route == 3)
+    return launch_wide(attn, in_lens, out_lens, out, scratch, b, t_m, t_s, eps, s);
   switch (cols_per_lane(t_s)) {
 #define CTTS_MAS_CASE(K)                                                     \
     case K:                                                                  \
-      return launch<K>(attn, in_lens, out_lens, out, scratch, b, t_m, t_s,    \
-                       eps, s);
+      return route == 0                                                      \
+          ? launch<K, false>(attn, in_lens, out_lens, out, scratch, b, t_m,  \
+                             t_s, eps, s)                                    \
+          : launch<K, true>(attn, in_lens, out_lens, out, scratch, b, t_m,   \
+                            t_s, eps, s);
     CTTS_MAS_CASE(1) CTTS_MAS_CASE(2) CTTS_MAS_CASE(3) CTTS_MAS_CASE(4)
     CTTS_MAS_CASE(6) CTTS_MAS_CASE(8) CTTS_MAS_CASE(12) CTTS_MAS_CASE(16)
     CTTS_MAS_CASE(24) CTTS_MAS_CASE(32)

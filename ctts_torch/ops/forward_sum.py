@@ -10,8 +10,8 @@ logsumexp and the normalisation are torch ops; the lattice itself is
 :func:`ctc_state_nll`, a ``torch.autograd.Function`` over two kernels of
 ``csrc/forward_sum.cu`` on the card (forward: the alpha and beta recursions
 in one launch, both saved, or alpha alone where no gradient is wanted, by
-one state a thread up to 1024 states and several past them; backward: the
-gradient,
+one state a thread up to 640 states and past them one thread block cluster
+a chain, its states tiled over the cluster's CTAs; backward: the gradient,
 elementwise from them)
 and over their plain versions, :func:`ctc_alpha_plain`,
 :func:`ctc_beta_plain` and :func:`ctc_grad_plain`, on the CPU.
@@ -28,15 +28,16 @@ BLANK_LOGPROB = -1.0
 NEG = -1e9
 
 # kernel launches since the last reset (read by chip_smoke.py): the
-# lattice's one-state-a-thread instances (S <= 1024), its wide instance
-# (S > 1024), and the gradient
+# lattice's one-state-a-thread instances (S <= 640), its cluster kernel
+# (S > 640), and the gradient; each launch is counted by the kernel that
+# csrc/forward_sum.cu's ctts_ctc_route names
 lattice_launches = 0
-wide_lattice_launches = 0
+cluster_lattice_launches = 0
 grad_launches = 0
 
-# csrc/forward_sum.cu's kMaxThreads: the most states its one-state-a-thread
-# instances take; past them the wide instance
-MAX_THREADS = 1024
+# ctts_ctc_route's codes
+ROUTES = ("lattice", "lattice_1024", "lattice_cluster",
+          "lattice_cluster_no_ring")
 
 
 def _log_softmax(x):
@@ -128,8 +129,16 @@ def _lib():
             ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         lib.ctts_ctc_scratch_bytes.argtypes = [ctypes.c_longlong,
-                                               ctypes.c_int]
+                                               ctypes.c_int, ctypes.c_int]
         lib.ctts_ctc_scratch_bytes.restype = ctypes.c_longlong
+        lib.ctts_ctc_route.argtypes = [ctypes.c_int]
+        lib.ctts_ctc_route.restype = ctypes.c_int
+        lib.ctts_ctc_cluster_ctas.argtypes = [ctypes.c_int]
+        lib.ctts_ctc_cluster_ctas.restype = ctypes.c_int
+        lib.ctts_ctc_lattice_cluster.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p]
+        lib.ctts_ctc_lattice_cluster.restype = ctypes.c_int
         fn = lib.ctts_ctc_grad
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
@@ -158,34 +167,62 @@ def _check(em, floats, lens):
                              "one device")
 
 
-def ctc_lattice(em, in_lens, out_lens, with_beta=True):
-    """em [B, T_m, S] float32 state log-emissions, in_lens and out_lens [B]
-    int32 → the alpha and beta lattices, each [B, T_m, S], in one launch;
-    beta is None when ``with_beta`` is false."""
-    global lattice_launches, wide_lattice_launches
-    if em.device.type == "cpu":
-        return (ctc_alpha_plain(em, out_lens),
-                ctc_beta_plain(em, in_lens, out_lens) if with_beta else None)
+def route(S):
+    """The kernel of ``csrc/forward_sum.cu`` that a lattice of S states
+    launches, as its ``ctts_ctc_route`` picks it (one of ``ROUTES``), and
+    the CTAs of a chain's cluster (0 for the one-block instances). Needs
+    the built library."""
+    lib = _lib()
+    return ROUTES[lib.ctts_ctc_route(S)], lib.ctts_ctc_cluster_ctas(S)
+
+
+def _launch(em, in_lens, out_lens, with_beta, ctas=0):
     _check(em, (), (in_lens, out_lens))
     B, T_m, S = em.shape
     lib = _lib()
     alpha = torch.empty_like(em)
     beta = torch.empty_like(em) if with_beta else None
-    # the wide instance's rows, where they do not fit shared memory
-    n = lib.ctts_ctc_scratch_bytes(2 * B if with_beta else B, S)
+    # the cluster kernel's rows, where they do not fit shared memory
+    n = lib.ctts_ctc_scratch_bytes(2 * B if with_beta else B, S, ctas)
     scratch = torch.empty(n // 4, dtype=torch.float32,
                           device=em.device) if n else None
-    err = lib.ctts_ctc_lattice(
-        em.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
-        alpha.data_ptr(), beta.data_ptr() if with_beta else None, B, T_m, S,
-        scratch.data_ptr() if n else None,
-        torch.cuda.current_stream(em.device).cuda_stream)
+    args = (em.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
+            alpha.data_ptr(), beta.data_ptr() if with_beta else None, B, T_m,
+            S, scratch.data_ptr() if n else None)
+    stream = torch.cuda.current_stream(em.device).cuda_stream
+    if ctas:
+        err = lib.ctts_ctc_lattice_cluster(*args, ctas, stream)
+    else:
+        err = lib.ctts_ctc_lattice(*args, stream)
     kernels.check(err, lib, "ctc_lattice")
-    if S <= MAX_THREADS:
+    return alpha, beta
+
+
+def ctc_lattice(em, in_lens, out_lens, with_beta=True):
+    """em [B, T_m, S] float32 state log-emissions, in_lens and out_lens [B]
+    int32 → the alpha and beta lattices, each [B, T_m, S], in one launch;
+    beta is None when ``with_beta`` is false."""
+    global lattice_launches, cluster_lattice_launches
+    if em.device.type == "cpu":
+        return (ctc_alpha_plain(em, out_lens),
+                ctc_beta_plain(em, in_lens, out_lens) if with_beta else None)
+    alpha, beta = _launch(em, in_lens, out_lens, with_beta)
+    if _lib().ctts_ctc_route(em.shape[2]) < 2:
         lattice_launches += 1
     else:
-        wide_lattice_launches += 1
+        cluster_lattice_launches += 1
     return alpha, beta
+
+
+def ctc_lattice_cluster(em, in_lens, out_lens, ctas, with_beta=True):
+    """The cluster lattice on the card at a chosen cluster size (1-8 CTAs
+    a chain, each tile at least 16 states), at any S; what
+    :func:`ctc_lattice` returns. For the card tests and for measuring it
+    where the route keeps the one-block instances: not a launch of the main
+    path, so not counted."""
+    if ctas < 1:
+        raise ValueError("ctc_lattice_cluster takes 1-8 CTAs a chain")
+    return _launch(em, in_lens, out_lens, with_beta, ctas)
 
 
 def ctc_grad(alpha, beta, log_l, g, out_lens):

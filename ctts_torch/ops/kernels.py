@@ -134,6 +134,25 @@ def warp_chain(out, blocks, frames, k):
              torch.cuda.current_stream().cuda_stream), lib, "warp_chain")
 
 
+def cluster_chain(out, chains, ctas, threads, frames, span):
+    """One launch of ``csrc/barrier_chain.cu``'s cluster chain into ``out``
+    [chains * ctas, threads] float32 on the card: ``chains`` clusters of
+    ``ctas`` CTAs, ``frames`` dependent frames, each a ``__syncthreads()``
+    with one st.async handoff to the next CTA every ``span`` frames
+    (``span`` 0: one DSMEM store and one cluster barrier a frame). The
+    floor that the handoff sets for the cluster lattice of
+    ``csrc/forward_sum.cu`` at that shape."""
+    import torch
+    lib = LIBRARY.get()
+    fn = lib.ctts_cluster_chain
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    check(fn(out.data_ptr(), chains, ctas, threads, frames, span,
+             torch.cuda.current_stream().cuda_stream), lib, "cluster_chain")
+
+
 def _event_ms(launch, iters):
     import torch
     start = torch.cuda.Event(enable_timing=True)
@@ -173,8 +192,10 @@ def launch_counts():
             "scatter_rows": sort_gather.scatter_launches,
             "b_mas": mas.launches,
             "b_mas_rows": mas.rows_launches,
+            "b_mas_dev": mas.dev_launches,
+            "b_mas_wide": mas.wide_launches,
             "ctc_lattice": forward_sum.lattice_launches,
-            "ctc_lattice_wide": forward_sum.wide_lattice_launches,
+            "ctc_lattice_cluster": forward_sum.cluster_lattice_launches,
             "ctc_grad": forward_sum.grad_launches,
             "relpos_fwd": relpos_attention.launches,
             "relpos_bwd": relpos_attention.bwd_launches,
@@ -192,8 +213,9 @@ def reset_launch_counts():
                                 mas, relpos_attention, sort_gather)
     attention.launches = sort_gather.launches = 0
     sort_gather.scatter_launches = mas.launches = mas.rows_launches = 0
+    mas.dev_launches = mas.wide_launches = 0
     forward_sum.lattice_launches = forward_sum.grad_launches = 0
-    forward_sum.wide_lattice_launches = 0
+    forward_sum.cluster_lattice_launches = 0
     relpos_attention.launches = relpos_attention.bwd_launches = 0
     local_window_attention.launches = local_window_attention.bwd_launches = 0
     lsh_chunk_attention.launches = lsh_chunk_attention.bwd_launches = 0

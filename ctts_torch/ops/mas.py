@@ -6,9 +6,11 @@ frames (a path starts at (0, 0), moves down or diagonally, and ends at
 it launches ``csrc/mas.cu`` on the probabilities, which computes their
 logarithm itself, as the Pallas forward does: the warp kernel where its
 ring and move bits fit one block's shared memory (T_s <= 1024, T_m up to
-1442-10306 frames by T_s), else the long route, one barrier a frame with the
-move bits in device memory (:func:`route` names the kernel a shape takes);
-on the CPU it runs
+1442-10306 frames by T_s), the same kernel with its move words in device
+memory past that (T_s <= 1024, any T_m), the wide kernel (several chain
+warps of 1024 columns) for T_s up to 6144, and past that the long route,
+one barrier a frame with the move bits in device memory (:func:`route`
+names the kernel a shape takes); on the CPU it runs
 :func:`b_mas_plain`, the semantics of ``_mas_single`` / ``b_mas_scan``, on
 the logarithm of one torch expression. The kernel's logarithm is that
 expression's bits (``logf`` at full precision, the clamp keeping a NaN), and
@@ -26,9 +28,16 @@ from ctts_torch.ops import kernels
 NEG = -1e30
 
 # kernel launches since the last reset (read by chip_smoke.py): the warp
-# kernel's and the long route's
+# kernel's, the long route's, the warp kernel's with its move words in
+# device memory and the wide kernel's; each launch is counted by the kernel
+# ctts_mas_route names
 launches = 0
 rows_launches = 0
+dev_launches = 0
+wide_launches = 0
+
+# ctts_mas_route's codes
+ROUTES = ("warp", "rows", "warp_dev", "warps")
 
 
 def _log_attn(attn_soft, eps):
@@ -101,10 +110,13 @@ def shared_bytes(T_m, T_s):
 
 def route(T_m, T_s):
     """The kernel of ``csrc/mas.cu`` that [T_m, T_s] takes, as its
-    ``ctts_mas_route`` picks it: "warp" (``mas_kernel<K>``) where
-    T_s <= 1024 and its shared memory fits one block, else "rows"
-    (``mas_rows_kernel``). Needs the built library."""
-    return "rows" if _lib().ctts_mas_route(T_m, T_s) else "warp"
+    ``ctts_mas_route`` picks it: "warp" (``mas_kernel<K, false>``) where
+    T_s <= 1024 and its shared memory fits one block, "warp_dev"
+    (``mas_kernel<K, true>``, the move words in device memory) for the
+    other T_m at T_s <= 1024, "warps" (``mas_wide_kernel``, a chain warp
+    for each 1024 columns) up to 6144 columns, "rows" (``mas_rows_kernel``)
+    past them. Needs the built library."""
+    return ROUTES[_lib().ctts_mas_route(T_m, T_s)]
 
 
 def b_mas(attn_soft, in_lens, out_lens, eps=1e-12):
@@ -112,7 +124,7 @@ def b_mas(attn_soft, in_lens, out_lens, eps=1e-12):
     out_lens [B] mel lengths, int32. Returns the hard alignment
     [B, T_m, T_s] float32 in {0, 1}; rows at or past mel_len and columns at
     or past text_len are zero. No gradient flows."""
-    global launches, rows_launches
+    global launches, rows_launches, dev_launches, wide_launches
     if attn_soft.device.type == "cpu":
         return b_mas_plain(attn_soft, in_lens, out_lens, eps)
     if attn_soft.device.type != "cuda":
@@ -132,7 +144,8 @@ def b_mas(attn_soft, in_lens, out_lens, eps=1e-12):
     probs = attn_soft.detach().float().contiguous()
     out = torch.empty_like(probs)
     # the warp kernel's log blocks write the logarithms here and flag each
-    # chunk; the long route keeps its move bits (and rows) here
+    # chunk (and its device-memory instance its move words past them); the
+    # long route keeps its move bits (and rows) here
     scratch = torch.empty(lib.ctts_mas_scratch_bytes(B, T_m, T_s),
                           dtype=torch.uint8, device=attn_soft.device)
     err = lib.ctts_mas(
@@ -140,10 +153,15 @@ def b_mas(attn_soft, in_lens, out_lens, eps=1e-12):
         out.data_ptr(), scratch.data_ptr(), B, T_m, T_s, eps,
         torch.cuda.current_stream(attn_soft.device).cuda_stream)
     kernels.check(err, lib, "b_mas")
-    if lib.ctts_mas_route(T_m, T_s):
-        rows_launches += 1
-    else:
+    kind = lib.ctts_mas_route(T_m, T_s)
+    if kind == 0:
         launches += 1
+    elif kind == 1:
+        rows_launches += 1
+    elif kind == 2:
+        dev_launches += 1
+    else:
+        wide_launches += 1
     return out
 
 

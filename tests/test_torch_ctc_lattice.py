@@ -16,12 +16,12 @@ expressions it models from the CUDA source, so a change there fails here
 until the model follows. The card tests (tests/test_torch_gpu.py) hold the
 kernels themselves.
 
-Past 1024 states the wide instance keeps one block a chain and one barrier
-a frame, with K = ceil(S/1024) states a thread (s = tid + k·blockDim), the
-two rows S floats each (shared memory, or a global scratch past what a
-block may hold), the state's own value read from its row, and em read one
-frame ahead for the first kWideAhead states of a thread (the others on the
-chain). :class:`WideBlock` models it.
+Past kClusterFrom = 640 states (where it measured faster than one block)
+a chain runs on a thread block cluster of kClusterMax
+CTAs, each owning a tile of states, which hand their two edge states to
+the next CTA over distributed shared memory (a halo ring of kHalo slots
+with full and empty mbarriers, or one cluster barrier a frame) and stage em
+kEmRing - 1 frames ahead in a shared ring. :class:`ClusterChain` models it.
 """
 
 import pathlib
@@ -44,8 +44,8 @@ CU = (pathlib.Path(__file__).resolve().parents[1] / "ctts_torch" / "csrc"
 NEG = np.float32(-1e9)   # kNeg
 CHUNK = 8                # frames of em read ahead (kChunk)
 WARP = 32
-MAX_S = 1024             # one state a thread up to S = 1024 (kMaxThreads)
-WIDE_AHEAD = 8           # the wide instance's states read ahead (kWideAhead)
+MAX_S = 1024             # a block's threads (kMaxThreads)
+CLUSTER_FROM = 640       # one block a chain up to S = 640 (kClusterFrom)
 MAX_SHARED = 232448      # bytes of shared memory a block may use (kMaxShared)
 # the model against the plain version (float32 on both sides; numpy's exp
 # and log against PyTorch's differ by ulps): relative to max(1, |plain|)
@@ -420,127 +420,265 @@ def test_model_mirrors_the_kernel_source():
             "const I row = idx / n_s, b = row / t_m;",
             "? -expf(alpha[idx] + beta[idx] - log_l[b]) * g_out[b]",
             "if (total < (1u << 31))",
-            "if (n_s <= kMaxThreads) {"):
+            "if (n_s <= kClusterFrom) {"):
         assert line in src, line
     assert MAX_S == 1024
     assert "n_s > 1024" not in src
 
 
-# ---- the wide instance (S > 1024) ----------------------------------------- #
+# ---- the cluster lattice (S > 640) ---------------------------------------- #
 
-def wide_shape(S):
-    """(threads, states a thread) of the wide instance: K = ceil(S/1024),
-    threads ceil(S/K) in whole warps."""
-    k = -(-S // MAX_S)
-    return -(-(-(-S // k)) // WARP) * WARP, k
+CLUSTER_MAX = 8    # CTAs a cluster chain (kClusterMax)
+EM_RING = 8        # frames of em in a CTA's ring (kEmRing)
+SPAN = 8           # frames a handoff covers (kSpan)
+GHOST = 2 * SPAN   # ghost states a CTA computes upstream of its tile (kGhost)
+HALO = 8           # handoffs in flight (kHalo)
+# the halo ring's mbarriers, its slots and the floats its hand-backs land in
+LAYOUT_HEAD = 2 * HALO * 8 + (GHOST + 1) * HALO * 4
+CONST = -2         # a cell that holds the sentinel for good
 
 
-class WideBlock:
-    """One block of the wide instance: thread tid owns states tid + k·n,
-    k < K; the two rows hold S floats each (poisoned with NaN until
-    written); each frame reads the row of the other parity and writes its
-    own after one barrier. ``reads`` counts the reads of each em cell."""
+def cluster_shape(S, ctas=CLUSTER_MAX):
+    """(states a CTA, threads a CTA, cells a thread) of the cluster kernel:
+    tile = ceil(S/ctas), kGhost + tile cells, K = ceil(cells/1024), threads
+    ceil(cells/K) in whole warps."""
+    tile = -(-S // ctas)
+    cells = GHOST + tile
+    k = -(-cells // MAX_S)
+    return tile, -(-(-(-cells // k)) // WARP) * WARP, k
 
-    def __init__(self, em):
+
+def cluster_bytes(tile, rows_shared, ring):
+    """cluster_layout(): the halo ring, two rows and kEmRing ring rows of
+    kGhost + tile floats."""
+    return (LAYOUT_HEAD + (2 * (GHOST + tile) * 4 if rows_shared else 0)
+            + (EM_RING * (GHOST + tile) * 4 if ring else 0))
+
+
+class ClusterChain:
+    """One chain (alpha, or beta of one utterance) on a cluster of ``ctas``
+    CTAs, run as the kernel runs it. CTA r owns states [r·tile, r·tile +
+    nt) and computes the kGhost states upstream of them too: cell q holds
+    position p = q - kGhost along the chain's direction (alpha s = lo + p,
+    beta s = hi - 1 - p) and reads the previous row at q (own), q - 1 and,
+    for a skip, q - 2. Each cell remembers the step that wrote it, and a
+    read of a cell not written at the step before fails: k steps after a
+    handoff only cells q >= 2k are computed, and kSpan steps on the upstream
+    CTA's kGhost edge cells of that step refill the ghosts (a CTA with none
+    upstream holds the sentinel there for good). Rows are poisoned with NaN
+    until written. The CTAs run in a seeded random order that each CTA's
+    waits allow: a step after a handoff waits for its slot (written for this
+    handoff, not yet overwritten), and a handoff waits for the downstream
+    CTA to have handed back the slot kHalo handoffs before, which it does
+    only where the slot is reused (u + kHalo < handoffs), so none is left in
+    flight at the end. ``ring``: em staged kEmRing - 1 steps ahead into a
+    ring slot a step, each slot written after its last read and read once
+    after its write."""
+
+    def __init__(self, em, ctas, beta, ilen, olen, ring=True, seed=0):
         self.em = np.asarray(em, np.float32)
         self.T_m, self.S = self.em.shape
-        self.n, self.K = wide_shape(self.S)
-        owner = np.arange(self.n)[:, None] + np.arange(self.K)[None] * self.n
-        self.owned = owner[owner < self.S]           # every live (tid, k)
-        self.k_of = (np.arange(self.S) // self.n)    # k of state s
-        self.rows = np.full(2 * self.S, np.nan, np.float32)
+        self.ctas, self.beta, self.ring = ctas, beta, ring
+        self.ilen = int(ilen)
+        self.olen = min(max(int(olen), 0), self.T_m)
+        self.tile = cluster_shape(self.S, ctas)[0]
+        self.rng = np.random.RandomState(seed)
         self.reads = np.zeros((self.T_m, self.S), np.int64)
+        if beta:
+            self.steps = self.olen - 1 if self.olen >= 2 else 0
+        else:
+            self.steps = max(self.olen, 1) - 1
+        self.n_hand = (self.steps - 1) // SPAN if self.steps > 0 else 0
+        self.handoffs = 0
 
-    def row(self, parity):
-        return self.rows[parity * self.S:(parity + 1) * self.S]
+    def frame(self, j):
+        return self.olen - 1 - j if self.beta else j
 
-    def read(self, t, states):
-        np.add.at(self.reads, (t, states), 1)
-        return self.em[t, states]
+    def read_em(self, t, s):
+        np.add.at(self.reads, (t, s), 1)
+        return self.em[t, s]
 
-    def ahead(self, t):
-        """em[t] of the states read ahead (k < kWideAhead), read the frame
-        before; the others are read on the chain, in frame t itself."""
-        near = np.arange(self.S)[self.k_of < WIDE_AHEAD]
-        far = np.arange(self.S)[self.k_of >= WIDE_AHEAD]
-        e = np.empty(self.S, np.float32)
-        e[near] = self.read(t, near)
-        return e, far
+    def cta(self, r):
+        lo = r * self.tile
+        nt = min(self.tile, self.S - lo)
+        assert nt >= GHOST
+        q = np.arange(GHOST + nt)
+        p = q - GHOST
+        s = lo + nt - 1 - p if self.beta else lo + p
+        up = r + 1 if self.beta else r - 1          # where the ghosts come from
+        down = r - 1 if self.beta else r + 1        # where the edges go
+        w = GHOST + self.tile
+        rows = np.full((2, w), np.nan, np.float32)
+        written = np.full((2, w), -1)
+        receives = 0 <= up < self.ctas
+        if not receives:
+            rows[:, :GHOST] = NEG
+            written[:, :GHOST] = CONST
+        return dict(r=r, nt=nt, q=q, s=s, rows=rows, written=written,
+                    receives=receives, q0=0 if receives else GHOST,
+                    down=down if 0 <= down < self.ctas else None,
+                    ring=np.full((EM_RING, GHOST + nt), np.nan, np.float32),
+                    ring_tag=np.full(EM_RING, -1),
+                    ring_read=np.ones(EM_RING, bool),
+                    halo=np.full((HALO, GHOST), np.nan, np.float32),
+                    halo_tag=np.full(HALO, -1), acked=-1, j=0)
 
-    def alpha(self, olen):
-        T_m, S = self.T_m, self.S
-        olen = min(max(int(olen), 0), T_m)
-        s = np.arange(S)
-        out = np.zeros((T_m, S), np.float32)
-        a = np.full(S, NEG, np.float32)
-        a[:2] = self.read(0, s[:2])
-        self.row(0)[:] = a
-        out[0] = a
-        for t in range(1, olen):
-            e, far = self.ahead(t)
-            e[far] = self.read(t, far)
-            prev = self.row((t - 1) & 1)
-            p1 = np.where(s >= 1, prev[np.maximum(s - 1, 0)], NEG)
-            p2 = np.where((s % 2 == 1) & (s >= 3), prev[np.maximum(s - 2, 0)],
-                          NEG)
-            a = lse3(prev, p1, p2) + e
-            self.row(t & 1)[:] = a
-            out[t] = a
-        out[max(olen, 1):] = self.row((max(olen, 1) - 1) & 1)
+    def stage(self, c, j):
+        """em of step j into ring slot j % kEmRing (cp.async, one group)."""
+        if j > self.steps:
+            return
+        slot, q0 = j % EM_RING, c["q0"]
+        assert c["ring_read"][slot] and c["ring_tag"][slot] in (-1,
+                                                                j - EM_RING)
+        c["ring"][slot, q0:] = self.read_em(self.frame(j), c["s"][q0:])
+        c["ring_tag"][slot], c["ring_read"][slot] = j, False
+
+    def em_of(self, c, j, live):
+        if not self.ring:
+            return self.read_em(self.frame(j), c["s"][live])
+        slot = j % EM_RING
+        assert c["ring_tag"][slot] == j and not c["ring_read"][slot]
+        c["ring_read"][slot] = True
+        return c["ring"][slot, live]
+
+    def can_step(self, c, ctas):
+        j = c["j"]
+        if j > self.steps:
+            return False
+        j0 = (j - 1) // SPAN * SPAN
+        if c["receives"] and j0 > 0 and j == j0 + 1:
+            u = j0 // SPAN - 1
+            if c["halo_tag"][u % HALO] != u:
+                return False
+        if c["down"] is not None and j % SPAN == 0 and 0 < j < self.steps:
+            u = j // SPAN - 1
+            if u >= HALO and ctas[c["down"]]["acked"] < u - HALO:
+                return False
+        return True
+
+    def step(self, c, ctas, out):
+        j, q, s, rows, wr = c["j"], c["q"], c["s"], c["rows"], c["written"]
+        last = 2 * self.ilen
+        q0 = c["q0"]
+        if j == 0:
+            if self.beta:
+                if self.olen >= 2:
+                    v = self.read_em(self.olen - 1, s[q0:]) + np.where(
+                        (s[q0:] == last) | (s[q0:] == last - 1),
+                        np.float32(0), NEG)
+                    rows[0, q[q0:]] = v
+                    wr[0, q[q0:]] = 0
+            else:
+                live = q >= q0
+                v = np.full(live.sum(), NEG, np.float32)
+                first = s[live] < 2
+                v[first] = self.read_em(0, s[live][first])
+                rows[0, q[q0:]] = v
+                wr[0, q[q0:]] = 0
+                own = q >= GHOST
+                out[0, s[own]] = rows[0, q[own]]
+            if self.ring:
+                for k in range(1, EM_RING):
+                    self.stage(c, k)
+        else:
+            prev, cur = rows[(j - 1) & 1], rows[j & 1]
+            pw, cw = wr[(j - 1) & 1], wr[j & 1]
+            j0 = (j - 1) // SPAN * SPAN
+            if c["receives"] and j0 > 0 and j == j0 + 1:
+                u = j0 // SPAN - 1
+                slot = u % HALO
+                assert c["halo_tag"][slot] == u
+                prev[:GHOST] = c["halo"][slot]
+                pw[:GHOST] = j0
+                if u + HALO < self.n_hand:            # the hand-back
+                    assert c["acked"] == u - 1
+                    c["acked"] = u
+            q_lo = 2 * (j - j0) if c["receives"] else GHOST
+            live = q >= max(q_lo, q0)
+            ql, sl = q[live], s[live]
+            two = (sl % 2 == 1) if self.beta else ((sl % 2 == 1) & (sl >= 3))
+            need = np.concatenate([ql, ql - 1, ql[two] - 2])
+            assert np.isin(pw[need], (j - 1, CONST)).all(), "a stale cell"
+            e = self.em_of(c, j, live)
+            x = lse3(prev[ql], prev[ql - 1],
+                     np.where(two, prev[np.maximum(ql - 2, 0)], NEG))
+            t = self.frame(j)
+            v = (e + x if self.beta else x + e).astype(np.float32)
+            own = ql >= GHOST
+            out[t, sl[own]] = (x if self.beta else v)[own]
+            cur[ql] = v
+            cw[ql] = j
+            d = c["down"]
+            if d is not None and j % SPAN == 0 and j < self.steps:
+                u = j // SPAN - 1
+                dc = ctas[d]
+                assert u < HALO or dc["acked"] >= u - HALO    # the empty wait
+                edge = ql >= c["nt"]
+                assert edge.sum() == GHOST
+                dc["halo"][u % HALO] = v[edge]
+                dc["halo_tag"][u % HALO] = u
+                self.handoffs += 1
+            if self.ring:
+                self.stage(c, j + EM_RING - 1)
+        c["j"] += 1
+
+    def run(self):
+        out = np.full((self.T_m, self.S), np.nan, np.float32)
+        ctas = [self.cta(r) for r in range(self.ctas)]
+        while any(c["j"] <= self.steps for c in ctas):
+            ready = [c for c in ctas if self.can_step(c, ctas)]
+            assert ready, "the cluster deadlocks"
+            self.step(ready[self.rng.randint(len(ready))], ctas, out)
+        assert self.handoffs == self.n_hand * (self.ctas - 1)
+        last = 2 * self.ilen
+        for c in ctas:                   # frozen and final rows, off the chain
+            own = c["q"] >= GHOST
+            s = c["s"][own]
+            if self.beta:
+                out[(self.olen - 1 if self.olen >= 2 else 0):, s] = np.where(
+                    (s == last) | (s == last - 1), np.float32(0), NEG)
+            else:
+                out[self.steps + 1:, s] = c["rows"][self.steps & 1,
+                                                    c["q"][own]]
+        assert not np.isnan(out).any()
         return out
 
-    def beta(self, ilen, olen):
-        T_m, S = self.T_m, self.S
-        olen = min(max(int(olen), 0), T_m)
-        s = np.arange(S)
-        last = 2 * int(ilen)
-        fin = np.where((s == last) | (s == last - 1), np.float32(0),
-                       NEG).astype(np.float32)
-        out = np.zeros((T_m, S), np.float32)
-        if olen < 2:
-            out[:] = fin
-            return out
-        self.row((olen - 2) & 1)[:] = self.read(olen - 1, s) + fin
-        for t in range(olen - 2, -1, -1):
-            e, far = self.ahead(t)
-            e[far] = self.read(t, far)
-            nxt = self.row(t & 1)
-            bt = lse3(nxt, np.where(s + 1 < S, nxt[np.minimum(s + 1, S - 1)],
-                                    NEG),
-                      np.where((s % 2 == 1) & (s + 2 < S),
-                               nxt[np.minimum(s + 2, S - 1)], NEG))
-            out[t] = bt
-            self.row((t - 1) & 1)[:] = e + bt
-        out[olen - 1:] = fin
-        return out
 
-
-def wide_lattices(em, in_lens, out_lens):
-    alpha = np.stack([WideBlock(e).alpha(o) for e, o in zip(em, out_lens)])
-    beta = np.stack([WideBlock(e).beta(i, o)
-                     for e, i, o in zip(em, in_lens, out_lens)])
+def cluster_lattices(em, in_lens, out_lens, ctas=CLUSTER_MAX, ring=True,
+                     seed=0):
+    alpha = np.stack([ClusterChain(e, ctas, False, i, o, ring, seed + b).run()
+                      for b, (e, i, o) in enumerate(zip(em, in_lens,
+                                                        out_lens))])
+    beta = np.stack([ClusterChain(e, ctas, True, i, o, ring,
+                                  seed + 100 + b).run()
+                     for b, (e, i, o) in enumerate(zip(em, in_lens,
+                                                       out_lens))])
     return alpha, beta
 
 
-WIDE_CASES = {
-    # S = 1025, 1281 (the long step's 640 tokens) and 2049: two and three
-    # states a thread over every state of the axis (the dead ones past
-    # 2·in_len + 1 included), ragged lengths with reachable ends, and
-    # out_len < in_len, 0, 1 and 2
-    "1025": (5, 40, 512, [512, 20, 7, 30], [40, 37, 10, 2]),
-    "1281": (6, 60, 640, [640, 1, 25, 50], [60, 0, 1, 60]),
-    "2049": (7, 50, 1024, [1024, 30, 15], [50, 49, 50]),
+CLUSTER_CASES = {
+    # S = 1025, 1281 (the long step's 640 tokens) and 2049 on 8 CTAs (tiles
+    # of 129, 161 and 257 states: every tile edge and its neighbours),
+    # every state of the axis (the dead ones past 2·in_len + 1 included),
+    # ragged lengths with reachable ends, out_len < in_len, 0, 1 and 2,
+    # and more handoffs than the halo ring's kHalo slots
+    "1025": (5, 90, 512, [512, 20, 7, 30], [90, 37, 10, 2]),
+    "1281": (6, 100, 640, [640, 1, 25, 50], [100, 0, 1, 73]),
+    "2049": (7, 81, 1024, [1024, 30, 15], [81, 80, 9]),
 }
 
 
-@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+@pytest.mark.parametrize("name", sorted(CLUSTER_CASES))
 def test_wide_model_matches_the_plain_versions_and_the_jax_scan(name):
-    """The wide instance's alpha and beta as the plain versions compute
-    them, its -logL as ``_ctc_nll_scan`` (the sentinel's scale where the
-    end is unreachable), and every em cell the chains use read once."""
-    seed, T_m, T_s, il, ol = WIDE_CASES[name]
+    """The cluster kernel's alpha and beta as the plain versions compute
+    them (through the ghost states' handoffs in a random pipelined order and
+    the em ring), its -logL as ``_ctc_nll_scan`` (the sentinel's scale
+    where the end is unreachable), and every em cell of a CTA's own states
+    that the chains use read once (a ghost reads its upstream state's em
+    again)."""
+    seed, T_m, T_s, il, ol = CLUSTER_CASES[name]
     em, il, ol = case(seed, T_m, T_s, il, ol)
-    alpha, beta = wide_lattices(em, il, ol)
+    alpha, beta = cluster_lattices(em, il, ol)
     t_em = torch.from_numpy(em.copy())
     ref_a = t_fs.ctc_alpha_plain(t_em, torch.from_numpy(ol)).numpy()
     ref_b = t_fs.ctc_beta_plain(t_em, torch.from_numpy(il),
@@ -552,111 +690,188 @@ def test_wide_model_matches_the_plain_versions_and_the_jax_scan(name):
     ll = log_l(alpha, il)
     assert np.all(np.abs(-ll - nll) <= TOL_NLL * np.maximum(1, np.abs(nll)))
     for b, o in enumerate(ol):
-        blk = WideBlock(em[b])
-        blk.alpha(o)
-        want = np.zeros_like(blk.reads)
+        chain = ClusterChain(em[b], CLUSTER_MAX, False, il[b], o)
+        chain.run()
+        tile = chain.tile
+        want = np.zeros_like(chain.reads)
         want[0, :2] = 1
         want[1:max(int(o), 1)] = 1
-        assert np.array_equal(blk.reads, want)
+        # ghosts: the kGhost states left of each tile but the first, again
+        ghosts = np.concatenate([np.arange(r * tile - GHOST, r * tile)
+                                 for r in range(1, CLUSTER_MAX)])
+        want[1:max(int(o), 1), ghosts] += 1
+        assert np.array_equal(chain.reads, want)
+
+
+@pytest.mark.parametrize("ctas,seed", [(2, 0), (3, 1), (5, 2), (7, 3),
+                                       (8, 4), (8, 5)])
+def test_cluster_model_at_each_size_and_handoff(ctas, seed):
+    """S = 1025 and 1281 over 2 to 8 CTAs (tiles of 513 down to 129
+    states; the last tile shorter), the CTAs in random orders: the plain
+    versions' alpha and beta."""
+    for case_seed, T_m, T_s, il, ol in (CLUSTER_CASES["1025"],
+                                        CLUSTER_CASES["1281"]):
+        em, il, ol = case(case_seed, T_m, T_s, il, ol)
+        alpha, beta = cluster_lattices(em, il, ol, ctas, seed=seed)
+        t_em = torch.from_numpy(em.copy())
+        assert lattice_err(alpha, t_fs.ctc_alpha_plain(
+            t_em, torch.from_numpy(ol)).numpy()) <= TOL_LATTICE
+        assert lattice_err(beta, t_fs.ctc_beta_plain(
+            t_em, torch.from_numpy(il), torch.from_numpy(ol)).numpy()) \
+            <= TOL_LATTICE
 
 
 def test_wide_model_past_the_read_ahead_matches_the_plain_versions():
-    """S = 8193: nine states a thread, the ninth read on the chain, not
-    ahead; every em cell the chains use read once."""
-    em, il, ol = case(8, 6, 4096, [4096, 2], [6, 5])
-    alpha, beta = wide_lattices(em, il, ol)
+    """S = 8193 over 8 CTAs: tiles of 1025 states and 16 ghosts, two cells
+    a thread, with the em ring and with em read on the chain (the instance
+    past the ring's shared memory), over 20 frames (two handoffs): the
+    plain versions' alpha and beta, every em cell of the beta chain read
+    once, the ghosts' once more."""
+    em, il, ol = case(8, 20, 4096, [4096, 2], [20, 19])
+    assert cluster_shape(8193) == (1025, 544, 2)
     t_em = torch.from_numpy(em.copy())
-    assert lattice_err(alpha, t_fs.ctc_alpha_plain(
-        t_em, torch.from_numpy(ol)).numpy()) <= TOL_LATTICE
-    assert lattice_err(beta, t_fs.ctc_beta_plain(
-        t_em, torch.from_numpy(il), torch.from_numpy(ol)).numpy()) \
-        <= TOL_LATTICE
-    blk = WideBlock(em[0])
-    assert blk.K == 9 and blk.k_of.max() == 8 >= WIDE_AHEAD
-    blk.beta(il[0], ol[0])
-    assert np.array_equal(blk.reads, np.ones_like(blk.reads))
+    for ring in (True, False):
+        alpha, beta = cluster_lattices(em, il, ol, ring=ring)
+        assert lattice_err(alpha, t_fs.ctc_alpha_plain(
+            t_em, torch.from_numpy(ol)).numpy()) <= TOL_LATTICE
+        assert lattice_err(beta, t_fs.ctc_beta_plain(
+            t_em, torch.from_numpy(il), torch.from_numpy(ol)).numpy()) \
+            <= TOL_LATTICE
+    chain = ClusterChain(em[0], CLUSTER_MAX, True, il[0], ol[0])
+    chain.run()
+    want = np.ones_like(chain.reads)
+    for r in range(CLUSTER_MAX - 1):       # beta's ghosts: right of a tile
+        want[:, (r + 1) * 1025:(r + 1) * 1025 + GHOST] += 1
+    assert np.array_equal(chain.reads, want)
 
 
 def test_wide_gradient_matches_jax_grad():
-    """The elementwise gradient from the wide lattices at S = 1025 against
-    ``jax.grad`` of ``_ctc_nll_scan`` where both ends are reachable, as
-    the CPU route is held."""
-    seed, T_m, T_s, il, ol = WIDE_CASES["1025"]
+    """The elementwise gradient from the cluster lattices at S = 1025
+    against ``jax.grad`` of ``_ctc_nll_scan`` where both ends are
+    reachable, as the CPU route is held."""
+    seed, T_m, T_s, il, ol = CLUSTER_CASES["1025"]
     em, il, ol = case(seed, T_m, T_s, il[1:3], ol[1:3])
     g = np.asarray([0.7, 1.3], np.float32)
     want = np.asarray(jax.grad(lambda e: jnp.sum(j_fs._ctc_nll_scan(
         e, jnp.asarray(il), jnp.asarray(ol)) * g))(jnp.asarray(em)))
-    alpha, beta = wide_lattices(em, il, ol)
+    alpha, beta = cluster_lattices(em, il, ol)
     np.testing.assert_allclose(gradient(alpha, beta, log_l(alpha, il), g, ol),
                                want, atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
 def route(S):
-    """The instance of forward_sum.cu that a lattice of S states launches:
-    (name, threads a block, states a thread, where the two rows of a chain
-    live)."""
-    if S <= MAX_S:
-        return ("lattice" if threads(S) <= 512 else "lattice_1024",
+    """The kernel of forward_sum.cu that a lattice of S states launches,
+    as ``ctts_ctc_route`` picks it: (name, CTAs a chain, threads a CTA,
+    states a thread, where the two rows of a CTA live)."""
+    if S <= CLUSTER_FROM:
+        return ("lattice" if threads(S) <= 512 else "lattice_1024", 1,
                 threads(S), 1, "shared")
-    return ("lattice_wide", *wide_shape(S),
-            "shared" if 8 * S <= MAX_SHARED else "global")
+    tile, n, k = cluster_shape(S)
+    if cluster_bytes(tile, True, True) <= MAX_SHARED:
+        return "lattice_cluster", CLUSTER_MAX, n, k, "shared"
+    return ("lattice_cluster_no_ring", CLUSTER_MAX, n, k,
+            "shared" if cluster_bytes(tile, True, False) <= MAX_SHARED
+            else "global")
 
 
-@pytest.mark.parametrize("S", [1, 257, 513, 1024, 1025, 1281, 2049, 4097,
-                               8191, 8193, 29056, 29057, 65537])
+@pytest.mark.parametrize("S", [1, 257, 513, 639, 641, 1023, 1024, 1025, 1281,
+                               2049, 4097, 8191, 8193, 29056, 29057, 29201,
+                               46223, 46225, 65537, 231647, 231649])
 def test_the_wrapper_routes_each_width_to_its_instance(S):
     """:func:`route`, the launch's choice as a plain function, against the
-    launch in the source: one state a thread up to 1024 (the 512-thread
-    instance first), the wide instance past it, every state owned once by
-    a thread of at most 1024, its two rows in shared memory while 8·S
-    bytes fit one block, else in the global scratch. The wrapper counts a
-    launch as wide past ``MAX_THREADS``, the source's kMaxThreads."""
-    name, threads, k, where = route(S)
-    if S <= MAX_S:
-        assert (k, where) == (1, "shared") and threads == -(-S // WARP) * WARP
-        assert name == ("lattice" if threads <= 512 else "lattice_1024")
+    launch in the source: one state a thread up to 640 (the 512-thread
+    instance first), the cluster kernel past it on kClusterMax CTAs, each
+    cell (a state or a ghost) owned once by a thread of at most 1024, the
+    em ring while it and the rows fit a CTA, then em on the chain with the
+    rows in shared memory while they fit, else in the scratch; the last
+    tile holds the kGhost edge states a handoff needs. The wrapper counts a
+    launch by the source's own route (ctts_ctc_route)."""
+    name, ctas, n, k, where = route(S)
+    if S <= CLUSTER_FROM:
+        assert (ctas, k, where) == (1, 1, "shared")
+        assert n == -(-S // WARP) * WARP
+        assert name == ("lattice" if n <= 512 else "lattice_1024")
         return
-    assert name == "lattice_wide" and (threads, k) == wide_shape(S)
-    assert threads % WARP == 0 and threads <= MAX_S
-    owner = np.arange(threads)[:, None] + np.arange(k)[None] * threads
-    assert np.array_equal(np.sort(owner[owner < S]), np.arange(S))
-    assert (owner < S).sum(1).min() >= k - 1          # no idle thread rows
-    assert where == ("shared" if 8 * S <= MAX_SHARED else "global")
+    tile = -(-S // ctas)
+    assert ctas == CLUSTER_MAX and (tile, n, k) == cluster_shape(S)
+    assert n % WARP == 0 and n <= MAX_S and S - (ctas - 1) * tile >= GHOST
+    cells = GHOST + tile
+    owner = (np.arange(n)[:, None] + np.arange(k)[None] * n)
+    assert np.array_equal(np.sort(owner[owner < cells]), np.arange(cells))
+    assert (owner < cells).sum(1).min() >= k - 1       # no idle thread rows
+    # the cells that read a ghost (q < kGhost + 2) are warp 0's, k = 0
+    assert n >= WARP >= GHOST + 2
+    ring = cluster_bytes(tile, True, True) <= MAX_SHARED
+    assert name == ("lattice_cluster" if ring else "lattice_cluster_no_ring")
+    assert where == ("shared" if cluster_bytes(tile, True, False)
+                     <= MAX_SHARED else "global")
+    assert (S <= 46223) == ring and (S <= 231647) == (where == "shared")
 
 
 def test_wide_model_mirrors_the_kernel_source():
     src = CU.read_text()
-    for name, want in (("kMaxThreads", MAX_S), ("kWideAhead", WIDE_AHEAD),
-                       ("kMaxShared", MAX_SHARED)):
+    for name, want in (("kMaxThreads", MAX_S), ("kMaxShared", MAX_SHARED),
+                       ("kClusterFrom", CLUSTER_FROM),
+                       ("kClusterMax", CLUSTER_MAX), ("kEmRing", EM_RING),
+                       ("kSpan", SPAN), ("kHalo", HALO)):
         m = re.search(rf"constexpr (?:int|long long) {name} = (\d+);", src)
         assert m and int(m.group(1)) == want, name
-    assert t_fs.MAX_THREADS == MAX_S
+    assert "constexpr int kGhost = 2 * kSpan;" in src
+    assert "ctc_lattice_kernel_wide" not in src
     for line in (
-            # K states a thread, whole warps, rows in shared memory while
-            # they fit
-            "int wide_states(int n_s) { return (n_s + kMaxThreads - 1) / "
-            "kMaxThreads; }",
-            "return ((n_s + k - 1) / k + 31) / 32 * 32;",
-            "bool wide_rows_shared(int n_s) { return 8LL * n_s <= kMaxShared; }",
-            "const int tid = threadIdx.x, n = blockDim.x, kn = (n_s + n - 1) / n;",
-            "const int s = tid + k * n;",
-            # alpha: the own value and s-1, s-2 from the previous row
-            "const float* prev = rows + ((t - 1) & 1) * n_s;",
-            "const float p2 = ((s & 1) && s >= 3) ? prev[s - 2] : kNeg;",
-            "const float a = lse3(prev[s], p1, p2) + em_wide(cur, k, eb, t, s, n_s);",
-            "const float* fin = rows + ((max(olen, 1) - 1) & 1) * n_s;",
-            # beta: s, s+1, s+2 of the next row, the own q into the other
-            "const float* next = rows + (t & 1) * n_s;",
-            "const float bt = lse3(next[s], s + 1 < n_s ? next[s + 1] : kNeg,",
-            "((s & 1) && s + 2 < n_s) ? next[s + 2] : kNeg);",
-            "row[s] = em_wide(cur, k, eb, t, s, n_s) + bt;",
-            "rows[((olen - 2) & 1) * n_s + s] =",
-            # em: the first kWideAhead states a frame ahead, the rest on the
-            # chain
-            "return k < kWideAhead ? e : eb[static_cast<size_t>(t) * n_s + s];",
-            "nxt[k] = (k < kn && s < n_s && t + 1 < olen)",
-            # the global scratch: 2*S floats a block
-            "float* rows = scratch ? scratch + 2 * static_cast<size_t>"
-            "(blockIdx.x) * n_s",
-            "return n_blocks * 2 * n_s * static_cast<long long>(sizeof(float));"):
+            # tiles, threads, layout
+            "int cluster_tile(int n_s, int c) { return (n_s + c - 1) / c; }",
+            "const int cells = kGhost + tile;",
+            "const int k = (cells + kMaxThreads - 1) / kMaxThreads;",
+            "return ((cells + k - 1) / k + 31) / 32 * 32;",
+            "l.rows_off = 2 * kHalo * 8 + (kGhost + 1) * kHalo * 4;",
+            "l.ring_off = l.rows_off + (rows_shared ? 2 * (kGhost + tile) * 4 "
+            ": 0);",
+            "l.bytes = l.ring_off + (ring ? kEmRing * (kGhost + tile) * 4 : 0);",
+            "return cluster_ring(cluster_tile(n_s, kClusterMax)) ? 2 : 3;",
+            "if (n_s <= kClusterFrom) return (n_s + 31) / 32 * 32 <= 512 ? 0 : 1;",
+            "return n_s <= kClusterFrom ? 0 : kClusterMax;",
+            "if (n_s - (ctas - 1) * tile < kGhost) return cudaErrorInvalidValue;",
+            # cells along the chain, the ghosts, the handoffs
+            "const int steps = BETA ? (olen >= 2 ? olen - 1 : 0) : "
+            "max(olen, 1) - 1;",
+            "const int n_hand = steps > 0 ? (steps - 1) / kSpan : 0;",
+            "const int q0 = receives ? 0 : kGhost;",
+            "return BETA ? lo + nt - 1 - (q - kGhost) : lo + q - kGhost;",
+            "for (int q = tid; q < kGhost; q += n) rows[q] = rows[w + q] = kNeg;",
+            "const int j0 = (j - 1) / kSpan * kSpan;",
+            "if (receives && j0 > 0 && j == j0 + 1 && tid < 32) {",
+            "const int u = j0 / kSpan - 1, slot = u % kHalo;",
+            "bar_wait(&full[slot], (u / kHalo) & 1);",
+            "prev[tid] = halo[slot * kGhost + tid];",
+            "bar_arm(&full[slot], kGhost * 4);",
+            "if (u + kHalo < n_hand)",
+            "peer_store_tx(peer(&ack[slot], from), prev[0],",
+            "const int q_lo = receives ? 2 * (j - j0) : kGhost;",
+            "const bool hand = sends && j % kSpan == 0 && j < steps;",
+            "if (q < q_lo) continue;",
+            "bar_wait(&empty[slot], ((u / kHalo) - 1) & 1);",
+            "if (q == nq - 1) bar_arm(&empty[slot], 4);",
+            "peer_store_tx(peer(&halo[slot * kGhost + q - nt], to), v,",
+            # the recursion
+            "const bool two = BETA ? (s & 1) : ((s & 1) && s >= 3);",
+            "const float x = lse3(prev[q], prev[q - 1], two ? prev[q - 2] "
+            ": kNeg);",
+            "v = e + x;",
+            "v = x + e;",
+            "if (q >= kGhost) ot[s] = v;",
+            "cur[q] = v;",
+            # the em ring
+            "cp_async4(ring + (j % kEmRing) * w + q,",
+            "for (int j = 1; j < kEmRing; ++j) stage(j);",
+            "if (RING) cp_wait<kEmRing - 2>();",
+            "const float e = RING ? ring[(j % kEmRing) * w + q] : et[s];",
+            "if (RING) stage(j + kEmRing - 1);",
+            # frozen and final rows
+            "for (int t = olen >= 2 ? olen - 1 : 0; t < t_m; ++t)",
+            "const float a = rows[(steps & 1) * w + q];",
+            "for (int t = steps + 1; t < t_m; ++t)",
+            # residency is checked, never a smaller cluster
+            "cudaOccupancyMaxActiveClusters(&resident, kernel, &cfg);",
+            "if (resident < 1) return cudaErrorInvalidConfiguration;"):
         assert line in src, line

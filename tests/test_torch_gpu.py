@@ -349,9 +349,10 @@ def test_mas_kernel_edge_lengths():
 def test_mas_kernel_near_its_shared_memory_limit(T_s):
     """The longest T_m whose ring and move bits fit a block (232448 B,
     mas.cu's kMaxShared) runs the warp kernel bit-exact; one frame past the
-    fit runs the long route, bit-exact too (``mas.route``, the card's own
-    ``ctts_mas_route``, and the launch counters agree on both). At
-    T_s = 1024 that T_m is past T_s."""
+    fit runs the same kernel with its move words in device memory,
+    bit-exact too (``mas.route``, the card's own ``ctts_mas_route``, and
+    the launch counters agree on both). At T_s = 1024 that T_m is past
+    T_s."""
     dev = _need_card()
     from ctts_torch.ops import mas
     T_m = 1024
@@ -360,38 +361,46 @@ def test_mas_kernel_near_its_shared_memory_limit(T_s):
     while mas.shared_bytes(T_m + 1, T_s) <= 232448:
         T_m += 1
     assert T_m > T_s
-    for frames, route in ((T_m, "warp"), (T_m + 1, "rows")):
+    for frames, route in ((T_m, "warp"), (T_m + 1, "warp_dev")):
         rng = np.random.RandomState(9)
         attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
                                    _mas_case(rng, 2, frames, T_s, "seeded"))
         assert mas.route(frames, T_s) == route
-        before = mas.launches, mas.rows_launches
+        before = mas.launches, mas.dev_launches, mas.rows_launches
         got = mas.b_mas(attn, in_lens, out_lens)
         torch.cuda.synchronize()
-        assert (mas.launches - before[0], mas.rows_launches - before[1]) == (
-            (1, 0) if route == "warp" else (0, 1))
+        assert (mas.launches - before[0], mas.dev_launches - before[1],
+                mas.rows_launches - before[2]) == (
+            (1, 0, 0) if route == "warp" else (0, 1, 0))
         assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
 
 
 @pytest.mark.parametrize("kind", ["seeded", "ties", "short"])
 @pytest.mark.parametrize("B,T_m,T_s", [(2, 1443, 1024), (1, 10307, 128),
                                        (2, 2560, 640), (3, 1200, 1100),
-                                       (3, 70, 2049)])
+                                       (3, 70, 2049), (2, 60, 6144),
+                                       (2, 40, 6145)])
 def test_mas_long_route_bit_exact(B, T_m, T_s, kind):
-    """The shapes past the warp kernel (T_m one frame past its shared
-    memory at T_s = 1024 and 128, 2560 frames at 640 tokens, T_s past 1024)
-    take the long route, one launch a call, bit-exact against
-    ``b_mas_plain`` on seeded inputs, all ties and out_len < in_len."""
+    """The shapes past the warp kernel's shared memory (T_m one frame past
+    it at T_s = 1024 and 128, 2560 frames at 640 tokens) take the warp
+    kernel with its move words in device memory, T_s past 1024 the wide
+    kernel (2, 3 and 6 chain warps), past 6144 the long route; one launch a
+    call, counted by the route, bit-exact against ``b_mas_plain`` on seeded
+    inputs, all ties and out_len < in_len."""
     dev = _need_card()
     from ctts_torch.ops import mas
     rng = np.random.RandomState(B + T_s + T_m)
     attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
                                _mas_case(rng, B, T_m, T_s, kind))
-    assert mas.route(T_m, T_s) == "rows"
-    before = mas.rows_launches
+    route = mas.route(T_m, T_s)
+    want = "rows" if T_s > 6144 else "warps" if T_s > 1024 else "warp_dev"
+    assert route == want
+    counter = {"rows": "rows_launches", "warps": "wide_launches",
+               "warp_dev": "dev_launches"}[want]
+    before = getattr(mas, counter), mas.launches
     got = mas.b_mas(attn, in_lens, out_lens)
     torch.cuda.synchronize()
-    assert mas.rows_launches == before + 1
+    assert (getattr(mas, counter), mas.launches) == (before[0] + 1, before[1])
     assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
 
 
@@ -473,7 +482,8 @@ def _check_ctc(em, in_lens, out_lens, cot):
     from ctts_torch.ops import forward_sum as fs
 
     def counts():
-        return fs.lattice_launches + fs.wide_lattice_launches, fs.grad_launches
+        return (fs.lattice_launches + fs.cluster_lattice_launches,
+                fs.grad_launches)
 
     before = counts()
     e = em.clone().requires_grad_(True)
@@ -571,37 +581,44 @@ def test_ctc_lattice_alpha_alone_without_a_gradient():
 
 
 def test_ctc_lattice_at_its_state_limit():
-    """Across the old limit of one thread a state: a text axis of 511
-    (S = 1023, the 1024-thread instance) and of 512 (S = 1025, the wide
-    instance, two states a thread) both run bit-exact against the plain
-    versions, each on its instance (the launch counters say which)."""
+    """Across the limit of one block a chain: a text axis of 319 (S = 639,
+    the 1024-thread instance) and of 320 (S = 641, the cluster kernel, 8
+    CTAs of 81 states), and of 511 and 512 (S = 1023 and 1025, the
+    cluster kernel; 1024 states was once the one-block limit) all run
+    bit-exact against the plain versions, each on its instance (the launch
+    counters and ``forward_sum.route`` say which)."""
     dev = _need_card()
     from ctts_torch.ops import forward_sum as fs
     rng = np.random.RandomState(14)
     B, T_m = 2, 1100
-    in_lens = torch.tensor([511, 300], dtype=torch.int32, device=dev)
-    out_lens = torch.tensor([1100, 700], dtype=torch.int32, device=dev)
     cot = torch.from_numpy(rng.rand(B).astype(np.float32) + 0.5).to(dev)
-    for T_s, S in ((511, 1023), (512, 1025)):
+    for T_s, S in ((319, 639), (320, 641), (511, 1023), (512, 1025)):
+        in_lens = torch.tensor([T_s, 300], dtype=torch.int32, device=dev)
+        out_lens = torch.tensor([1100, 700], dtype=torch.int32, device=dev)
         em = _ctc_em(rng, dev, B, T_m, T_s, in_lens, out_lens)
         assert em.shape[2] == S
-        before = fs.lattice_launches, fs.wide_lattice_launches
+        before = fs.lattice_launches, fs.cluster_lattice_launches
         _check_ctc(em, in_lens, out_lens, cot)
         assert (fs.lattice_launches > before[0],
-                fs.wide_lattice_launches > before[1]) == (S <= 1024,
-                                                          S > 1024)
+                fs.cluster_lattice_launches > before[1]) == (S <= 640,
+                                                             S > 640)
+        assert fs.route(S) == (("lattice_1024", 0) if S <= 640
+                               else ("lattice_cluster", 8))
 
 
-@pytest.mark.parametrize("T_s", [1024, 2048, 4100, 14600])
+@pytest.mark.parametrize("T_s", [1024, 2048, 4100, 14600, 23204, 116024])
 def test_ctc_wide_lattice_bit_exact(T_s):
-    """S = 2049, 4097 and 8201 (three to nine states a thread, the ninth
-    past the read-ahead) and 29201 (the rows in the device scratch), with
-    lengths ragged down to out_len < in_len, 0 and 1: alpha, beta and the
-    NLL bit-exact, the gradient within 5e-3 where the end is reachable."""
+    """The cluster kernel at S = 2049, 4097 and 8201 (tiles of 257 to 1026
+    states and 16 ghosts, the last two cells a thread), 29201 (four a
+    thread), 46409 (past
+    the em ring's shared memory: em read on the chain) and 232049 (the rows
+    in the device scratch), with lengths ragged down to out_len < in_len,
+    0 and 1: alpha, beta and the NLL bit-exact, the gradient within 5e-3
+    where the end is reachable."""
     dev = _need_card()
     from ctts_torch.ops import forward_sum as fs
     rng = np.random.RandomState(T_s)
-    T_m = T_s + 40 if T_s <= 4100 else 30
+    T_m = T_s + 40 if T_s <= 4100 else 30 if T_s <= 14600 else 6
     lens = ([T_s, T_s // 2, T_s // 3, 7] if T_s <= 4100
             else [T_s, 5, T_s // 2, 2])
     mels = ([T_m, T_m - 9, 1, 0] if T_s <= 4100 else [T_m, T_m, 1, 0])
@@ -609,11 +626,149 @@ def test_ctc_wide_lattice_bit_exact(T_s):
     out_lens = torch.tensor(mels, dtype=torch.int32, device=dev)
     em = _ctc_em(rng, dev, len(lens), T_m, T_s, in_lens, out_lens)
     S = em.shape[2]
-    # the rows leave shared memory for the scratch past 29056 states
-    assert (fs._lib().ctts_ctc_scratch_bytes(2 * len(lens), S) > 0) == (
-        S > 29056)
+    assert fs.route(S) == ("lattice_cluster" if S <= 46223
+                           else "lattice_cluster_no_ring", 8)
+    # the rows leave shared memory for the scratch past 231647 states
+    assert (fs._lib().ctts_ctc_scratch_bytes(2 * len(lens), S, 0) > 0) == (
+        S > 231647)
     cot = torch.from_numpy(rng.rand(len(lens)).astype(np.float32) + 0.5).to(dev)
     _check_ctc(em, in_lens, out_lens, cot)
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 3, 5, 7, 8])
+@pytest.mark.parametrize("T_m", [530, 700])
+def test_ctc_cluster_lattice_at_each_size_and_handoff(ctas, T_m):
+    """The cluster kernel on 1 to 8 CTAs a chain (the ghost states handed
+    over every 8 frames), at S = 1281 and at S = 1025 (tiles whose edges
+    fall on odd and even states), with a path through every tile edge and
+    lengths ending on and off a handoff: alpha and beta bit for bit the
+    plain versions'; the launches are not counted."""
+    dev = _need_card()
+    from ctts_torch.ops import forward_sum as fs
+    rng = np.random.RandomState(20 + ctas)
+    for T_s in (640, 512):
+        in_lens = torch.tensor([T_s, T_s - 1, T_s // 2, 3], dtype=torch.int32,
+                               device=dev)
+        out_lens = torch.tensor([T_m, min(T_s + 1, T_m - 1), T_m - 3, 17],
+                                dtype=torch.int32, device=dev)
+        em = _ctc_em(rng, dev, 4, T_m, T_s, in_lens, out_lens)
+        before = fs.lattice_launches, fs.cluster_lattice_launches
+        alpha, beta = fs.ctc_lattice_cluster(em, in_lens, out_lens, ctas)
+        torch.cuda.synchronize()
+        assert (fs.lattice_launches, fs.cluster_lattice_launches) == before
+        assert torch.equal(alpha, fs.ctc_alpha_plain(em, out_lens))
+        assert torch.equal(beta, fs.ctc_beta_plain(em, in_lens, out_lens))
+
+
+def test_ctc_cluster_lattice_runs_are_bit_identical():
+    """Two runs of the cluster kernel (its CTAs pipelined in whatever order
+    the card runs them) give the same bits, alpha alone too."""
+    dev = _need_card()
+    from ctts_torch.ops import forward_sum as fs
+    rng = np.random.RandomState(22)
+    in_lens = torch.tensor([640, 517, 402, 290], dtype=torch.int32,
+                           device=dev)
+    out_lens = torch.tensor([900, 800, 700, 600], dtype=torch.int32,
+                            device=dev)
+    em = _ctc_em(rng, dev, 4, 900, 640, in_lens, out_lens)
+    one = fs.ctc_lattice(em, in_lens, out_lens)
+    two = fs.ctc_lattice(em, in_lens, out_lens)
+    alone, _ = fs.ctc_lattice(em, in_lens, out_lens, False)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    assert torch.equal(alone, one[0])
+
+
+def test_ctc_cluster_launch_raises():
+    """A cluster the card cannot take is an error through kernels.check,
+    never a smaller cluster: 9 CTAs a chain (past the portable 8), and
+    tiles too small for the 16 ghost states a handoff carries."""
+    dev = _need_card()
+    from ctts_torch.ops import forward_sum as fs
+    rng = np.random.RandomState(23)
+    il = torch.tensor([600, 10], dtype=torch.int32, device=dev)
+    ol = torch.tensor([700, 700], dtype=torch.int32, device=dev)
+    em = _ctc_em(rng, dev, 2, 700, 600, il, ol)
+    with pytest.raises(RuntimeError, match="ctc_lattice: CUDA error"):
+        fs.ctc_lattice_cluster(em, il, ol, 9)
+    small = em[..., :121].contiguous()
+    with pytest.raises(RuntimeError, match="ctc_lattice: CUDA error"):
+        fs.ctc_lattice_cluster(small, il.clamp(max=4), ol, 8)
+
+
+def test_long_kernels_beside_a_busy_stream():
+    """While another stream holds most SMs with long-running blocks, the
+    cluster lattice (whose CTAs wait on their neighbours) and MAS's warp
+    kernel with its move words in device memory and wide kernel (whose
+    chain blocks wait on their log blocks, and whose chain warps wait on
+    each other) still end and are exact."""
+    dev = _need_card()
+    from ctts_torch.ops import forward_sum as fs
+    from ctts_torch.ops import kernels, mas
+    rng = np.random.RandomState(24)
+    il = torch.tensor([640, 300], dtype=torch.int32, device=dev)
+    ol = torch.tensor([1200, 1000], dtype=torch.int32, device=dev)
+    em = _ctc_em(rng, dev, 2, 1200, 640, il, ol)
+    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
+                               _mas_case(rng, 2, 2560, 640, "seeded"))
+    wide = [torch.from_numpy(a).to(dev) for a in
+            _mas_case(rng, 2, 600, 3000, "seeded")]
+    assert mas.route(2560, 640) == "warp_dev"
+    assert mas.route(600, 3000) == "warps"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    busy = torch.empty(4 * sms, 1024, device=dev)
+    side = torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        kernels.barrier_chain(busy, 4 * sms, 1024, 20000)
+    alpha, beta = fs.ctc_lattice(em, il, ol)
+    got = mas.b_mas(attn, in_lens, out_lens)
+    got_wide = mas.b_mas(*wide)
+    torch.cuda.synchronize()
+    assert torch.equal(alpha, fs.ctc_alpha_plain(em, ol))
+    assert torch.equal(beta, fs.ctc_beta_plain(em, il, ol))
+    assert torch.equal(got, mas.b_mas_plain(attn, in_lens, out_lens))
+    assert torch.equal(got_wide, mas.b_mas_plain(*wide))
+
+
+@pytest.mark.parametrize("T_m,T_s", [(2560, 640), (1200, 2100)])
+def test_mas_device_move_words_runs_are_bit_identical(T_m, T_s):
+    """Two runs of the warp kernel with its move words in device memory at
+    the long step's shape, and of the wide kernel, give the same bits."""
+    dev = _need_card()
+    from ctts_torch.ops import mas
+    rng = np.random.RandomState(25)
+    attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
+                               _mas_case(rng, 4, T_m, T_s, "seeded"))
+    one = mas.b_mas(attn, in_lens, out_lens)
+    two = mas.b_mas(attn, in_lens, out_lens)
+    assert torch.equal(one, two)
+
+
+def test_train_and_vctk_shapes_keep_their_instances():
+    """The train shape [16, 896, 128] and the VCTK shape [16, 1298, 128]
+    launch MAS's warp kernel with its move bits in shared memory, and the
+    train shape's 257 states the one-state-a-thread lattice: the launch
+    counters and the routes say so."""
+    dev = _need_card()
+    from ctts_torch.ops import forward_sum as fs
+    from ctts_torch.ops import mas
+    rng = np.random.RandomState(26)
+    for T_m in (896, 1298):
+        assert mas.route(T_m, 128) == "warp"
+        attn, in_lens, out_lens = (torch.from_numpy(a).to(dev) for a in
+                                   _mas_case(rng, 16, T_m, 128, "seeded"))
+        before = mas.launches, mas.dev_launches, mas.rows_launches
+        mas.b_mas(attn, in_lens, out_lens)
+        assert (mas.launches - before[0], mas.dev_launches - before[1],
+                mas.rows_launches - before[2]) == (1, 0, 0)
+    assert fs.route(257) == ("lattice", 0)
+    in_lens = torch.from_numpy(_ragged(rng, 16, 64, 128)).to(dev)
+    out_lens = torch.from_numpy(_ragged(rng, 16, 600, 896)).to(dev)
+    em = _ctc_em(rng, dev, 16, 896, 128, in_lens, out_lens)
+    before = fs.lattice_launches, fs.cluster_lattice_launches
+    fs.ctc_lattice(em, in_lens, out_lens)
+    assert (fs.lattice_launches - before[0],
+            fs.cluster_lattice_launches - before[1]) == (1, 0)
 
 
 def _attention_case(rng, dev, N, T, d, lens):
