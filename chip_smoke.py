@@ -182,6 +182,15 @@ suppresses the final line:
    and forward+backward; then ``python -m ctts_torch.train`` with the
    device cache off (the streaming loader, reading through the native
    ``.npy`` prefetcher) for 2 steps;
+15b. every head width the JAX package computes: the new instances
+   (attention d = 16, 32; relpos Dh = 128, 256; the local window d = 16,
+   32, 256; the LSH chunk d = 16, 32) and one zero-padded width of each
+   family (48, 96, 96, 48) against their plain versions at the train shape,
+   forward and backward, bf16 and f32, counted, with their times, bounds
+   and SDPA's; then a counted, timed bf16 ``train_unsup`` step at [16,
+   128, 896] of fs2 at 8 heads, the conformer at 2 and the reformer with
+   heads of 32 on both LSH routes, each also in float32 with dropout off
+   on the card and on the CPU at [4, 128, 896] (``HEAD_DIMS_STEP_TOL``);
 16. the ``kernels`` JSON line, the card line, and the result line.
 
 Each phase prints its own seconds. Exits non-zero without a result when no
@@ -312,6 +321,12 @@ PROSODY_GRAD_NORM_TOL = 5e-5
 # largest entry, and each loss term relative to its CPU value
 ZOO_MEL_TOL = 1e-4
 ZOO_LOSS_TOL = 1e-4
+# the float32 train_unsup step at the new head widths (phase 15b), card
+# against CPU, each loss term relative: phase 12b's check of the same step
+# (its blocks measured up to 4.0e-5, PERF.md §6 PR 12; the CTC term, which
+# the aligner computes from the token embedding and the mels, through no
+# attention kernel, reads 4.02e-5 at fs2's 8 heads)
+HEAD_DIMS_STEP_TOL = ZOO_LOSS_TOL
 # the (data, model) grid of two ranks against one process, f32 with dropout
 # off: each loss term and the gradient norm relative (the JAX package's
 # tests/test_mesh.py tolerance), the parameters after two updates absolute
@@ -4365,6 +4380,374 @@ class Smoke:
             "variants_ms": ms, "variants_plain_ms": plain,
             "tool_event_ms": record["variants_ms"]}
 
+    # ---- phase 15b: every head width ----------------------------------- #
+    # (family, width, heads at hidden 256 or 384): each new instance and one
+    # padded width of each family at the train shape
+    HEAD_DIM_CASES = (("attention", 16, 16), ("attention", 32, 8),
+                      ("attention", 48, 8), ("relpos", 128, 2),
+                      ("relpos", 256, 1), ("relpos", 96, 4),
+                      ("local_window", 16, 4), ("local_window", 32, 4),
+                      ("local_window", 256, 4), ("local_window", 96, 4),
+                      ("lsh_chunk", 16, 4), ("lsh_chunk", 32, 4),
+                      ("lsh_chunk", 48, 4))
+
+    def head_dims(self):
+        """Every head width the JAX package computes (ROADMAP.md §3 F1):
+        each new instance (attention d 16, 32; relpos Dh 128, 256; the
+        local window d 16, 32, 256; LSH chunk d 16, 32) and one zero-padded
+        width of each family (48, 96, 96, 48) against its plain version at
+        the train shape (B = 16, T = 896, ``Smoke.train_lengths``),
+        forward and backward, bf16 and f32, the launch counters showing the
+        kernel ran; its bf16 times beside the plain version's, SDPA's on the
+        same tensors and the bound; then one counted, timed bf16
+        ``train_unsup`` step at [16, 128, 896] of fs2 at 8 heads (d 32), the
+        conformer at 2 heads (Dh 128) and the reformer with 8 heads of 32
+        on both LSH routes, and each step in float32 with dropout off at
+        [4, 128, 896] on the card and on the CPU, every loss term within
+        ``HEAD_DIMS_STEP_TOL``."""
+        for family, d, heads in self.HEAD_DIM_CASES:
+            self.head_dim_case(family, d, heads)
+        for what, configs, fused in self.head_dim_models():
+            self.head_dim_step(what, configs, fused)
+        self.lsh_route(False)
+
+    def head_dim_case(self, family, d, heads):
+        from ctts_torch.ops import attention as at
+        from ctts_torch.ops import local_window_attention as lw
+        from ctts_torch.ops import lsh_chunk_attention as lc
+        from ctts_torch.ops import relpos_attention as ra
+        from ctts_torch.ops.kernels import launch_counts
+        dev = torch.device("cuda")
+        gen = torch.Generator().manual_seed(d * 7 + heads)
+        _, mel_lens = self.train_lengths()
+        B, T = B_TRAIN, T_M
+        sdpa = F.scaled_dot_product_attention
+        mod = {"attention": at, "relpos": ra, "local_window": lw,
+               "lsh_chunk": lc}[family]
+        w = mod.kernel_width(d)
+        names = {"attention": ["fused_attention"],
+                 "relpos": ["relpos_fwd", "relpos_bwd"],
+                 "local_window": ["local_window_fwd", "local_window_bwd"],
+                 "lsh_chunk": ["lsh_chunk_fwd", "lsh_chunk_bwd"]}[family]
+        if family == "attention":
+            N = B * heads
+            lens = torch.tensor(np.repeat(mel_lens, heads), dtype=torch.int32,
+                                device=dev)
+            xs = [randn(gen, N, T, d).to(dev) for _ in range(3)]
+            args, scale = (lens, d ** -0.5), d ** -0.5
+            fn, plain = at.fused_attention, at.attention_plain
+            tol = ATTN_TOL
+            kv = [int(x) for x in lens.tolist()]
+            flops, nbytes = 4 * d * T * sum(kv), 2 * N * T * d * 2 + \
+                2 * d * 2 * sum(kv) + N * 4
+            bounds = [bound(flops, nbytes, PEAK_BF16_FLOPS)]
+        elif family == "relpos":
+            N, H = B * heads, heads
+            xs = [randn(gen, B, T, H, d).to(dev) for _ in range(3)] + [
+                randn(gen, H, T, d).to(dev)]
+            ub, vb = randn(gen, H, d).to(dev), randn(gen, H, d).to(dev)
+            scale = 256 ** -0.5
+            args = (ub, vb, scale)
+            fn, plain = ra.relpos_attention, ra.relpos_attention_plain
+            tol = RELPOS_TOL
+            e2, p2 = N * T * d * 2, H * T * d * 2
+            bounds = [bound(6 * N * T * T * d, 3 * e2 + p2 + e2 + 2 * N * T * 4,
+                            PEAK_BF16_FLOPS),
+                      bound(16 * N * T * T * d, 4 * e2 + p2 + 2 * N * T * 4
+                            + 3 * e2 + p2, PEAK_BF16_FLOPS)]
+        else:
+            G, win = B * heads, 128
+            lens = torch.tensor(np.repeat(mel_lens, heads), device=dev)
+            valid = torch.arange(T, device=dev)[None] < lens[:, None]
+            xs = [randn(gen, G, T, d).to(dev) for _ in range(2)]
+            scale = d ** -0.5
+            tol = WINDOW_TOL
+            vw = valid.reshape(G, T // win, win)
+            if family == "local_window":
+                args = (valid, win, scale)
+                fn = lw.local_window_attention
+                plain = lw.local_window_attention_plain
+                prev = torch.cat([torch.zeros_like(vw[:, :1]), vw[:, :-1]], 1)
+                live = int(((vw.cumsum(-1) + prev.sum(-1, keepdim=True))
+                            * vw).sum())
+                n_pad = int((~valid).sum())
+                flops = (4 * d * live + 4 * d * win * n_pad,
+                         10 * d * live + 4 * d * win * n_pad)
+                e2, f4, r4 = G * T * d * 2, G * T * d * 4, G * T * 4
+                nbytes = (3 * e2 + r4, 3 * e2 + r4 + 2 * f4)
+            else:
+                from ctts_torch.models.reformer import lsh_sort
+                cs, nh = 64, 4
+                rot = randn(gen, 1, d, nh, T // cs // 2).to(dev)
+                _, st, svalid = lsh_sort(xs[0], valid, rot, cs, nh)
+                args = (st, svalid, cs, True, scale)
+                fn, plain = lc.chunk_attention, lc.chunk_attention_plain
+                M, C = nh * T, nh * T // cs
+                sv = svalid.reshape(G, C, cs) > 0
+                bt = st.reshape(G, C, cs)
+                live = int((sv[..., :, None] & lc.look_one_back(sv)[..., None, :]
+                            & (lc.look_one_back(bt)[..., None, :]
+                               <= bt[..., :, None])).sum() + (~sv).sum())
+                flops = (4 * d * live, 10 * d * live)
+                e2, f4, m4 = G * T * d * 2, G * T * d * 4, G * M * 4
+                nbytes = (2 * e2 + 2 * m4 + m4 * (d + 1),
+                          2 * e2 + 2 * m4 + m4 * (d + 1) + m4 + 2 * f4)
+            bounds = [bound(f, n, PEAK_BF16_FLOPS)
+                      for f, n in zip(flops, nbytes)]
+
+        worst = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            rounded = [x.to(dtype) for x in xs]
+            before = launch_counts()
+            a = [x.detach().clone().requires_grad_(True) for x in rounded]
+            out = fn(*a, *args)
+            cot = torch.randn(out.shape, generator=torch.Generator(
+                dev).manual_seed(1), device=dev, dtype=torch.float32)
+            out.backward(cot.to(out.dtype))
+            torch.cuda.synchronize()
+            ran = {k: launch_counts()[k] - before[k] for k in names}
+            b = [x.detach().float().requires_grad_(True) for x in rounded]
+            ref = plain(*b, *args)
+            ref.backward(cot)
+            pairs = [(out, ref)] + [(x.grad, y.grad) for x, y in zip(a, b)]
+            if family == "lsh_chunk":
+                lse = (out[..., d] - ref[..., d]).abs().max().item()
+                pairs[0] = (out[..., :d], ref[..., :d])
+            errs = self.rel_errs(pairs)
+            if family == "attention":      # the output absolutely (ATTN_TOL)
+                errs[0] = (out.float() - ref).abs().max().item()
+            limit = [tol[dtype]] * len(errs)
+            if family == "lsh_chunk":          # its output is float32
+                limit[0] = 1e-4
+            want = {k: 1 for k in names}
+            if family == "relpos":              # two backward launches
+                want["relpos_bwd"] = 2
+            ok = all(e <= t for e, t in zip(errs, limit)) and ran == want and (
+                family != "lsh_chunk" or lse <= 1e-3)
+            print(f"{family} d={d} (kernel width {w}, {heads} heads) "
+                  f"{str(dtype)[6:]}: out and gradients against plain f32, "
+                  + ", ".join(f"{e:.2e}" for e in errs) + " (tol "
+                  + ", ".join(f"{t:g}" for t in limit) + ")"
+                  + (f", lse {lse:.2e} (tol 0.001)" if family == "lsh_chunk"
+                     else "") + f"; launches {ran} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{family} d={d} {dtype}: {errs} {ran}")
+            if dtype == torch.bfloat16:
+                worst = max((x.float() - y).abs().max().item()
+                            for x, y in pairs)
+            del a, b, out, ref, pairs
+
+        # bf16 times at the train shape: the kernels alone, the plain
+        # version and SDPA on the same bf16 tensors (events, with their
+        # launch gaps)
+        xb = [x.to(torch.bfloat16) for x in xs]
+        if family == "attention":
+            w_in = [t if w == d else F.pad(t, (0, w - d)) for t in xb]
+            t_f, _ = timings(lambda: at._launch(*w_in, lens, scale), iters=20)
+            t_b = None
+            plain_ms = cuda_ms(lambda: at.attention_plain(*xb, lens, scale),
+                               warmup=2, iters=5)
+            mask = torch.where(torch.arange(T, device=dev)[None, None, :]
+                               < lens[:, None, None], 0.0, at.NEG).to(
+                torch.bfloat16)
+            lib_ms = cuda_ms(lambda: sdpa(*xb, attn_mask=mask, scale=scale),
+                             warmup=2, iters=10)
+        elif family == "relpos":
+            def fold(t):
+                t = F.pad(t.permute(0, 2, 1, 3), (0, w - d))
+                return t.reshape(N, T, w).contiguous()
+            qf, kf, vf = (fold(t) for t in xb[:3])
+            pos = F.pad(xb[3], (0, w - d)).contiguous()
+            ubw, vbw = (F.pad(t.float(), (0, w - d)).contiguous()
+                        for t in (ub, vb))
+            seed = torch.tensor([7, 8], dtype=torch.int64, device=dev)
+            o, m, l = ra._launch_fwd(qf, kf, vf, pos, ubw, vbw, seed, None,
+                                     scale, 0.1)
+            gf = torch.randn_like(qf)
+            t_f, _ = timings(lambda: ra._launch_fwd(
+                qf, kf, vf, pos, ubw, vbw, seed, None, scale, 0.1),
+                iters=20, only="relpos_fwd")
+            t_b, _ = timings(lambda: ra._launch_bwd(
+                qf, kf, vf, pos, ubw, vbw, seed, None, gf, o, m, l, scale,
+                0.1), iters=10, only="relpos_bwd")
+            plain_ms = cuda_ms(lambda: ra.relpos_attention_plain(
+                *xb, ub, vb, scale, 0.1, seed), warmup=2, iters=5)
+            qh, kh, vh = (t.transpose(1, 2) for t in xb[:3])
+            rm = ra.relative_shift(torch.einsum(
+                "bhqd,hkd->bhqk", qh + vb[None, :, None].to(qh.dtype),
+                xb[3])) * scale
+            qu = (qh + ub[None, :, None].to(qh.dtype)).contiguous()
+            lib_ms = cuda_ms(lambda: sdpa(qu, kh, vh, attn_mask=rm,
+                                          scale=scale), warmup=2, iters=10)
+            del o, m, l, gf, rm
+        else:
+            w_in = [t if w == d else F.pad(t, (0, w - d)).contiguous()
+                    for t in xb]
+            if family == "local_window":
+                vi = valid.to(torch.int32)
+                o, m, l = lw._launch_fwd(*w_in, vi, win, scale)
+                g = torch.randn_like(o)
+                t_f, _ = timings(lambda: lw._launch_fwd(*w_in, vi, win, scale),
+                                 iters=20, only="window_fwd")
+                t_b, _ = timings(lambda: lw._launch_bwd(
+                    *w_in, vi, g, o, m, l, win, scale), iters=20,
+                    only="window_bwd")
+                plain_ms = cuda_ms(lambda: lw.local_window_attention_plain(
+                    *xb, valid, win, scale), warmup=2, iters=5)
+                # SDPA over each window and the one before, as one batch
+                Wn = T // win
+                q = xb[0].reshape(G * Wn, win, d)
+                kk = lw._look_back_padded(xb[0].reshape(G, Wn, win, d),
+                                          0.0).reshape(G * Wn, 2 * win, d)
+                vv = lw._look_back_padded(xb[1].reshape(G, Wn, win, d),
+                                          0.0).reshape(G * Wn, 2 * win, d)
+                lib_ms = cuda_ms(lambda: sdpa(q, kk, vv, scale=scale),
+                                 warmup=2, iters=10)
+                del o, m, l, g
+            else:
+                out = lc._launch_fwd(*w_in, st, svalid, cs, True, scale)
+                g = torch.randn_like(out)
+                t_f, _ = timings(lambda: lc._launch_fwd(
+                    *w_in, st, svalid, cs, True, scale), iters=20,
+                    only="window_fwd")
+                t_b, _ = timings(lambda: lc._launch_bwd(
+                    *w_in, st, svalid, g, out, cs, True, scale), iters=20,
+                    only="window_bwd")
+                plain_ms = cuda_ms(lambda: lc.chunk_attention_plain(
+                    *xb, st, svalid, cs, True, scale), warmup=2, iters=5)
+                from ctts_torch.ops.sort_gather import gather_rows_plain
+                rows = gather_rows_plain(torch.cat(xb, -1), st)
+                q = rows[..., :d].reshape(G * M // cs, cs, d)
+                kk = lc.look_one_back(rows[..., :d].reshape(G, M // cs, cs, d)
+                                      ).reshape(G * M // cs, 2 * cs, d)
+                vv = lc.look_one_back(rows[..., d:].reshape(G, M // cs, cs, d)
+                                      ).reshape(G * M // cs, 2 * cs, d)
+                lib_ms = cuda_ms(lambda: sdpa(q, kk, vv, scale=scale),
+                                 warmup=2, iters=10)
+                del out, g, rows
+        times = [t_f] + ([] if t_b is None else [t_b])
+        print(f"  {family} d={d} timing bf16 at the train shape: device ms "
+              + ", ".join(f"{k} {t:.4f} (bound {b[0]:.5f} ms, {b[1]}; "
+                          f"{b[0] / t:.3f} of it)"
+                          for k, t, b in zip(("forward", "backward"), times,
+                                             bounds))
+              + f"; event ms plain forward {plain_ms:.4f}, SDPA forward "
+              f"{lib_ms:.4f}", flush=True)
+        for i, name in enumerate(names):
+            entry = self.kernels.setdefault(name, {"name": name})
+            entry.setdefault("widths", {})[str(d)] = {
+                "kernel_width": w, "heads": heads, "ms": times[i],
+                "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
+                "plain_ms": plain_ms if i == 0 else None,
+                "library_ms": lib_ms if i == 0 else None,
+                "max_abs_err": worst,
+                "shape": f"bf16 B={B} T={T} {heads} heads of {d}"}
+        torch.cuda.empty_cache()
+
+    def head_dim_models(self):
+        """(what, configs, fused LSH route) of the model steps at the new
+        head counts: each full width and depth, only the heads changed."""
+        from ctts_torch.config import get_configs_of
+        fs2 = get_configs_of("LJSpeech")
+        fs2[1]["transformer_fs2"].update(encoder_head=8, decoder_head=8)
+        conf = self.conformer_configs()
+        conf[1]["conformer"].update(encoder_head=2, decoder_head=2)
+        out = [("fs2, 8 heads of 32", fs2, False),
+               ("conformer, 2 heads of 128", conf, False)]
+        for fused in (False, True):
+            ref = self.reformer_configs()
+            ref[1]["transformer"].update(encoder_head=8, decoder_head=8)
+            out.append((f"reformer, heads of 32, {self.lsh_route(fused)} "
+                        f"LSH route", ref, fused))
+        return out
+
+    def head_dim_step(self, what, configs, fused):
+        import copy
+        from unittest import mock
+        from ctts_torch.models.comp_trans_tts import (CompTransTTS,
+                                                      prepare_model_config)
+        from ctts_torch.parallel.train_step import (batch_to_device,
+                                                    create_train_state,
+                                                    make_train_step)
+        from ctts_torch.utils.model import get_model, init_weights
+        from ctts_torch.utils.optimizer import build_optimizer
+        from ctts_torch.utils.testing import synth_batch
+        self.lsh_route(fused)
+        pre, mc, tr = configs
+        src_lens, mel_lens = self.train_lengths()
+        host = synth_batch(B=B_TRAIN, T_s=T_S, T_m=T_M, seed=0,
+                           src_lens=src_lens, mel_lens=mel_lens, prior=False)
+        host["mels"] = host["mels"].astype(np.float16)     # transfer_dtype
+        batch = batch_to_device(host, "cuda")
+        model = get_model(0, configs, device="cuda")
+        mc = prepare_model_config(pre, mc)
+        start = tr["duration"]["binarization_start_steps"]
+        opt, _ = build_optimizer(model, mc, tr, count=start)
+        state = create_train_state(model, opt, step=start, seed=tr["seed"])
+        step = make_train_step(pre, mc, tr, "train_unsup")
+        step(state, batch)
+        torch.cuda.synchronize()
+        _, got = self.counted_step(step, state, batch, f"{what} train step")
+        block = mc["block_type"]
+        want = {"transformer_fs2": {"fused_attention"},
+                "conformer": {"relpos_fwd", "relpos_bwd"},
+                "reformer": {"local_window_fwd", "local_window_bwd"} | (
+                    {"lsh_chunk_fwd", "lsh_chunk_bwd"} if fused else set())
+                }[block]
+        if not want <= set(got) or (block == "reformer" and not fused
+                                    and "lsh_chunk_fwd" in got):
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        for name in want:
+            self.kernels.setdefault(name, {"name": name}).setdefault(
+                "launches_new_widths", {})[what] = got[name]
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"{what} train step, host clock around a synchronised step: "
+              f"median of 3 {np.median(times):.2f} ms, min {min(times):.2f}",
+              flush=True)
+        del model, opt, state, step, batch
+        torch.cuda.empty_cache()
+
+        # float32, dropout off, the same hash rotations on both devices
+        small = synth_batch(B=4, T_s=T_S, T_m=T_M, seed=0,
+                            src_lens=src_lens[:4], mel_lens=mel_lens[:4],
+                            prior=False)
+        mc32 = dict(mc, compute_dtype="float32")
+        cpu = init_weights(CompTransTTS(pre, mc32, tr), tr["seed"])
+        card = copy.deepcopy(cpu).cuda()
+        comps = []
+        for m, dev in ((cpu, "cpu"), (card, "cuda")):
+            rots = np.random.RandomState(0)
+            with mock.patch("ctts_torch.models.reformer._normal",
+                            lambda shape, generator, device: torch.from_numpy(
+                                rots.randn(*shape).astype(np.float32)).to(
+                                device)):
+                o, _ = build_optimizer(m, mc32, tr, count=start)
+                st = create_train_state(m, o, step=start, seed=tr["seed"])
+                comps.append({k: v.item() for k, v in make_train_step(
+                    pre, mc32, tr, "train_unsup", deterministic=True)(
+                        st, batch_to_device(small, dev)).items()})
+        rel = {k: abs(comps[1][k] - v) / max(abs(v), 1e-30)
+               for k, v in comps[0].items() if v != 0}
+        zeros = [k for k, v in comps[0].items()
+                 if v == 0 and comps[1][k] != 0]
+        worst = max(rel.values())
+        print(f"{what}: f32, dropout off, card vs CPU at 4x[{T_S}, {T_M}], "
+              f"train_unsup step's loss terms relative: "
+              + ", ".join(f"{k} {e:.2e}" for k, e in rel.items())
+              + f" (tol {HEAD_DIMS_STEP_TOL:g}); total "
+              f"{comps[1]['total']:.6f} vs {comps[0]['total']:.6f}",
+              flush=True)
+        if worst > HEAD_DIMS_STEP_TOL or zeros:
+            raise AssertionError(f"{what}: card vs CPU {rel}, {zeros}")
+        del cpu, card
+        torch.cuda.empty_cache()
+
     # ---- phase 14: the (data, model) process grid ---------------------- #
     def grid(self, cards=1):
         """Two ranks of ``ctts_torch.parallel.mesh`` on this one card over
@@ -5682,7 +6065,9 @@ def main():
          ("long utterances: a train_unsup step at 640 phones, 2560 frames",
           smoke.long_step),
          ("long utterances: the train CLI on the streaming loader",
-          smoke.long_stream_cli)]]
+          smoke.long_stream_cli)],
+        [("every head width: the new instances, the padded widths and the "
+          "models at the new head counts", smoke.head_dims)]]
     for group in groups:
         for name, fn in group:
             if not smoke.failures:

@@ -44,6 +44,9 @@
 // a thread, so two warps share each 16 query rows: both compute the rows'
 // S over all 256 dims (the same arithmetic, so the same softmax), and each
 // keeps and writes 128 of the output columns. Eight warps a block.
+//   D = 16 and 32 (heads of 8 and 16 in 256): the same kernel with one or
+// two k-steps in S and two or four output n-tiles a warp; the wrapper
+// zero-pads any other width up to 256 to the next instance.
 // Every output is a sum in a fixed order: two runs give the same bits.
 
 #include <atomic>
@@ -272,7 +275,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d = 64, 128 or 256; q, k, v and o
+// dtype: 0 = float32, 1 = bfloat16; d = 16, 32, 64, 128 or 256; q, k, v and o
 // 16-byte aligned. Returns a cudaError_t (0 = launched), or
 // cudaErrorInvalidValue for a shape or dtype this kernel does not take.
 extern "C" int ctts_fused_attention(const void* q, const void* k,
@@ -281,9 +284,13 @@ extern "C" int ctts_fused_attention(const void* q, const void* k,
                                     float scale, int dtype, void* stream) {
   if (n <= 0 || seq <= 0 || n > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && d == 16) return launch<float, 16>(q, k, v, lengths, o, n, seq, scale, s);
+  if (dtype == 0 && d == 32) return launch<float, 32>(q, k, v, lengths, o, n, seq, scale, s);
   if (dtype == 0 && d == 64) return launch<float, 64>(q, k, v, lengths, o, n, seq, scale, s);
   if (dtype == 0 && d == 128) return launch<float, 128>(q, k, v, lengths, o, n, seq, scale, s);
   if (dtype == 0 && d == 256) return launch<float, 256>(q, k, v, lengths, o, n, seq, scale, s);
+  if (dtype == 1 && d == 16) return launch<bf16, 16>(q, k, v, lengths, o, n, seq, scale, s);
+  if (dtype == 1 && d == 32) return launch<bf16, 32>(q, k, v, lengths, o, n, seq, scale, s);
   if (dtype == 1 && d == 64) return launch<bf16, 64>(q, k, v, lengths, o, n, seq, scale, s);
   if (dtype == 1 && d == 128) return launch<bf16, 128>(q, k, v, lengths, o, n, seq, scale, s);
   if (dtype == 1 && d == 256) return launch<bf16, 256>(q, k, v, lengths, o, n, seq, scale, s);

@@ -15,7 +15,9 @@
 // 64, every product on mma.sync (its header says what bounds it on the
 // H100 and what the design does about that). The forward writes o in the
 // input dtype and each row's softmax max and sum (f32); the backward reads
-// dO in the input dtype and writes dq + dk and dv per row in f32.
+// dO in the input dtype and writes dq + dk and dv per row in f32. Head
+// widths 16, 32, 64, 128 and 256 (the TPU kernel took any d <= 256; the
+// wrapper zero-pads the others to the next of these).
 
 #include "window_attention.cuh"
 
@@ -39,33 +41,54 @@ Args<T> make_args(const void* qk, const void* v, const int* valid, int n,
   return a;
 }
 
+// the engine's instance for width d
+template <typename T>
+cudaError_t fwd_at(const Args<T>& a, int d, int g, cudaStream_t s) {
+  switch (d) {
+    case 16: return ctts_window::launch_fwd<T, 16, false>(a, g, s);
+    case 32: return ctts_window::launch_fwd<T, 32, false>(a, g, s);
+    case 64: return ctts_window::launch_fwd<T, 64, false>(a, g, s);
+    case 128: return ctts_window::launch_fwd<T, 128, false>(a, g, s);
+    case 256: return ctts_window::launch_fwd<T, 256, false>(a, g, s);
+  }
+  return cudaErrorInvalidValue;
+}
+template <typename T>
+cudaError_t bwd_at(const Args<T>& a, int d, int g, cudaStream_t s) {
+  switch (d) {
+    case 16: return ctts_window::launch_bwd<T, 16, false>(a, g, s);
+    case 32: return ctts_window::launch_bwd<T, 32, false>(a, g, s);
+    case 64: return ctts_window::launch_bwd<T, 64, false>(a, g, s);
+    case 128: return ctts_window::launch_bwd<T, 128, false>(a, g, s);
+    case 256: return ctts_window::launch_bwd<T, 256, false>(a, g, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d = 64 or 128. Returns a cudaError_t
+// dtype: 0 = float32, 1 = bfloat16; d = 16, 32, 64, 128 or 256. Returns a cudaError_t
 // (0 = launched), or cudaErrorInvalidValue for a shape or dtype the kernels
 // do not take.
 extern "C" int ctts_local_window_fwd(const void* qk, const void* v,
                                      const int* valid, void* o, float* m,
                                      float* l, int g, int n, int d, int win,
                                      float scale, int dtype, void* stream) {
-  if ((d != 64 && d != 128) || ctts_window::bad_shape(g, n, win, n))
-    return cudaErrorInvalidValue;
+  if (ctts_window::bad_shape(g, n, win, n)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     Args<float> a = make_args<float>(qk, v, valid, n, win, scale);
     a.o = static_cast<float*>(o);
     a.m = m;
     a.l = l;
-    return d == 64 ? ctts_window::launch_fwd<float, 64, false>(a, g, s)
-                   : ctts_window::launch_fwd<float, 128, false>(a, g, s);
+    return fwd_at(a, d, g, s);
   }
   if (dtype == 1) {
     Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(qk, v, valid, n, win, scale);
     a.o = static_cast<__nv_bfloat16*>(o);
     a.m = m;
     a.l = l;
-    return d == 64 ? ctts_window::launch_fwd<__nv_bfloat16, 64, false>(a, g, s)
-                   : ctts_window::launch_fwd<__nv_bfloat16, 128, false>(a, g, s);
+    return fwd_at(a, d, g, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -77,8 +100,7 @@ extern "C" int ctts_local_window_bwd(const void* qk, const void* v,
                                      const float* delta, float* dqk,
                                      float* dv, int g, int n, int d, int win,
                                      float scale, int dtype, void* stream) {
-  if ((d != 64 && d != 128) || ctts_window::bad_shape(g, n, win, n))
-    return cudaErrorInvalidValue;
+  if (ctts_window::bad_shape(g, n, win, n)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CTTS_LOCAL_BWD(T)                                        \
   {                                                              \
@@ -91,8 +113,7 @@ extern "C" int ctts_local_window_bwd(const void* qk, const void* v,
     a.dq = dqk;                                                  \
     a.dv = dv;                                                   \
     a.gstride = d;                                               \
-    return d == 64 ? ctts_window::launch_bwd<T, 64, false>(a, g, s)    \
-                   : ctts_window::launch_bwd<T, 128, false>(a, g, s);\
+    return bwd_at(a, d, g, s);                                   \
   }
   if (dtype == 0) CTTS_LOCAL_BWD(float)
   if (dtype == 1) CTTS_LOCAL_BWD(__nv_bfloat16)

@@ -18,7 +18,10 @@
 // window_attention.cuh loads the sorted rows straight by index with
 // cp.async, a block for 64 queries of one chunk (32 where cs is an odd
 // multiple of 32), every product on mma.sync (its header says what bounds
-// it on the H100 and what the design does about that).
+// it on the H100 and what the design does about that). Head widths 16, 32,
+// 64 and 128, as the TPU kernel took d <= 128 (the wrapper zero-pads the
+// others to the next of these; the reformer sends wider heads by the
+// default route).
 
 #include "window_attention.cuh"
 
@@ -43,9 +46,32 @@ Args<T> make_args(const void* qk, const void* v, const int* st,
   return a;
 }
 
+// the engine's instance for width d
+template <typename T>
+cudaError_t fwd_at(const Args<T>& a, int d, int g, cudaStream_t s) {
+  switch (d) {
+    case 16: return ctts_window::launch_fwd<T, 16, true>(a, g, s);
+    case 32: return ctts_window::launch_fwd<T, 32, true>(a, g, s);
+    case 64: return ctts_window::launch_fwd<T, 64, true>(a, g, s);
+    case 128: return ctts_window::launch_fwd<T, 128, true>(a, g, s);
+  }
+  return cudaErrorInvalidValue;
+}
+template <typename T>
+cudaError_t bwd_at(const Args<T>& a, int d, int g, cudaStream_t s) {
+  switch (d) {
+    case 16: return ctts_window::launch_bwd<T, 16, true>(a, g, s);
+    case 32: return ctts_window::launch_bwd<T, 32, true>(a, g, s);
+    case 64: return ctts_window::launch_bwd<T, 64, true>(a, g, s);
+    case 128: return ctts_window::launch_bwd<T, 128, true>(a, g, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d = 64 or 128 and every st in [0, n).
+// dtype: 0 = float32, 1 = bfloat16; d = 16, 32, 64 or 128 and every st in
+// [0, n).
 // Returns a cudaError_t (0 = launched), or cudaErrorInvalidValue for a shape
 // or dtype the kernels do not take.
 extern "C" int ctts_lsh_chunk_fwd(const void* qk, const void* v,
@@ -53,21 +79,18 @@ extern "C" int ctts_lsh_chunk_fwd(const void* qk, const void* v,
                                   float* out, int g, int n, int m, int d,
                                   int cs, int causal, float scale, int dtype,
                                   void* stream) {
-  if ((d != 64 && d != 128) || ctts_window::bad_shape(g, m, cs, n))
-    return cudaErrorInvalidValue;
+  if (ctts_window::bad_shape(g, m, cs, n)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     Args<float> a = make_args<float>(qk, v, st, svalid, n, m, cs, causal, scale);
     a.ol = out;
-    return d == 64 ? ctts_window::launch_fwd<float, 64, true>(a, g, s)
-                   : ctts_window::launch_fwd<float, 128, true>(a, g, s);
+    return fwd_at(a, d, g, s);
   }
   if (dtype == 1) {
     Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(qk, v, st, svalid, n, m,
                                                      cs, causal, scale);
     a.ol = out;
-    return d == 64 ? ctts_window::launch_fwd<__nv_bfloat16, 64, true>(a, g, s)
-                   : ctts_window::launch_fwd<__nv_bfloat16, 128, true>(a, g, s);
+    return fwd_at(a, d, g, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -82,8 +105,7 @@ extern "C" int ctts_lsh_chunk_bwd(const void* qk, const void* v,
                                   float* grads, int g, int n, int m, int d,
                                   int cs, int causal, float scale, int dtype,
                                   void* stream) {
-  if ((d != 64 && d != 128) || ctts_window::bad_shape(g, m, cs, n))
-    return cudaErrorInvalidValue;
+  if (ctts_window::bad_shape(g, m, cs, n)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CTTS_LSH_BWD(T)                                                     \
   {                                                                         \
@@ -97,8 +119,7 @@ extern "C" int ctts_lsh_chunk_bwd(const void* qk, const void* v,
     a.dq = grads;                                                           \
     a.dv = grads + d;                                                       \
     a.gstride = 2 * d;                                                      \
-    return d == 64 ? ctts_window::launch_bwd<T, 64, true>(a, g, s)     \
-                   : ctts_window::launch_bwd<T, 128, true>(a, g, s); \
+    return bwd_at(a, d, g, s);                                              \
   }
   if (dtype == 0) CTTS_LSH_BWD(float)
   if (dtype == 1) CTTS_LSH_BWD(__nv_bfloat16)

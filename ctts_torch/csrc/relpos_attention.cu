@@ -15,8 +15,9 @@
 // exactly -1e9; keys past T are -inf. Dropout keeps (q,k) when
 // hash(seed, n, q, k) >= thresh; the hash is the one
 // ctts_torch/ops/relpos_attention.py:dropout_keep computes, and the
-// backward regenerates the same bits from the same seed words. D is 16, 32
-// or 64.
+// backward regenerates the same bits from the same seed words. D is 16, 32,
+// 64, 128 or 256 (the wrapper zero-pads any other width up to 256 to the
+// next of these).
 //
 // What bounds it on the H100: 6*N*T^2*D flop forward and 16*N*T^2*D
 // backward over O(N*T*D) bytes. At the conformer's D = 32 that is far
@@ -64,6 +65,23 @@
 // every score once.
 // Every sum is taken in a fixed order inside one block: no float atomics,
 // so the result is the same from run to run.
+//
+// Wide heads (D = 128 and 256). At 64 columns the tiles already fill most
+// of shared memory and the accumulators most of the registers (the
+// backward's first launch sits at its register cap at D = 32), so a wider
+// head is not a wider tile. Its row of W = 128 or 256 columns is W / 64
+// chunks of 64, and each kernel is the D = 64 kernel over chunks: the
+// scores are sums over the chunks, each chunk's operands (Q+u, Q+v, K, the
+// pos bands; dO and V for dP) loaded into the same 64-column tiles in turn
+// and its products added into the same score tile, so registers and shared
+// memory stay those of D = 64. The output columns are split the same way:
+// a block computes the scores of its tile over all W columns and keeps the
+// products of one 64-column slice of the outputs (blockIdx.z in the
+// forward, blockIdx.y in the backward). So each of the W / 64 slices
+// recomputes the scores, in the same chunk order and so to the same bits
+// (slice 0 alone writes the row statistics and the dS and P scratch); the
+// second launch's three roles need no scores and read only their slice's
+// columns.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -250,10 +268,11 @@ __device__ __forceinline__ void sync_loads() {
   __syncthreads();
 }
 
-// rows [r0, r0 + rows) of a [T, D] matrix into tile rows [0, rows); rows
-// outside [0, T) are zero
+// rows [r0, r0 + rows) of a [T, D] matrix (rows ld elements apart) into
+// tile rows [0, rows); rows outside [0, T) are zero
 template <typename E, int D>
-__device__ void copy_rows(const Tile& t, const E* src, int T, int r0, int rows) {
+__device__ void copy_rows(const Tile& t, const E* src, int T, int r0, int rows,
+                          int ld = D) {
   constexpr bool kSplit = std::is_same<E, float>::value;
   constexpr int kCh = D / 8;
   const int total = rows * kCh;
@@ -261,7 +280,7 @@ __device__ void copy_rows(const Tile& t, const E* src, int T, int r0, int rows) 
     for (int i = threadIdx.x; i < total; i += kThreads) {
       const int r = i / kCh, c = (i % kCh) * 8, row = r0 + r;
       const bool ok = row >= 0 && row < T;
-      cp_async16(t.at(r, c), src + (ok ? static_cast<size_t>(row) * D + c : 0), ok);
+      cp_async16(t.at(r, c), src + (ok ? static_cast<size_t>(row) * ld + c : 0), ok);
     }
   } else {
     for (int i0 = threadIdx.x; i0 < total; i0 += 4 * kThreads) {
@@ -270,7 +289,7 @@ __device__ void copy_rows(const Tile& t, const E* src, int T, int r0, int rows) 
       for (int u = 0; u < 4; ++u) {
         const int i = i0 + u * kThreads, row = r0 + i / kCh;
         if (i < total && row >= 0 && row < T) {
-          load8(src + static_cast<size_t>(row) * D + (i % kCh) * 8, x[u]);
+          load8(src + static_cast<size_t>(row) * ld + (i % kCh) * 8, x[u]);
         } else {
 #pragma unroll
           for (int e = 0; e < 8; ++e) x[u][e] = 0.f;
@@ -318,10 +337,10 @@ __device__ void copy_block(const Tile& t, const E* src, int T, int W, int r0, in
 
 // the query rows [q0, q0 + 64) plus the u bias into qu, and [q0, q0 + 65)
 // plus the v bias into qv (the bias added in float32, then rounded or
-// split); rows at or past T are zero
+// split); rows at or past T are zero; rows ld elements apart
 template <typename E, int D>
 __device__ void load_q(const Tile& qu, const Tile& qv, const E* src, int T, int q0,
-                       const float* ub, const float* vb) {
+                       const float* ub, const float* vb, int ld = D) {
   constexpr bool kSplit = std::is_same<E, float>::value;
   constexpr int kCh = D / 8, kTotal = (kBq + 1) * kCh;
   for (int i0 = threadIdx.x; i0 < kTotal; i0 += 4 * kThreads) {
@@ -330,7 +349,7 @@ __device__ void load_q(const Tile& qu, const Tile& qv, const E* src, int T, int 
     for (int u = 0; u < 4; ++u) {
       const int i = i0 + u * kThreads, row = q0 + i / kCh;
       if (i < kTotal && row < T) {
-        load8(src + static_cast<size_t>(row) * D + (i % kCh) * 8, x[u]);
+        load8(src + static_cast<size_t>(row) * ld + (i % kCh) * 8, x[u]);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) x[u][e] = 0.f;
@@ -453,12 +472,15 @@ struct Warp {
   bool left, right;            // whether any score of the tile is on that side
 };
 
-// o = A[rows a_r.., D] . B[rows b_r.., D]^T over 64 columns
+__device__ __forceinline__ void zero_tile(float (&o)[kNt][4]) {
+#pragma unroll
+  for (int t = 0; t < kNt; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+}
+
+// o += A[rows a_r.., D] . B[rows b_r.., D]^T over 64 columns
 template <int D, bool kSplit>
 __device__ __forceinline__ void dot_tile(float (&o)[kNt][4], const Tile& at, int a_r,
                                          const Tile& bt, int b_r, int lane) {
-#pragma unroll
-  for (int t = 0; t < kNt; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
     FragA<kSplit> fa;
@@ -515,7 +537,8 @@ __device__ __forceinline__ void add_band(float (&s)[kNt][4], const Warp& w, bool
   __syncwarp();
 }
 
-// the unscaled scores (Q+u).K^T + shift((Q+v).Pos^T) of the warp's tile
+// adds the unscaled scores (Q+u).K^T + shift((Q+v).Pos^T) of the warp's
+// tile over the D columns in the tiles to s
 template <int D, bool kSplit>
 __device__ __forceinline__ void raw_scores(float (&s)[kNt][4], const Warp& w,
                                            float* buf, int lane) {
@@ -597,9 +620,12 @@ __host__ __device__ constexpr size_t fwd_smem() {
          kWarps * kScratch;
 }
 
-template <typename E, int D>
+// W: the head's width, D: the tile's (W / D column chunks and output
+// slices, see the note at the top)
+template <typename E, int D, int W>
 __global__ void __launch_bounds__(kThreads) relpos_fwd(Args<E> a) {
   constexpr bool kSplit = std::is_same<E, float>::value;
+  constexpr int kC = W / D;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* at = smem;
   const Tile sQU = carve<D, kSplit>(at, kBq), sQV = carve<D, kSplit>(at, kBq + 1);
@@ -610,11 +636,13 @@ __global__ void __launch_bounds__(kThreads) relpos_fwd(Args<E> a) {
 
   const int T = a.seq, n = blockIdx.y, h = n % a.heads, b = n / a.heads;
   const int q0 = blockIdx.x * kBq, qw = q0 + kRows * warp;
-  const size_t base = static_cast<size_t>(n) * T * D;
-  const E* pos = a.pos + static_cast<size_t>(h) * T * D;
+  const int c0 = blockIdx.z * D;      // the output slice
+  const size_t base = static_cast<size_t>(n) * T * W;
+  const E* pos = a.pos + static_cast<size_t>(h) * T * W;
+  const float *ub = a.ub + h * W, *vb = a.vb + h * W;
   const bool drop = a.thresh > 0;
 
-  load_q<E, D>(sQU, sQV, a.q + base, T, q0, a.ub + h * D, a.vb + h * D);
+  if constexpr (kC == 1) load_q<E, D>(sQU, sQV, a.q + base, T, q0, ub, vb);
   const Rows rw = row_info(a, n, qw, lane, false);
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[D / 8][4];
@@ -622,17 +650,21 @@ __global__ void __launch_bounds__(kThreads) relpos_fwd(Args<E> a) {
   for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
 
   for (int k0 = 0; k0 < T; k0 += kBk) {
-    __syncthreads();                  // the previous tile is consumed
-    copy_rows<E, D>(sK, a.k + base, T, k0, kBk);
-    copy_rows<E, D>(sV, a.v + base, T, k0, kBk);
-    if (k0 <= q0 + kBq - 1) copy_rows<E, D>(sPL, pos, T, band_left(T, q0, k0), kBand);
-    if (k0 + kBk - 1 >= q0 + 2) copy_rows<E, D>(sPR, pos, T, band_right(q0, k0), kBand);
-    sync_loads();
-    if (qw >= T) continue;            // a warp of padding rows
-
-    const Warp w = block_warp(sQU, sQV, sK, sPL, sPR, q0, k0, warp);
     float s[kNt][4];
-    raw_scores<D, kSplit>(s, w, buf, lane);
+    for (int c = 0; c < kC; ++c) {    // the scores, a chunk of columns at a time
+      const int cc = c * D;
+      __syncthreads();                // the previous tile or chunk is consumed
+      if constexpr (kC > 1) load_q<E, D>(sQU, sQV, a.q + base + cc, T, q0, ub + cc, vb + cc, W);
+      copy_rows<E, D>(sK, a.k + base + cc, T, k0, kBk, W);
+      if (c == 0) copy_rows<E, D>(sV, a.v + base + c0, T, k0, kBk, W);
+      if (k0 <= q0 + kBq - 1) copy_rows<E, D>(sPL, pos + cc, T, band_left(T, q0, k0), kBand, W);
+      if (k0 + kBk - 1 >= q0 + 2) copy_rows<E, D>(sPR, pos + cc, T, band_right(q0, k0), kBand, W);
+      sync_loads();
+      if (qw >= T) continue;          // a warp of padding rows
+      if (c == 0) zero_tile(s);
+      raw_scores<D, kSplit>(s, block_warp(sQU, sQV, sK, sPL, sPR, q0, k0, warp), buf, lane);
+    }
+    if (qw >= T) continue;
     const Keys kk = key_info(a, b, k0, lane);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -696,7 +728,7 @@ __global__ void __launch_bounds__(kThreads) relpos_fwd(Args<E> a) {
     const float inv = 1.f / l[r];
 #pragma unroll
     for (int t = 0; t < D / 8; ++t) {
-      E* o = a.o + base + static_cast<size_t>(q) * D + 8 * t + 2 * (lane & 3);
+      E* o = a.o + base + static_cast<size_t>(q) * W + c0 + 8 * t + 2 * (lane & 3);
       if (kSplit) {
         *reinterpret_cast<float2*>(o) = make_float2(acc[t][2 * r] * inv, acc[t][2 * r + 1] * inv);
       } else {
@@ -704,7 +736,7 @@ __global__ void __launch_bounds__(kThreads) relpos_fwd(Args<E> a) {
             __floats2bfloat162_rn(acc[t][2 * r] * inv, acc[t][2 * r + 1] * inv);
       }
     }
-    if ((lane & 3) == 0) {
+    if ((lane & 3) == 0 && c0 == 0) {
       a.m_out[static_cast<size_t>(n) * T + q] = m[r];
       a.l_out[static_cast<size_t>(n) * T + q] = l[r];
     }
@@ -718,19 +750,23 @@ __host__ __device__ constexpr size_t q_smem() {
   return tile_bytes<D, kSplit>(3 * kBq + 1 + 2 * kBk) + 2 * tile_bytes<D, kSplit>(kBand) +
          kWarps * kScratch;
 }
-template <int D, bool kSplit>
-__host__ __device__ constexpr size_t bwd_smem() { return q_smem<D, kSplit>(); }
+// and at W > D the keys of the block's output slice, for dq
+template <int D, int W, bool kSplit>
+__host__ __device__ constexpr size_t bwd_smem() {
+  return q_smem<D, kSplit>() + (W > D ? tile_bytes<D, kSplit>(kBk) : 0);
+}
 
+// rows ld elements apart
 template <int D>
 __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8][4], int T,
-                                           int r0, int lane, int limit) {
+                                           int r0, int lane, int limit, int ld = D) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + (lane >> 2) + 8 * r;
     if (row >= limit || row >= T) continue;
 #pragma unroll
     for (int t = 0; t < D / 8; ++t)
-      *reinterpret_cast<float2*>(dst + static_cast<size_t>(row) * D + 8 * t + 2 * (lane & 3)) =
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(row) * ld + 8 * t + 2 * (lane & 3)) =
           make_float2(acc[t][2 * r], acc[t][2 * r + 1]);
   }
 }
@@ -810,7 +846,9 @@ __device__ void bwd_q(const Args<E>& a, int blk, unsigned char* smem) {
 
     const Warp w = block_warp(sQU, sQV, sK, sPL, sPR, q0, k0, warp);
     float s[kNt][4], dp[kNt][4];
+    zero_tile(s);
     raw_scores<D, kSplit>(s, w, buf, lane);
+    zero_tile(dp);
     dot_tile<D, kSplit>(dp, sG, w.q_r, sV, 0, lane);
     grads(s, dp, key_info(a, b, k0, lane), rw, a);
     const size_t at_n = static_cast<size_t>(n) * T * ds_width(T);
@@ -831,6 +869,83 @@ __device__ void bwd_q(const Args<E>& a, int blk, unsigned char* smem) {
     }
   }
   store_rows<D>(a.dqu + base, dqu, T, qw, lane, T);
+}
+
+// the same for a head W wider than the tile D (W, D as in the forward; the
+// output slice is blockIdx.y): S and dP a chunk of columns at a time, and
+// dq through the slice's keys
+template <typename E, int D, int W>
+__device__ void bwd_q_wide(const Args<E>& a, int blk, unsigned char* smem) {
+  constexpr bool kSplit = std::is_same<E, float>::value;
+  constexpr int kC = W / D;
+  unsigned char* at = smem;
+  const Tile sQU = carve<D, kSplit>(at, kBq), sQV = carve<D, kSplit>(at, kBq + 1);
+  const Tile sG = carve<D, kSplit>(at, kBq);
+  const Tile sK = carve<D, kSplit>(at, kBk), sV = carve<D, kSplit>(at, kBk);
+  const Tile sPL = carve<D, kSplit>(at, kBand), sPR = carve<D, kSplit>(at, kBand);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* buf = reinterpret_cast<float*>(at + warp * kScratch);
+  at += kWarps * kScratch;
+  const Tile sKS = carve<D, kSplit>(at, kBk);       // the slice's keys
+
+  const int T = a.seq, n_t = (T + kBq - 1) / kBq;
+  const int n = blk / n_t, q0 = (blk % n_t) * kBq, h = n % a.heads, b = n / a.heads;
+  const int qw = q0 + kRows * warp;
+  const int c0 = blockIdx.y * D;
+  const size_t base = static_cast<size_t>(n) * T * W;
+  const E* pos = a.pos + static_cast<size_t>(h) * T * W;
+  const float *ub = a.ub + h * W, *vb = a.vb + h * W;
+
+  const Rows rw = row_info(a, n, qw, lane, true);
+  float dqu[D / 8][4];
+  zero<D>(dqu);
+
+  for (int k0 = 0; k0 < T; k0 += kBk) {
+    float s[kNt][4], dp[kNt][4];
+    for (int c = 0; c < kC; ++c) {    // S and dP, a chunk of columns at a time
+      const int cc = c * D;
+      __syncthreads();
+      copy_rows<E, D>(sG, a.g + base + cc, T, q0, kBq, W);
+      load_q<E, D>(sQU, sQV, a.q + base + cc, T, q0, ub + cc, vb + cc, W);
+      if (c == 0) copy_rows<E, D>(sKS, a.k + base + c0, T, k0, kBk, W);
+      copy_rows<E, D>(sK, a.k + base + cc, T, k0, kBk, W);
+      copy_rows<E, D>(sV, a.v + base + cc, T, k0, kBk, W);
+      if (k0 <= q0 + kBq - 1) copy_rows<E, D>(sPL, pos + cc, T, band_left(T, q0, k0), kBand, W);
+      if (k0 + kBk - 1 >= q0 + 2) copy_rows<E, D>(sPR, pos + cc, T, band_right(q0, k0), kBand, W);
+      sync_loads();
+      if (qw >= T) continue;
+      if (c == 0) {
+        zero_tile(s);
+        zero_tile(dp);
+      }
+      const Warp w = block_warp(sQU, sQV, sK, sPL, sPR, q0, k0, warp);
+      raw_scores<D, kSplit>(s, w, buf, lane);
+      dot_tile<D, kSplit>(dp, sG, w.q_r, sV, 0, lane);
+    }
+    if (qw >= T) continue;
+
+    const Warp w = block_warp(sQU, sQV, sK, sPL, sPR, q0, k0, warp);
+    grads(s, dp, key_info(a, b, k0, lane), rw, a);
+    if (c0 == 0) {
+      const size_t at_n = static_cast<size_t>(n) * T * ds_width(T);
+      store_tile(a.ds + at_n, T, s, w, buf, lane);
+      store_tile(a.pd + at_n, T, dp, w, buf, lane);
+    }
+    // dq through Q+u: dS . K
+#pragma unroll
+    for (int ks = 0; ks < kBk / 16; ++ks) {
+      FragA<kSplit> fs;
+      frag_of(fs, s, ks);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        FragB<kSplit> fk;
+        load_bt(fk, sKS, 16 * ks, 16 * np, lane);
+        mma(dqu[2 * np], fs, fk, 0);
+        mma(dqu[2 * np + 1], fs, fk, 1);
+      }
+    }
+  }
+  store_rows<D>(a.dqu + base + c0, dqu, T, qw, lane, T, W);
 }
 
 // ---- the shift's backward: products over the stored dS -------------------- //
@@ -890,8 +1005,9 @@ __host__ __device__ constexpr size_t gs_smem() {
          static_cast<size_t>(kBq) * (kBk + 8) * (kSplit ? 4 : 2);
 }
 
-// query role: dqv and dqvn of 64 query rows, walking the pos tiles
-template <typename E, int D>
+// query role: dqv and dqvn of 64 query rows, walking the pos tiles (the
+// columns [c0, c0 + D) of rows W wide)
+template <typename E, int D, int W>
 __device__ void gs_q(const Args<E>& a, int blk, unsigned char* smem) {
   constexpr bool kSplit = std::is_same<E, float>::value;
   unsigned char* at = smem;
@@ -901,6 +1017,7 @@ __device__ void gs_q(const Args<E>& a, int blk, unsigned char* smem) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int T = a.seq, n_t = (T + kBq - 1) / kBq;
   const int n = blk / n_t, q0 = (blk % n_t) * kBq, h = n % a.heads;
+  const int c0 = W == D ? 0 : blockIdx.y * D;       // the output slice
   const E* ds = a.ds + static_cast<size_t>(n) * T * ds_width(T);
   float dqv[D / 8][4], dqn[D / 8][4];
   zero<D>(dqv);
@@ -910,7 +1027,7 @@ __device__ void gs_q(const Args<E>& a, int blk, unsigned char* smem) {
     const bool on[2] = {p0 + kBk - 1 >= T - 1 - (q0 + kBq - 1), p0 <= T - 3 - q0};
     if (!on[0] && !on[1]) continue;
     __syncthreads();
-    copy_rows<E, D>(sP, a.pos + static_cast<size_t>(h) * T * D, T, p0, kBk);
+    copy_rows<E, D>(sP, a.pos + static_cast<size_t>(h) * T * W + c0, T, p0, kBk, W);
     if (on[0]) load_side<E, D>(sL, raw, ds, T, q0, p0, false);
     if (on[1]) load_side<E, D>(sR, raw, ds, T, q0, p0, true);
 #pragma unroll
@@ -931,13 +1048,13 @@ __device__ void gs_q(const Args<E>& a, int blk, unsigned char* smem) {
       }
     }
   }
-  const size_t base = static_cast<size_t>(n) * T * D;
-  store_rows<D>(a.dqv + base, dqv, T, q0 + kRows * warp, lane, T);
-  store_rows<D>(a.dqvn + base, dqn, T, q0 + kRows * warp, lane, T);
+  const size_t base = static_cast<size_t>(n) * T * W + c0;
+  store_rows<D>(a.dqv + base, dqv, T, q0 + kRows * warp, lane, T, W);
+  store_rows<D>(a.dqvn + base, dqn, T, q0 + kRows * warp, lane, T, W);
 }
 
 // pos role: dpos of 64 pos rows (of one n), walking the query tiles
-template <typename E, int D>
+template <typename E, int D, int W>
 __device__ void gs_pos(const Args<E>& a, int blk, unsigned char* smem) {
   constexpr bool kSplit = std::is_same<E, float>::value;
   unsigned char* at = smem;
@@ -947,7 +1064,8 @@ __device__ void gs_pos(const Args<E>& a, int blk, unsigned char* smem) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int T = a.seq, n_t = (T + kBq - 1) / kBq;
   const int n = blk / n_t, p0 = (blk % n_t) * kBq, h = n % a.heads;
-  const size_t base = static_cast<size_t>(n) * T * D;
+  const int c0 = W == D ? 0 : blockIdx.y * D;       // the output slice
+  const size_t base = static_cast<size_t>(n) * T * W + c0;
   const E* ds = a.ds + static_cast<size_t>(n) * T * ds_width(T);
   float dpos[D / 8][4];
   zero<D>(dpos);
@@ -955,7 +1073,7 @@ __device__ void gs_pos(const Args<E>& a, int blk, unsigned char* smem) {
     const bool on[2] = {p0 + kBk - 1 >= T - 1 - (q0 + kBq - 1), p0 <= T - 3 - q0};
     if (!on[0] && !on[1]) continue;
     __syncthreads();
-    load_q<E, D>(sQU, sQV, a.q + base, T, q0, a.ub + h * D, a.vb + h * D);
+    load_q<E, D>(sQU, sQV, a.q + base, T, q0, a.ub + h * W + c0, a.vb + h * W + c0, W);
     if (on[0]) load_side<E, D>(sL, raw, ds, T, q0, p0, false);
     if (on[1]) load_side<E, D>(sR, raw, ds, T, q0, p0, true);
 #pragma unroll
@@ -976,12 +1094,12 @@ __device__ void gs_pos(const Args<E>& a, int blk, unsigned char* smem) {
       }
     }
   }
-  store_rows<D>(a.dpos + base, dpos, T, p0 + kRows * warp, lane, T);
+  store_rows<D>(a.dpos + base, dpos, T, p0 + kRows * warp, lane, T, W);
 }
 
 // kv role: dk and dv of 64 keys, walking the query tiles: dk = dS^T.(Q+u)
 // and dv = P^T.dO over the stored tiles, each warp 16 keys
-template <typename E, int D>
+template <typename E, int D, int W>
 __device__ void gs_kv(const Args<E>& a, int blk, unsigned char* smem) {
   constexpr bool kSplit = std::is_same<E, float>::value;
   unsigned char* at = smem;
@@ -989,18 +1107,19 @@ __device__ void gs_kv(const Args<E>& a, int blk, unsigned char* smem) {
   const Tile sG = carve<D, kSplit>(at, kBq);
   const Tile sDS = carve_wide<kSplit>(at, kBq, kTileS), sP = carve_wide<kSplit>(at, kBq, kTileS);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int T = a.seq, W = ds_width(T), n_t = (T + kBk - 1) / kBk;
+  const int T = a.seq, Wd = ds_width(T), n_t = (T + kBk - 1) / kBk;
   const int n = blk / n_t, k0 = (blk % n_t) * kBk, h = n % a.heads;
-  const size_t base = static_cast<size_t>(n) * T * D, at_n = static_cast<size_t>(n) * T * W;
+  const int c0 = W == D ? 0 : blockIdx.y * D;       // the output slice
+  const size_t base = static_cast<size_t>(n) * T * W + c0, at_n = static_cast<size_t>(n) * T * Wd;
   float dk[D / 8][4], dv[D / 8][4];
   zero<D>(dk);
   zero<D>(dv);
   for (int q0 = 0; q0 < T; q0 += kBq) {
     __syncthreads();
-    copy_rows<E, D>(sG, a.g + base, T, q0, kBq);
-    copy_block<E>(sDS, a.ds + at_n, T, W, q0, k0);
-    copy_block<E>(sP, a.pd + at_n, T, W, q0, k0);
-    load_q<E, D>(sQU, sQV, a.q + base, T, q0, a.ub + h * D, a.vb + h * D);
+    copy_rows<E, D>(sG, a.g + base, T, q0, kBq, W);
+    copy_block<E>(sDS, a.ds + at_n, T, Wd, q0, k0);
+    copy_block<E>(sP, a.pd + at_n, T, Wd, q0, k0);
+    load_q<E, D>(sQU, sQV, a.q + base, T, q0, a.ub + h * W + c0, a.vb + h * W + c0, W);
     sync_loads();
 #pragma unroll
     for (int ks = 0; ks < kBq / 16; ++ks) {
@@ -1019,17 +1138,17 @@ __device__ void gs_kv(const Args<E>& a, int blk, unsigned char* smem) {
       }
     }
   }
-  store_rows<D>(a.dk + base, dk, T, k0 + kRows * warp, lane, T);
-  store_rows<D>(a.dv + base, dv, T, k0 + kRows * warp, lane, T);
+  store_rows<D>(a.dk + base, dk, T, k0 + kRows * warp, lane, T, W);
+  store_rows<D>(a.dv + base, dv, T, k0 + kRows * warp, lane, T, W);
 }
 
-template <typename E, int D>
+template <typename E, int D, int W>
 __global__ void __launch_bounds__(kThreads) relpos_bwd_shift(Args<E> a, int n_q) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int blk = blockIdx.x;
-  if (blk < n_q) gs_kv<E, D>(a, blk, smem);
-  else if (blk < 2 * n_q) gs_q<E, D>(a, blk - n_q, smem);
-  else gs_pos<E, D>(a, blk - 2 * n_q, smem);
+  if (blk < n_q) gs_kv<E, D, W>(a, blk, smem);
+  else if (blk < 2 * n_q) gs_q<E, D, W>(a, blk - n_q, smem);
+  else gs_pos<E, D, W>(a, blk - 2 * n_q, smem);
 }
 
 // bf16 at D <= 32 fits three blocks an SM in shared memory, and the
@@ -1041,40 +1160,43 @@ struct BwdBlocks {
   static constexpr int value = !std::is_same<E, float>::value && D <= 32 ? 3 : 1;
 };
 
-template <typename E, int D>
+template <typename E, int D, int W>
 __global__ void __launch_bounds__(kThreads, BwdBlocks<E, D>::value) relpos_bwd(Args<E> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bwd_q<E, D>(a, blockIdx.x, smem);
+  if constexpr (W == D) bwd_q<E, D>(a, blockIdx.x, smem);
+  else bwd_q_wide<E, D, W>(a, blockIdx.x, smem);
 }
 
-template <typename E, int D>
+// the kernels of a head W wide on tiles D wide: W itself up to 64, else
+// W / 64 chunks and output slices of 64
+template <typename E, int W, int D = (W < 64 ? W : 64)>
 cudaError_t launch_bwd(const Args<E>& a, cudaStream_t stream) {
   constexpr bool kSplit = std::is_same<E, float>::value;
-  const int smem = static_cast<int>(bwd_smem<D, kSplit>());
+  const int smem = static_cast<int>(bwd_smem<D, W, kSplit>());
   const int smem_shift = static_cast<int>(gs_smem<D, kSplit>());
   cudaError_t e = cudaFuncSetAttribute(
-      relpos_bwd<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      relpos_bwd<E, D, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(relpos_bwd_shift<E, D>,
+    e = cudaFuncSetAttribute(relpos_bwd_shift<E, D, W>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_shift);
   if (e != cudaSuccess) return e;
   const int n_q = a.n * ((a.seq + kBq - 1) / kBq);
-  relpos_bwd<E, D><<<n_q, kThreads, smem, stream>>>(a);
+  relpos_bwd<E, D, W><<<dim3(n_q, W / D), kThreads, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  relpos_bwd_shift<E, D><<<3 * n_q, kThreads, smem_shift, stream>>>(a, n_q);
+  relpos_bwd_shift<E, D, W><<<dim3(3 * n_q, W / D), kThreads, smem_shift, stream>>>(a, n_q);
   return cudaGetLastError();
 }
 
-template <typename E, int D>
+template <typename E, int W, int D = (W < 64 ? W : 64)>
 cudaError_t launch_fwd(const Args<E>& a, cudaStream_t stream) {
   constexpr bool kSplit = std::is_same<E, float>::value;
   const int smem = static_cast<int>(fwd_smem<D, kSplit>());
   cudaError_t e = cudaFuncSetAttribute(
-      relpos_fwd<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      relpos_fwd<E, D, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.seq + kBq - 1) / kBq, a.n);
-  relpos_fwd<E, D><<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.seq + kBq - 1) / kBq, a.n, W / D);
+  relpos_fwd<E, D, W><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1112,7 +1234,7 @@ bool bad_shape(int n, int heads, int head_off, int head_total, int seq) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d = 16, 32 or 64. Returns a
+// dtype: 0 = float32, 1 = bfloat16; d = 16, 32, 64, 128 or 256. Returns a
 // cudaError_t (0 = launched), cudaErrorInvalidValue for what the kernel
 // does not take.
 extern "C" int ctts_relpos_fwd(const void* q, const void* k, const void* v,
@@ -1138,9 +1260,13 @@ extern "C" int ctts_relpos_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && d == 16) CTTS_RELPOS_FWD(float, 16)
   if (dtype == 0 && d == 32) CTTS_RELPOS_FWD(float, 32)
   if (dtype == 0 && d == 64) CTTS_RELPOS_FWD(float, 64)
+  if (dtype == 0 && d == 128) CTTS_RELPOS_FWD(float, 128)
+  if (dtype == 0 && d == 256) CTTS_RELPOS_FWD(float, 256)
   if (dtype == 1 && d == 16) CTTS_RELPOS_FWD(__nv_bfloat16, 16)
   if (dtype == 1 && d == 32) CTTS_RELPOS_FWD(__nv_bfloat16, 32)
   if (dtype == 1 && d == 64) CTTS_RELPOS_FWD(__nv_bfloat16, 64)
+  if (dtype == 1 && d == 128) CTTS_RELPOS_FWD(__nv_bfloat16, 128)
+  if (dtype == 1 && d == 256) CTTS_RELPOS_FWD(__nv_bfloat16, 256)
 #undef CTTS_RELPOS_FWD
   return cudaErrorInvalidValue;
 }
@@ -1188,9 +1314,13 @@ extern "C" int ctts_relpos_bwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && d == 16) CTTS_RELPOS_BWD(float, 16)
   if (dtype == 0 && d == 32) CTTS_RELPOS_BWD(float, 32)
   if (dtype == 0 && d == 64) CTTS_RELPOS_BWD(float, 64)
+  if (dtype == 0 && d == 128) CTTS_RELPOS_BWD(float, 128)
+  if (dtype == 0 && d == 256) CTTS_RELPOS_BWD(float, 256)
   if (dtype == 1 && d == 16) CTTS_RELPOS_BWD(__nv_bfloat16, 16)
   if (dtype == 1 && d == 32) CTTS_RELPOS_BWD(__nv_bfloat16, 32)
   if (dtype == 1 && d == 64) CTTS_RELPOS_BWD(__nv_bfloat16, 64)
+  if (dtype == 1 && d == 128) CTTS_RELPOS_BWD(__nv_bfloat16, 128)
+  if (dtype == 1 && d == 256) CTTS_RELPOS_BWD(__nv_bfloat16, 256)
 #undef CTTS_RELPOS_BWD
   return cudaErrorInvalidValue;
 }

@@ -86,6 +86,17 @@
 //
 // float32 inputs split every operand into bf16 hi + lo (three products),
 // which keeps the results within ~1e-5 of float32.
+//
+// Widths. D is 16, 32, 64, 128 or 256 (the wrappers zero-pad any other
+// width up to 256 to the next of these). At D = 256 the accumulators of a
+// row's 256 output columns would not fit a thread's registers, so two warps
+// share each 16 stationary rows: both compute the rows' scores over all D
+// (the same arithmetic, so the same softmax and the same P) and each keeps
+// 128 of the output columns; in the backward the key phase's <k, dkn> is
+// summed over the two halves through shared memory. Nor do its tiles leave
+// room for a stage: each tile is read from device memory and converted in
+// one step, and the float32 backward takes 32 stationary rows a block (its
+// four split tiles fit shared memory only so).
 
 #pragma once
 
@@ -113,6 +124,22 @@ constexpr float kEps = 1e-12f;
 // of 32
 __host__ __device__ constexpr int block_rows(int unit) {
   return unit % 64 == 0 ? 64 : 32;
+}
+
+// warps that share a group of 16 stationary rows, each with its own part of
+// the output columns
+template <int D>
+__host__ __device__ constexpr int share() { return D > 128 ? 2 : 1; }
+
+// whether a tile's raw rows are copied ahead into a stage while the warps
+// compute (else read from device memory as the tile is converted)
+template <int D>
+__host__ __device__ constexpr bool staged() { return D <= 128; }
+
+// stationary rows of the backward's shared tiles
+template <typename T, int D>
+__host__ __device__ constexpr int stat_rows() {
+  return std::is_same<T, float>::value && !staged<D>() ? kHalf : kTile;
 }
 
 // ---- PTX wrappers -------------------------------------------------------- //
@@ -187,14 +214,20 @@ template <int D>
 __host__ __device__ constexpr int tile_bytes(bool split) {
   return (split ? 2 : 1) * kTile * (D + kPadE) * 2;
 }
+// the same for a tile of `rows` rows
+template <int D>
+__host__ __device__ constexpr int rows_bytes(bool split, int rows) {
+  return tile_bytes<D>(split) / kTile * rows;
+}
 template <typename T, int D>
 __host__ __device__ constexpr int stage_bytes() {
   return 2 * kTile * D * static_cast<int>(sizeof(T));    // two raw tensors
 }
 
 template <int D>
-__device__ __forceinline__ Tile<D> tile_at(unsigned char* smem, int offset) {
-  return {reinterpret_cast<bf16*>(smem + offset), kTile * Tile<D>::kStride};
+__device__ __forceinline__ Tile<D> tile_at(unsigned char* smem, int offset,
+                                           int rows = kTile) {
+  return {reinterpret_cast<bf16*>(smem + offset), rows * Tile<D>::kStride};
 }
 
 template <bool kSplit> struct FragA { uint32_t h[4], l[4]; };
@@ -359,7 +392,7 @@ __device__ __forceinline__ Unit unit_of(const Args<T>& a) {
   t.u = blockIdx.y;
   t.Q = a.unit;
   t.n = a.rows / a.unit;
-  t.bs = static_cast<int>(blockDim.x) / 32 * kRows;
+  t.bs = static_cast<int>(blockDim.x) / 32 / share<D>() * kRows;
   t.row0 = t.u * t.Q + static_cast<int>(blockIdx.x) * t.bs;
   t.gr = static_cast<size_t>(blockIdx.z) * a.rows;
   t.gs = static_cast<size_t>(blockIdx.z) * a.n_src * D;
@@ -499,40 +532,84 @@ __device__ void convert(const T* src, const Tile<D>& dst, float* r_out) {
   }
 }
 
+// The same from device memory: rows [0, rows) of a tile are the rows idx[r]
+// of base [.., D] (zeros where idx < 0), read and converted in one step.
+template <typename T, int D, bool kSplit, bool kKeys>
+__device__ void convert_rows(const T* base, const int* idx, const Tile<D>& dst,
+                             float* r_out, int rows) {
+  constexpr int kLpr = D / 8;
+  const int per_pass = static_cast<int>(blockDim.x) / kLpr;
+  const int c = (threadIdx.x % kLpr) * 8;
+  for (int r = threadIdx.x / kLpr; r < rows; r += per_pass) {
+    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    const int s = idx[r];
+    if (s >= 0) load8(base + static_cast<size_t>(s) * D + c, x);
+    if (kKeys) {
+      const float rr = row_r<D>(x);
+      if (c == 0) r_out[r] = rr;
+    }
+    store8<kSplit>(dst.at(r, c), dst.plane, x);
+  }
+}
+
+// A tile's rows through the stage where there is one: ahead() copies the
+// raw rows idx[r] of base into the stage and take() converts them once they
+// have landed; without a stage ahead() does nothing and take() reads them.
+template <typename T, int D>
+__device__ __forceinline__ void ahead(T* stage, const T* base, const int* idx) {
+  if constexpr (staged<D>()) issue_rows<T, D>(stage, base, idx);
+}
+template <typename T, int D, bool kSplit, bool kKeys>
+__device__ __forceinline__ void take(const T* stage, const T* base, const int* idx,
+                                     const Tile<D>& dst, float* r_out,
+                                     int rows = kTile) {
+  if constexpr (staged<D>()) convert<T, D, kSplit, kKeys>(stage, dst, r_out);
+  else convert_rows<T, D, kSplit, kKeys>(base, idx, dst, r_out, rows);
+}
+
 // ---- forward -------------------------------------------------------------- //
 
 // The forward splits every operand in f32. In bf16 it rounds P for P V,
 // but the LSH forward keeps P in f32 precision (split): its f32 output is
 // held to the plain f32 version at 1e-4.
 // In bf16 the rows land in their tiles as they are (no stage), so four
-// blocks fit an SM, registers capped at 128.
+// blocks fit an SM, registers capped at 128 (two blocks at D = 256).
 template <typename T, bool kLsh>
 struct FwdSplit {
   static constexpr bool kF32 = std::is_same<T, float>::value;
   static constexpr bool kP = kF32 || kLsh;
-  static constexpr int kBlocks = kF32 ? 1 : 4;      // a launch bound
 };
+
+template <typename T, int D>
+__host__ __device__ constexpr int fwd_blocks() {    // a launch bound
+  return std::is_same<T, float>::value ? 1 : (staged<D>() ? 4 : 2);
+}
 
 template <typename T, int D, bool kLsh>
 __host__ __device__ constexpr int fwd_smem() {
   using S = FwdSplit<T, kLsh>;
-  return 3 * tile_bytes<D>(S::kF32) + (S::kF32 ? stage_bytes<T, D>() : 0);
+  return 3 * tile_bytes<D>(S::kF32) +
+         (S::kF32 && staged<D>() ? stage_bytes<T, D>() : 0);
 }
 
 template <typename T, int D, bool kLsh>
-__global__ void __launch_bounds__(kMaxThreads, FwdSplit<T, kLsh>::kBlocks)
+__global__ void __launch_bounds__(kMaxThreads * share<D>(), fwd_blocks<T, D>())
     window_fwd(Args<T> a) {
   using S = FwdSplit<T, kLsh>;
-  constexpr int kDt = D / 8;                    // n-tiles of a row of D
+  constexpr int kCols = D / share<D>();         // output columns of a warp
+  constexpr int kCt = kCols / 8;                // their n-tiles
   constexpr int kTb = tile_bytes<D>(S::kF32);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Meta meta;
   const Tile<D> sQ = tile_at<D>(smem, 0), sK = tile_at<D>(smem, kTb);
   const Tile<D> sV = tile_at<D>(smem, 2 * kTb);
   T* stage = reinterpret_cast<T*>(smem + 3 * kTb);      // f32 only
+  const T* qk = a.qk, *v = a.v;
 
   const Unit t = unit_of<T, D>(a);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % (t.bs / kRows);         // the warp's row group
+  const int c0 = warp / (t.bs / kRows) * kCols; // and its first output column
   const int g4 = lane >> 2, t4 = lane & 3;
   const bool causal = a.causal != 0;
 
@@ -541,32 +618,32 @@ __global__ void __launch_bounds__(kMaxThreads, FwdSplit<T, kLsh>::kBlocks)
   set_meta<T, kLsh, false>(a, t, meta, 0, 0);
   __syncthreads();
   if constexpr (S::kF32) {
-    issue_rows<T, D>(stage, a.qk + t.gs, meta.pos[1]);
+    ahead<T, D>(stage, qk + t.gs, meta.pos[1]);
     cp_async_wait();
     __syncthreads();
-    convert<T, D, true, false>(stage, sQ, nullptr);
+    take<T, D, true, false>(stage, qk + t.gs, meta.pos[1], sQ, nullptr);
     __syncthreads();                    // the stage converted
-    issue_rows<T, D>(stage, a.qk + t.gs, meta.pos[0]);
-    issue_rows<T, D>(stage + kTile * D, a.v + t.gs, meta.pos[0]);
+    ahead<T, D>(stage, qk + t.gs, meta.pos[0]);
+    ahead<T, D>(stage + kTile * D, v + t.gs, meta.pos[0]);
   } else {
-    issue_tile<D>(sQ, a.qk + t.gs, meta.pos[1]);
-    issue_tile<D>(sK, a.qk + t.gs, meta.pos[0]);
-    issue_tile<D>(sV, a.v + t.gs, meta.pos[0]);
+    issue_tile<D>(sQ, qk + t.gs, meta.pos[1]);
+    issue_tile<D>(sK, qk + t.gs, meta.pos[0]);
+    issue_tile<D>(sV, v + t.gs, meta.pos[0]);
   }
 
   int qt[2];
   bool qok[2];
-  float m[2], l[2], acc[kDt][4];
+  float m[2], l[2], acc[kCt][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = t.row0 + warp * kRows + g4 + 8 * r;
+    const int row = t.row0 + rg * kRows + g4 + 8 * r;
     qt[r] = pos_of<kLsh>(a.st, t.gr, row);
     qok[r] = a.ok[t.gr + row] != 0;
     m[r] = -INFINITY;
     l[r] = 0.f;
   }
 #pragma unroll
-  for (int nt = 0; nt < kDt; ++nt)
+  for (int nt = 0; nt < kCt; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 
@@ -578,8 +655,8 @@ __global__ void __launch_bounds__(kMaxThreads, FwdSplit<T, kLsh>::kBlocks)
     cp_async_wait();
     __syncthreads();                    // tile i landed
     if constexpr (S::kF32) {
-      convert<T, D, true, true>(stage, sK, meta.r[buf]);
-      convert<T, D, true, false>(stage + kTile * D, sV, nullptr);
+      take<T, D, true, true>(stage, qk + t.gs, meta.pos[buf], sK, meta.r[buf]);
+      take<T, D, true, false>(stage + kTile * D, v + t.gs, meta.pos[buf], sV, nullptr);
     } else {
       key_r<D>(sK, meta.r[buf]);
     }
@@ -587,8 +664,8 @@ __global__ void __launch_bounds__(kMaxThreads, FwdSplit<T, kLsh>::kBlocks)
     __syncthreads();
     if constexpr (S::kF32) {
       if (i + 1 < n_tiles) {            // in flight while tile i computes
-        issue_rows<T, D>(stage, a.qk + t.gs, meta.pos[buf ^ 1]);
-        issue_rows<T, D>(stage + kTile * D, a.v + t.gs, meta.pos[buf ^ 1]);
+        ahead<T, D>(stage, qk + t.gs, meta.pos[buf ^ 1]);
+        ahead<T, D>(stage + kTile * D, v + t.gs, meta.pos[buf ^ 1]);
       }
     }
 
@@ -600,7 +677,7 @@ __global__ void __launch_bounds__(kMaxThreads, FwdSplit<T, kLsh>::kBlocks)
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
       FragA<S::kF32> fa;
-      load_a(fa, sQ, warp * kRows, ks * 16, lane);
+      load_a(fa, sQ, rg * kRows, ks * 16, lane);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         FragB<S::kF32> fb;
@@ -648,7 +725,7 @@ __global__ void __launch_bounds__(kMaxThreads, FwdSplit<T, kLsh>::kBlocks)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
 #pragma unroll
-    for (int nt = 0; nt < kDt; ++nt)
+    for (int nt = 0; nt < kCt; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
 
@@ -657,9 +734,9 @@ __global__ void __launch_bounds__(kMaxThreads, FwdSplit<T, kLsh>::kBlocks)
       FragA<S::kP> fp;
       frag_of<S::kP>(fp, s, ks);
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
+      for (int np = 0; np < kCols / 16; ++np) {
         FragB<S::kF32> fb;
-        load_bt(fb, sV, ks * 16, np * 16, lane);
+        load_bt(fb, sV, ks * 16, c0 + np * 16, lane);
         mma(acc[2 * np], fp, fb, 0);
         mma(acc[2 * np + 1], fp, fb, 1);
       }
@@ -667,33 +744,33 @@ __global__ void __launch_bounds__(kMaxThreads, FwdSplit<T, kLsh>::kBlocks)
     if constexpr (!S::kF32) {
       if (i + 1 < n_tiles) {
         __syncthreads();                // tile i consumed
-        issue_tile<D>(sK, a.qk + t.gs, meta.pos[buf ^ 1]);
-        issue_tile<D>(sV, a.v + t.gs, meta.pos[buf ^ 1]);
+        issue_tile<D>(sK, qk + t.gs, meta.pos[buf ^ 1]);
+        issue_tile<D>(sV, v + t.gs, meta.pos[buf ^ 1]);
       }
     }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const size_t row = t.gr + t.row0 + warp * kRows + g4 + 8 * r;
+    const size_t row = t.gr + t.row0 + rg * kRows + g4 + 8 * r;
     if (kLsh) {
       const float lse = m[r] + logf(l[r]);
       const float sc = __expf(m[r] - lse);
       float* out = a.ol + row * (D + 1);
 #pragma unroll
-      for (int nt = 0; nt < kDt; ++nt) {
-        const int col = nt * 8 + 2 * t4;
+      for (int nt = 0; nt < kCt; ++nt) {
+        const int col = c0 + nt * 8 + 2 * t4;
         out[col] = acc[nt][2 * r] * sc;
         out[col + 1] = acc[nt][2 * r + 1] * sc;
       }
-      if (t4 == 0) out[D] = lse;
+      if (t4 == 0 && c0 == 0) out[D] = lse;
     } else {
       const float inv = 1.f / l[r];
 #pragma unroll
-      for (int nt = 0; nt < kDt; ++nt)
-        st2(a.o + row * D + nt * 8 + 2 * t4, acc[nt][2 * r] * inv,
+      for (int nt = 0; nt < kCt; ++nt)
+        st2(a.o + row * D + c0 + nt * 8 + 2 * t4, acc[nt][2 * r] * inv,
             acc[nt][2 * r + 1] * inv);
-      if (t4 == 0) {
+      if (t4 == 0 && c0 == 0) {
         a.m[row] = m[r];
         a.l[row] = l[r];
       }
@@ -703,11 +780,13 @@ __global__ void __launch_bounds__(kMaxThreads, FwdSplit<T, kLsh>::kBlocks)
 
 // ---- backward ------------------------------------------------------------- //
 
-// Shared memory of the backward: two stationary tiles, the stage, two
-// compute tiles; every operand split in f32, none in bf16.
+// Shared memory of the backward: two stationary tiles, the stage (none at
+// D = 256), two compute tiles; every operand split in f32, none in bf16.
 template <typename T, int D>
 __host__ __device__ constexpr int bwd_smem() {
-  return 4 * tile_bytes<D>(std::is_same<T, float>::value) + stage_bytes<T, D>();
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  return 2 * rows_bytes<D>(kF32, stat_rows<T, D>()) + 2 * tile_bytes<D>(kF32) +
+         (staged<D>() ? stage_bytes<T, D>() : 0);
 }
 
 // P and dS * scale of one logit, its raw product s = q . k and its key's
@@ -726,41 +805,47 @@ __device__ __forceinline__ void grad_of(float s, float rs, float dp, int qt,
 }
 
 template <typename T, int D, bool kLsh>
-__global__ void __launch_bounds__(kMaxThreads) window_bwd(Args<T> a) {
+__global__ void __launch_bounds__(kMaxThreads * share<D>()) window_bwd(Args<T> a) {
   constexpr bool kS = std::is_same<T, float>::value;   // split every operand
-  constexpr int kDt = D / 8;
-  constexpr int kTb = tile_bytes<D>(kS);
+  constexpr int kCols = D / share<D>();                // output columns of a warp
+  constexpr int kCt = kCols / 8;
+  constexpr int kSr = stat_rows<T, D>();
+  constexpr int kTs = rows_bytes<D>(kS, kSr), kTb = tile_bytes<D>(kS);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Meta meta;
   __shared__ float sR[kTile];
-  const Tile<D> stA = tile_at<D>(smem, 0), stB = tile_at<D>(smem, kTb);
-  T* stage = reinterpret_cast<T*>(smem + 2 * kTb);
-  const int off_c = 2 * kTb + stage_bytes<T, D>();
+  __shared__ float sIn[share<D>()][kTile];     // <k, dkn> of each column part
+  const Tile<D> stA = tile_at<D>(smem, 0, kSr), stB = tile_at<D>(smem, kTs, kSr);
+  T* stage = reinterpret_cast<T*>(smem + 2 * kTs);
+  const int off_c = 2 * kTs + (staged<D>() ? stage_bytes<T, D>() : 0);
   const Tile<D> cA = tile_at<D>(smem, off_c), cB = tile_at<D>(smem, off_c + kTb);
 
   const Unit t = unit_of<T, D>(a);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % (t.bs / kRows);         // the warp's row group
+  const int c0 = warp / (t.bs / kRows) * kCols; // and its first output column
   const int g4 = lane >> 2, t4 = lane & 3;
   const bool causal = a.causal != 0;
   const int n_tiles = 2 * t.Q / kTile;
   const T* dout = a.dout + t.gr * D;           // g's rows of dO
+  const T* qk = a.qk + t.gs, *v = a.v + t.gs;
 
   // ---- query phase: dq of the stationary rows --------------------------- //
   stationary_meta<T, kLsh>(a, t, meta, 0);
   __syncthreads();
-  issue_rows<T, D>(stage, a.qk + t.gs, meta.pos[0]);
-  issue_rows<T, D>(stage + kTile * D, dout, meta.row[0]);
+  ahead<T, D>(stage, qk, meta.pos[0]);
+  ahead<T, D>(stage + kTile * D, dout, meta.row[0]);
   cp_async_wait();
   __syncthreads();
-  convert<T, D, kS, false>(stage, stA, nullptr);               // Q
-  convert<T, D, kS, false>(stage + kTile * D, stB, nullptr);   // dO
+  take<T, D, kS, false>(stage, qk, meta.pos[0], stA, nullptr, kSr);                 // Q
+  take<T, D, kS, false>(stage + kTile * D, dout, meta.row[0], stB, nullptr, kSr);   // dO
 
   int qt[2];
   bool qok[2];
-  float sm[2], sl[2], dl[2], dls[2], dq[kDt][4];
+  float sm[2], sl[2], dl[2], dls[2], dq[kCt][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = t.row0 + warp * kRows + g4 + 8 * r;
+    const int row = t.row0 + rg * kRows + g4 + 8 * r;
     const size_t gr = t.gr + row;
     qt[r] = pos_of<kLsh>(a.st, t.gr, row);
     qok[r] = a.ok[gr] != 0;
@@ -770,25 +855,27 @@ __global__ void __launch_bounds__(kMaxThreads) window_bwd(Args<T> a) {
     dls[r] = kLsh ? a.dlse[gr * a.sstride] : 0.f;
   }
 #pragma unroll
-  for (int nt = 0; nt < kDt; ++nt)
+  for (int nt = 0; nt < kCt; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
 
+  // without a stage the stationary tiles were read by meta[0]'s rows
+  if constexpr (!staged<D>()) __syncthreads();
   set_meta<T, kLsh, false>(a, t, meta, 0, 0);
   __syncthreads();
-  issue_rows<T, D>(stage, a.qk + t.gs, meta.pos[0]);
-  issue_rows<T, D>(stage + kTile * D, a.v + t.gs, meta.pos[0]);
+  ahead<T, D>(stage, qk, meta.pos[0]);
+  ahead<T, D>(stage + kTile * D, v, meta.pos[0]);
   for (int i = 0; i < n_tiles; ++i) {
     const int buf = i & 1;
     cp_async_wait();
     __syncthreads();
-    convert<T, D, kS, true>(stage, cA, meta.r[buf]);           // k, r
-    convert<T, D, kS, false>(stage + kTile * D, cB, nullptr);  // V
+    take<T, D, kS, true>(stage, qk, meta.pos[buf], cA, meta.r[buf]);            // k, r
+    take<T, D, kS, false>(stage + kTile * D, v, meta.pos[buf], cB, nullptr);    // V
     if (i + 1 < n_tiles) set_meta<T, kLsh, false>(a, t, meta, buf ^ 1, (i + 1) * kTile);
     __syncthreads();
     if (i + 1 < n_tiles) {
-      issue_rows<T, D>(stage, a.qk + t.gs, meta.pos[buf ^ 1]);
-      issue_rows<T, D>(stage + kTile * D, a.v + t.gs, meta.pos[buf ^ 1]);
+      ahead<T, D>(stage, qk, meta.pos[buf ^ 1]);
+      ahead<T, D>(stage + kTile * D, v, meta.pos[buf ^ 1]);
     }
 
     float s[8][4], dp[8][4];
@@ -799,8 +886,8 @@ __global__ void __launch_bounds__(kMaxThreads) window_bwd(Args<T> a) {
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
       FragA<kS> fq, fo;
-      load_a(fq, stA, warp * kRows, ks * 16, lane);
-      load_a(fo, stB, warp * kRows, ks * 16, lane);
+      load_a(fq, stA, rg * kRows, ks * 16, lane);
+      load_a(fo, stB, rg * kRows, ks * 16, lane);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         FragB<kS> fk, fv;
@@ -835,9 +922,9 @@ __global__ void __launch_bounds__(kMaxThreads) window_bwd(Args<T> a) {
       FragA<kS> fs;
       frag_of<kS>(fs, s, ks);
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
+      for (int np = 0; np < kCols / 16; ++np) {
         FragB<kS> fk;
-        load_bt(fk, cA, ks * 16, np * 16, lane);
+        load_bt(fk, cA, ks * 16, c0 + np * 16, lane);
         mma(dq[2 * np], fs, fk, 0);
         mma(dq[2 * np + 1], fs, fk, 1);
       }
@@ -845,9 +932,9 @@ __global__ void __launch_bounds__(kMaxThreads) window_bwd(Args<T> a) {
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float* out = a.dq + (t.gr + t.row0 + warp * kRows + g4 + 8 * r) * a.gstride;
+    float* out = a.dq + (t.gr + t.row0 + rg * kRows + g4 + 8 * r) * a.gstride + c0;
 #pragma unroll
-    for (int nt = 0; nt < kDt; ++nt)
+    for (int nt = 0; nt < kCt; ++nt)
       st2(out + nt * 8 + 2 * t4, dq[nt][2 * r], dq[nt][2 * r + 1]);
   }
   __syncthreads();                       // the tiles are taken over below
@@ -855,46 +942,46 @@ __global__ void __launch_bounds__(kMaxThreads) window_bwd(Args<T> a) {
   // ---- key phase: dk and dv of the stationary rows ---------------------- //
   stationary_meta<T, kLsh>(a, t, meta, 0);
   __syncthreads();
-  issue_rows<T, D>(stage, a.qk + t.gs, meta.pos[0]);
-  issue_rows<T, D>(stage + kTile * D, a.v + t.gs, meta.pos[0]);
+  ahead<T, D>(stage, qk, meta.pos[0]);
+  ahead<T, D>(stage + kTile * D, v, meta.pos[0]);
   cp_async_wait();
   __syncthreads();
-  convert<T, D, kS, true>(stage, stA, sR);                     // k, r
-  convert<T, D, kS, false>(stage + kTile * D, stB, nullptr);   // V
+  take<T, D, kS, true>(stage, qk, meta.pos[0], stA, sR, kSr);                   // k, r
+  take<T, D, kS, false>(stage + kTile * D, v, meta.pos[0], stB, nullptr, kSr);  // V
 
   int kt[2];
   bool kok[2];
-  float dkn[kDt][4], dvv[kDt][4];
+  float dkn[kCt][4], dvv[kCt][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = t.row0 + warp * kRows + g4 + 8 * r;
+    const int row = t.row0 + rg * kRows + g4 + 8 * r;
     kt[r] = pos_of<kLsh>(a.st, t.gr, row);
     kok[r] = a.ok[t.gr + row] != 0;
   }
   __syncthreads();                       // sR written
   float krs[2];                          // the rows' r * scale
 #pragma unroll
-  for (int r = 0; r < 2; ++r) krs[r] = sR[warp * kRows + g4 + 8 * r] * a.scale;
+  for (int r = 0; r < 2; ++r) krs[r] = sR[rg * kRows + g4 + 8 * r] * a.scale;
 #pragma unroll
-  for (int nt = 0; nt < kDt; ++nt)
+  for (int nt = 0; nt < kCt; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dkn[nt][e] = dvv[nt][e] = 0.f;
 
   set_meta<T, kLsh, true>(a, t, meta, 0, 0);
   __syncthreads();
-  issue_rows<T, D>(stage, a.qk + t.gs, meta.pos[0]);
-  issue_rows<T, D>(stage + kTile * D, dout, meta.row[0]);
+  ahead<T, D>(stage, qk, meta.pos[0]);
+  ahead<T, D>(stage + kTile * D, dout, meta.row[0]);
   for (int i = 0; i < n_tiles; ++i) {
     const int buf = i & 1;
     cp_async_wait();
     __syncthreads();
-    convert<T, D, kS, false>(stage, cA, nullptr);              // Q
-    convert<T, D, kS, false>(stage + kTile * D, cB, nullptr);  // dO
+    take<T, D, kS, false>(stage, qk, meta.pos[buf], cA, nullptr);              // Q
+    take<T, D, kS, false>(stage + kTile * D, dout, meta.row[buf], cB, nullptr);  // dO
     if (i + 1 < n_tiles) set_meta<T, kLsh, true>(a, t, meta, buf ^ 1, (i + 1) * kTile);
     __syncthreads();
     if (i + 1 < n_tiles) {
-      issue_rows<T, D>(stage, a.qk + t.gs, meta.pos[buf ^ 1]);
-      issue_rows<T, D>(stage + kTile * D, dout, meta.row[buf ^ 1]);
+      ahead<T, D>(stage, qk, meta.pos[buf ^ 1]);
+      ahead<T, D>(stage + kTile * D, dout, meta.row[buf ^ 1]);
     }
 
 #pragma unroll
@@ -907,8 +994,8 @@ __global__ void __launch_bounds__(kMaxThreads) window_bwd(Args<T> a) {
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         FragA<kS> fk, fv;
-        load_a(fk, stA, warp * kRows, ks * 16, lane);
-        load_a(fv, stB, warp * kRows, ks * 16, lane);
+        load_a(fk, stA, rg * kRows, ks * 16, lane);
+        load_a(fv, stB, rg * kRows, ks * 16, lane);
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           FragB<kS> fq, fo;
@@ -947,10 +1034,10 @@ __global__ void __launch_bounds__(kMaxThreads) window_bwd(Args<T> a) {
         frag_of<kS>(fp, dp, ks);
         frag_of<kS>(fs, s, ks);
 #pragma unroll
-        for (int np = 0; np < D / 16; ++np) {
+        for (int np = 0; np < kCols / 16; ++np) {
           FragB<kS> fo, fq;
-          load_bt(fo, cB, h * kHalf + ks * 16, np * 16, lane);
-          load_bt(fq, cA, h * kHalf + ks * 16, np * 16, lane);
+          load_bt(fo, cB, h * kHalf + ks * 16, c0 + np * 16, lane);
+          load_bt(fq, cA, h * kHalf + ks * 16, c0 + np * 16, lane);
           mma(dvv[2 * np], fp, fo, 0);
           mma(dvv[2 * np + 1], fp, fo, 1);
           mma(dkn[2 * np], fs, fq, 0);
@@ -961,28 +1048,47 @@ __global__ void __launch_bounds__(kMaxThreads) window_bwd(Args<T> a) {
   }
 
   // dk = r * dkn - k * r^3 * <k, dkn>; the row's dq + dk, and dv
+  float inner[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int lr = warp * kRows + g4 + 8 * r;
-    const size_t row = t.gr + t.row0 + lr;
-    const T* k = a.qk + t.gs + static_cast<size_t>(kt[r]) * D + 2 * t4;
-    float inner = 0.f;
+    const T* k = qk + static_cast<size_t>(kt[r]) * D + c0 + 2 * t4;
+    float in = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < kDt; ++nt) {
+    for (int nt = 0; nt < kCt; ++nt) {
       const float2 kk = ld2(k + nt * 8);
-      inner = fmaf(kk.x, dkn[nt][2 * r], inner);
-      inner = fmaf(kk.y, dkn[nt][2 * r + 1], inner);
+      in = fmaf(kk.x, dkn[nt][2 * r], in);
+      in = fmaf(kk.y, dkn[nt][2 * r + 1], in);
     }
-    inner = quad_sum(inner);
-    const float rr = sR[lr], r3 = rr * rr * rr;
-    float* dqk = a.dq + row * a.gstride + 2 * t4;
-    float* dv = a.dv + row * a.gstride + 2 * t4;
+    inner[r] = quad_sum(in);
+  }
+  if constexpr (share<D>() > 1) {        // the column parts' sums, in order
 #pragma unroll
-    for (int nt = 0; nt < kDt; ++nt) {
+    for (int r = 0; r < 2; ++r)
+      if (t4 == 0) sIn[c0 / kCols][rg * kRows + g4 + 8 * r] = inner[r];
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int lr = rg * kRows + g4 + 8 * r;
+      float in = 0.f;
+#pragma unroll
+      for (int p = 0; p < share<D>(); ++p) in += sIn[p][lr];
+      inner[r] = in;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int lr = rg * kRows + g4 + 8 * r;
+    const size_t row = t.gr + t.row0 + lr;
+    const T* k = qk + static_cast<size_t>(kt[r]) * D + c0 + 2 * t4;
+    const float rr = sR[lr], r3 = rr * rr * rr;
+    float* dqk = a.dq + row * a.gstride + c0 + 2 * t4;
+    float* dv = a.dv + row * a.gstride + c0 + 2 * t4;
+#pragma unroll
+    for (int nt = 0; nt < kCt; ++nt) {
       const float2 kk = ld2(k + nt * 8);
       const float2 q = ld2(dqk + nt * 8);      // this thread's query phase
-      st2(dqk + nt * 8, q.x + (rr * dkn[nt][2 * r] - kk.x * r3 * inner),
-          q.y + (rr * dkn[nt][2 * r + 1] - kk.y * r3 * inner));
+      st2(dqk + nt * 8, q.x + (rr * dkn[nt][2 * r] - kk.x * r3 * inner[r]),
+          q.y + (rr * dkn[nt][2 * r + 1] - kk.y * r3 * inner[r]));
       st2(dv + nt * 8, dvv[nt][2 * r], dvv[nt][2 * r + 1]);
     }
   }
@@ -1006,7 +1112,7 @@ cudaError_t launch_fwd(const Args<T>& a, int g, cudaStream_t stream) {
   if (e != cudaSuccess) return e;
   const int bs = block_rows(a.unit);
   const dim3 grid(a.unit / bs, a.rows / a.unit, g);
-  window_fwd<T, D, kLsh><<<grid, 2 * bs, smem, stream>>>(a);
+  window_fwd<T, D, kLsh><<<grid, 2 * bs * share<D>(), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1017,9 +1123,9 @@ cudaError_t launch_bwd(const Args<T>& a, int g, cudaStream_t stream) {
       window_bwd<T, D, kLsh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return e;
-  const int bs = block_rows(a.unit);
+  const int bs = stat_rows<T, D>() < kTile ? kHalf : block_rows(a.unit);
   const dim3 grid(a.unit / bs, a.rows / a.unit, g);
-  window_bwd<T, D, kLsh><<<grid, 2 * bs, smem, stream>>>(a);
+  window_bwd<T, D, kLsh><<<grid, 2 * bs * share<D>(), smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -15,7 +15,9 @@ within chunks of ``bucket`` sorted rows and the chunk before, un-sorts and
 combines the rounds by their logsumexp. By default the sorted rows are
 gathered with ``sort_gather.gather_rows`` (the CUDA gather on the card) and
 attended by the plain ``chunk_core``; under ``CTTS_FUSED_LSH=1`` the fused
-chunk kernels (``ops/lsh_chunk_attention.py``) take both steps. The un-sort
+chunk kernels (``ops/lsh_chunk_attention.py``) take both steps for heads up
+to 128 wide (``supported(d)``; wider heads keep the default route, as in the
+JAX package). The un-sort
 is ``sort_gather.scatter_rows`` on both routes. The core computes in
 float32 on both routes (the JAX package's jnp path keeps the compute dtype).
 
@@ -75,7 +77,7 @@ def lsh_attention(qk, v, valid, rot, bucket_size=64, n_hashes=4,
     G, N, d = qk.shape
     sticker, st, svalid = lsh_sort(qk, valid, rot, bucket_size, n_hashes)
     scale = d ** -0.5
-    if supported():
+    if supported(d):
         out = chunk_attention(qk, v, st, svalid, bucket_size, causal, scale)
     else:
         rows = gather_rows(torch.cat([qk, v], dim=-1), st)

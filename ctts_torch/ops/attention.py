@@ -3,7 +3,10 @@
 ``fused_attention`` launches the CUDA kernel ``csrc/attention.cu`` for
 tensors on the card and runs :func:`attention_plain` (the math of
 ``_reference_attention``) for tensors on the CPU. There is no other path:
-a CUDA tensor the kernel does not take raises.
+a CUDA tensor the kernel does not take raises. The kernel has instances at
+d = 16, 32, 64, 128 and 256 (the JAX package runs any d, its other widths
+through the reference); any other d up to 256 runs zero-padded to the next
+instance (``ops/head_width.py``), and a wider one raises.
 
 The JAX package has no backward kernel for it (``_fused_bwd``,
 ctts_tpu/ops/attention.py:85-91, recomputes through the reference with
@@ -18,7 +21,7 @@ import math
 
 import torch
 
-from ctts_torch.ops import kernels
+from ctts_torch.ops import head_width, kernels
 
 NEG = -1e9
 
@@ -26,7 +29,12 @@ NEG = -1e9
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def kernel_width(d):
+    """The width of the instance that runs heads of width d."""
+    return head_width.instance_width(d, _HEAD_DIMS, "fused_attention")
 
 
 def attention_plain(q, k, v, lengths, scale):
@@ -122,5 +130,15 @@ def fused_attention(q, k, v, lengths, scale=None):
         return attention_plain(q, k, v, lengths, scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
+    return _on_card(q, k, v, lengths, scale)
+
+
+def _on_card(q, k, v, lengths, scale):
+    """The kernel at the instance width of d: q, k and v zero-padded to it
+    and the output trimmed back where d has no instance of its own."""
+    d = q.shape[-1]
+    w = kernel_width(d)
+    q, k, v = (head_width.pad_heads(t, w) for t in (q, k, v))
     _check(q, k, v, lengths)
-    return _FusedAttention.apply(q, k, v, lengths, scale)
+    out = _FusedAttention.apply(q, k, v, lengths, scale)
+    return out if w == d else out[..., :d]

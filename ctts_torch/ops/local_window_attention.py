@@ -15,7 +15,10 @@ as the reformer uses it.
 ``csrc/local_window_attention.cu`` for tensors on the card (a forward that
 also writes each row's softmax max and sum, and a backward that recomputes
 the probabilities) and runs :func:`local_window_attention_plain` for tensors
-on the CPU. A CUDA tensor the kernels do not take raises.
+on the CPU. A CUDA tensor the kernels do not take raises. The kernels have
+instances at d = 16, 32, 64, 128 and 256, as the TPU kernel takes any
+d <= 256; any other d up to 256 runs zero-padded to the next instance
+(``ops/head_width.py``), and a wider one raises.
 
 The plain version computes in float32; the kernels multiply bf16
 operands on the tensor cores with float32 sums (float32 inputs split into
@@ -31,7 +34,7 @@ import ctypes
 
 import torch
 
-from ctts_torch.ops import kernels
+from ctts_torch.ops import head_width, kernels
 
 NEG = -1e9
 SELF_ATTN_VAL = -5e4
@@ -41,7 +44,12 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)          # the reformer's heads: 128 at full width
+_HEAD_DIMS = (16, 32, 64, 128, 256)     # the reformer's heads: 128 at full width
+
+
+def kernel_width(d):
+    """The width of the instance that runs heads of width d."""
+    return head_width.instance_width(d, _HEAD_DIMS, "local_window_attention")
 
 
 def _look_back_padded(x, pad_value):
@@ -190,7 +198,17 @@ def local_window_attention(qk, v, valid, window, scale):
     if qk.device.type != "cuda":
         raise ValueError(f"local_window_attention runs on cpu or cuda, not "
                          f"{qk.device}")
+    return _on_card(qk, v, valid, window, scale)
+
+
+def _on_card(qk, v, valid, window, scale):
+    """The kernels at the instance width of d: qk and v zero-padded to it
+    and the output trimmed back where d has no instance of its own."""
+    d = qk.shape[-1]
+    w = kernel_width(d)
+    qk, v = head_width.pad_heads(qk, w), head_width.pad_heads(v, w)
     valid = valid.to(torch.int32).contiguous()
     _check(qk, v, valid, window)
-    return _LocalWindowAttention.apply(qk, v, valid, int(window),
-                                       float(scale))
+    out = _LocalWindowAttention.apply(qk, v, valid, int(window),
+                                      float(scale))
+    return out if w == d else out[..., :d]

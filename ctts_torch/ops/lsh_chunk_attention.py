@@ -23,8 +23,12 @@ float32) and runs :func:`chunk_attention_plain` (a
 row gather, then :func:`chunk_core`) for tensors on the CPU. Its backward
 takes the logsumexp's own cotangent, which the round combine sends. The
 reformer takes this route under ``CTTS_FUSED_LSH=1`` (:func:`supported`,
-read at every call, as the JAX package reads it); by default it gathers the
-sorted rows with ``sort_gather.gather_rows`` and runs :func:`chunk_core`.
+read at every call, as the JAX package reads it) for heads up to 128 wide,
+the widths the TPU kernel takes; by default, and for wider heads, it
+gathers the sorted rows with ``sort_gather.gather_rows`` and runs
+:func:`chunk_core`. The kernels have instances at d = 16, 32, 64 and 128;
+any other d up to 128 runs zero-padded to the next instance
+(``ops/head_width.py``), and a wider one raises.
 """
 
 import ctypes
@@ -32,7 +36,7 @@ import os
 
 import torch
 
-from ctts_torch.ops import kernels, sort_gather
+from ctts_torch.ops import head_width, kernels, sort_gather
 
 NEG = -1e9
 SELF_ATTN_VAL = -5e4
@@ -42,12 +46,21 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)          # the reformer's heads: 128 at full width
+_HEAD_DIMS = (16, 32, 64, 128)  # the reformer's heads: 128 at full width
 
 
-def supported():
-    """Whether the reformer takes the fused route: ``CTTS_FUSED_LSH=1``."""
-    return os.environ.get("CTTS_FUSED_LSH", "0") == "1"
+def kernel_width(d):
+    """The width of the instance that runs heads of width d."""
+    return head_width.instance_width(d, _HEAD_DIMS, "chunk_attention")
+
+
+def supported(d):
+    """Whether the reformer takes the fused route for heads of width d:
+    ``CTTS_FUSED_LSH=1`` and 4 <= d <= 128, the widths at which the JAX
+    package's reformer takes it (``lsh_chunk_attention.supported``: d <=
+    128; its sort gather, which the route needs: rows of 8 <= 2d <= 256)."""
+    return (os.environ.get("CTTS_FUSED_LSH", "0") == "1"
+            and 4 <= d <= _HEAD_DIMS[-1])
 
 
 def look_one_back(x):
@@ -210,6 +223,17 @@ def chunk_attention(qk, v, st, svalid, cs, causal, scale):
     if qk.device.type != "cuda":
         raise ValueError(f"chunk_attention runs on cpu or cuda, not "
                          f"{qk.device}")
+    return _on_card(qk, v, st, svalid, cs, causal, scale)
+
+
+def _on_card(qk, v, st, svalid, cs, causal, scale):
+    """The kernels at the instance width of d: qk and v zero-padded to it,
+    and the output (out ‖ lse) trimmed back to d + 1 columns where d has no
+    instance of its own."""
+    d = qk.shape[-1]
+    w = kernel_width(d)
+    qk, v = head_width.pad_heads(qk, w), head_width.pad_heads(v, w)
     _check(qk, v, st, svalid, cs)
-    return _ChunkAttention.apply(qk, v, st, svalid, int(cs), bool(causal),
-                                 float(scale))
+    out = _ChunkAttention.apply(qk, v, st, svalid, int(cs), bool(causal),
+                                float(scale))
+    return out if w == d else torch.cat([out[..., :d], out[..., w:]], -1)

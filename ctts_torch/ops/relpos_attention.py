@@ -17,7 +17,10 @@ read the next query row right of the diagonal:
 two backward kernels: one recomputes the scores once and writes dq
 through Q+u, dS and the dropped P, the other takes dk, dv and the shift's
 gradients as products over those two) and runs :func:`relpos_attention_plain` for tensors on the CPU. There is no
-other path: a CUDA tensor the kernels do not take raises.
+other path: a CUDA tensor the kernels do not take raises. The kernels have
+instances at Dh = 16, 32, 64, 128 and 256 (the last two as chunks of 64
+columns, see the kernel's note); any other Dh up to 256 runs zero-padded to
+the next instance (``ops/head_width.py``), and a wider one raises.
 
 Dropout cannot reproduce JAX's masks (the TPU's in-kernel PRNG). Its mask
 is a counter-based hash of (seed, n, q, k), ``n`` the batch·head row
@@ -34,7 +37,7 @@ import ctypes
 
 import torch
 
-from ctts_torch.ops import kernels
+from ctts_torch.ops import head_width, kernels
 
 NEG = -1e9
 _M32 = 0xFFFFFFFF
@@ -45,7 +48,12 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64)       # the conformer's: 8 heads of 32 in 256
+_HEAD_DIMS = (16, 32, 64, 128, 256)     # the conformer's: 8 heads of 32 in 256
+
+
+def kernel_width(d):
+    """The width of the instance that runs heads of width d."""
+    return head_width.instance_width(d, _HEAD_DIMS, "relpos_attention")
 
 
 def relative_shift(pos_score):
@@ -276,7 +284,8 @@ def relpos_attention(q, k, v, pos, u_bias, v_bias, scale, dropout_p=0.0,
     (module docstring). Returns [B, T, H, Dh] in q's dtype.
     On the card the bias is added in float32, every product runs on the
     tensor cores in bf16 (float32 operands split into bf16 hi + lo) and
-    accumulates in float32; d is 16, 32 or 64. The backward on the card
+    accumulates in float32; d is any width up to 256 (module docstring).
+    The backward on the card
     takes two [N, T, T] scratch tensors in q's dtype (see ``_launch_bwd``)."""
     B, T, H, d = q.shape
     seed = draw_seed(generator, q.device) if dropout_p > 0.0 else None
@@ -291,18 +300,30 @@ def relpos_attention(q, k, v, pos, u_bias, v_bias, scale, dropout_p=0.0,
                          f"{q.device}")
     if seed is None:
         seed = torch.zeros(2, dtype=torch.int64, device=q.device)
+    return _on_card(q, k, v, pos, u_bias, v_bias, scale, dropout_p, seed,
+                    key_padding_mask, hr)
+
+
+def _on_card(q, k, v, pos, u_bias, v_bias, scale, dropout_p, seed,
+             key_padding_mask, hr):
+    """The kernels at the instance width of Dh: q, k, v, pos and the biases
+    zero-padded to it and the output trimmed back where Dh has no instance
+    of its own."""
+    B, T, H, d = q.shape
+    w = kernel_width(d)
 
     def fold(t):
-        return t.permute(0, 2, 1, 3).reshape(B * H, T, d).contiguous()
+        t = head_width.pad_heads(t.permute(0, 2, 1, 3), w)
+        return t.reshape(B * H, T, w).contiguous()
 
     kmask = None
     if key_padding_mask is not None:
         kmask = (~key_padding_mask).to(torch.int32).contiguous()
-    ub = u_bias.float().contiguous()
-    vb = v_bias.float().contiguous()
-    pos = pos.to(q.dtype).contiguous()
+    ub = head_width.pad_heads(u_bias.float(), w).contiguous()
+    vb = head_width.pad_heads(v_bias.float(), w).contiguous()
+    pos = head_width.pad_heads(pos.to(q.dtype), w).contiguous()
     qf, kf, vf = fold(q), fold(k), fold(v)
     _check(qf, kf, vf, pos, ub, vb, seed, kmask)
     out = _RelposAttention.apply(qf, kf, vf, pos, ub, vb, seed, kmask,
                                  float(scale), float(dropout_p), hr)
-    return out.reshape(B, H, T, d).permute(0, 2, 1, 3)
+    return out.reshape(B, H, T, w)[..., :d].permute(0, 2, 1, 3)

@@ -166,7 +166,7 @@ def test_gather_kernel_out_of_range_rows_are_zero():
 def test_wrappers_raise_on_untaken_cuda_input():
     dev = _need_card()
     from ctts_torch.ops import attention, sort_gather
-    q = torch.zeros(2, 16, 32, device=dev)                 # d=32: no kernel
+    q = torch.zeros(2, 16, 264, device=dev)            # d=264: past 256
     with pytest.raises(ValueError, match="F1"):
         attention.fused_attention(q, q, q, torch.full((2,), 16, dtype=torch.int32,
                                                       device=dev))
@@ -780,10 +780,12 @@ def _attention_case(rng, dev, N, T, d, lens):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,d", [(97, 64), (97, 256), (1152, 64),
-                                 (1152, 256)])
+                                 (1152, 256), (97, 16), (1152, 16), (97, 32),
+                                 (1152, 32), (97, 48), (200, 24)])
 def test_attention_kernel_other_widths_bit_identical(T, d, dtype, tol):
     """Lengths of 0 and 1, a ragged last query block and key tile; one
-    launch a call; two runs give the same bits."""
+    launch a call; two runs give the same bits. d = 48 and 24 run
+    zero-padded to the 64 and 32 instances."""
     dev = _need_card()
     from ctts_torch.ops import attention
     rng = np.random.RandomState(T * d)
@@ -999,7 +1001,9 @@ def _relpos_case(dev, B, H, T, d, seed):
 @pytest.mark.parametrize("B,H,T,d", [(2, 8, 96, 32), (1, 2, 200, 32),
                                      (4, 8, 87, 32), (2, 4, 87, 16),
                                      (1, 4, 200, 16), (2, 2, 87, 64),
-                                     (1, 4, 200, 64)])
+                                     (1, 4, 200, 64), (2, 2, 200, 128),
+                                     (1, 2, 87, 128), (1, 1, 200, 256),
+                                     (2, 1, 87, 256), (1, 2, 96, 96)])
 def test_relpos_kernels_match_plain(B, H, T, d, dtype, tol, masked, dropout):
     """Forward and backward kernels against the plain version in float32 on
     the same (rounded) inputs and the same dropout seed: the output and each
@@ -1051,7 +1055,7 @@ def test_relpos_backward_is_deterministic():
 def test_relpos_wrapper_raises_on_untaken_cuda_input():
     dev = _need_card()
     from ctts_torch.ops import relpos_attention as ra
-    args, _, _ = _relpos_case(dev, 1, 2, 40, 8, 0)       # d=8: no kernel
+    args, _, _ = _relpos_case(dev, 1, 2, 40, 264, 0)    # d=264: past 256
     with pytest.raises(ValueError, match="F1"):
         ra.relpos_attention(*args, 0.1)
     args, _, _ = _relpos_case(dev, 1, 2, 40, 32, 0)
@@ -1076,10 +1080,10 @@ def test_conformer_forward_on_the_card():
     _conformer_forward_matches_cpu(64, 2)
 
 
-@pytest.mark.parametrize("hidden,heads", [(64, 4), (128, 2)])
+@pytest.mark.parametrize("hidden,heads", [(64, 4), (128, 2), (256, 2)])
 def test_conformer_forward_other_head_dims_on_the_card(hidden, heads):
-    """The same with heads of 16 (64 in 4) and of 64 (128 in 2), the relpos
-    kernels' other widths."""
+    """The same with heads of 16 (64 in 4), of 64 (128 in 2) and of 128
+    (256 in 2), the relpos kernels' other widths."""
     _conformer_forward_matches_cpu(hidden, heads)
 
 
@@ -1156,7 +1160,9 @@ def _assert_close(pairs, tol):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("G,N,d", [(3, 128, 128), (3, 256, 128), (3, 256, 64)])
+@pytest.mark.parametrize("G,N,d", [(3, 128, 128), (3, 256, 128), (3, 256, 64),
+                                   (3, 256, 16), (3, 256, 32), (3, 384, 256),
+                                   (2, 128, 256), (3, 256, 96)])
 def test_local_window_kernels_match_plain(G, N, d, dtype, tol):
     """Forward and backward against the plain version in float32 on the same
     (rounded) inputs, window 128: output, dqk and dv within ``tol`` of their
@@ -1192,7 +1198,8 @@ def _lsh_sort_case(dev, G, N, d, seed, n_hashes=4, bucket=64):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("G,N,d", [(2, 128, 128), (2, 256, 128), (2, 256, 64)])
+@pytest.mark.parametrize("G,N,d", [(2, 128, 128), (2, 256, 128), (2, 256, 64),
+                                   (2, 256, 16), (2, 256, 32), (2, 128, 48)])
 def test_lsh_chunk_kernels_match_plain(G, N, d, dtype, tol, causal):
     """Forward (output ‖ logsumexp, float32) and backward with a random
     cotangent on both against the plain version in float32 on the same
@@ -1344,10 +1351,11 @@ def test_reformer_wrappers_raise_on_untaken_cuda_input():
     dev = _need_card()
     from ctts_torch.ops import local_window_attention as lw
     from ctts_torch.ops import lsh_chunk_attention as lc
-    qk, v, _, valid = _window_case(dev, 2, 128, 32, 0)       # d=32: no kernel
+    qk, v, _, valid = _window_case(dev, 2, 128, 264, 0)    # d=264: past 256
     with pytest.raises(ValueError, match="F1"):
         lw.local_window_attention(qk, v, valid, 128, 0.1)
     st = torch.zeros(2, 512, dtype=torch.int32, device=dev)
+    qk, v, _, valid = _window_case(dev, 2, 128, 136, 0)    # d=136: past 128
     with pytest.raises(ValueError, match="F1"):
         lc.chunk_attention(qk, v, st, st, 64, True, 0.1)
     qk, v, _, valid = _window_case(dev, 2, 128, 128, 0)
@@ -1553,8 +1561,13 @@ def test_streamed_vocode_equals_full_on_the_card(dtype):
 
 @pytest.mark.parametrize("variant", ["baseline", "row_flip", "lane_rev",
                                      "ladder"])
-@pytest.mark.parametrize("N,T,BQ", [(3, 256, 128), (2, 896, 128), (2, 40, 8)])
+@pytest.mark.parametrize("N,T,BQ", [(3, 256, 128), (2, 896, 128), (2, 40, 8),
+                                    (3, 30, 3), (1, 1152, 128),
+                                    (128, 896, 128)])
 def test_flip_kernel_bit_exact(N, T, BQ, variant):
+    """Every variant bit for bit against the plain version: rows whose
+    bytes are whole 16-byte pieces (the bulk-copy staging), rows of T = 30
+    that start off those pieces, and the flip tool's own shape."""
     dev = _need_card()
     from ctts_torch.ops import flip
     rng = np.random.RandomState(T + BQ)

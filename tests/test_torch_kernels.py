@@ -144,8 +144,9 @@ def test_cuda_inputs_never_reach_plain_versions(monkeypatch):
     idx = _OnCuda(torch.zeros(2, 3, dtype=torch.int32))
     with pytest.raises(_KernelReached):
         t_sg.gather_rows(vals, idx)
-    # shapes and dtypes the kernels do not take raise before any launch
-    bad_d = _OnCuda(torch.zeros(2, 16, 48))
+    # shapes and dtypes the kernels do not take raise before any launch (a
+    # width past the widest instance; narrower ones are zero-padded)
+    bad_d = _OnCuda(torch.zeros(2, 16, 264))
     with pytest.raises(ValueError):
         t_attn.fused_attention(bad_d, bad_d, bad_d, lens)
     half = _OnCuda(torch.zeros(2, 16, 64, dtype=torch.float16))
